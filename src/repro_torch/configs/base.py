@@ -1,0 +1,72 @@
+"""Architecture configuration for the attention-family models the port runs.
+
+A copy of the fields of the JAX package's ``ArchConfig`` that the dense
+decoder path reads.  ``mixer``, ``n_experts``, ``vision_stub`` and
+``mrope_sections`` exist so that a config asking for a family the port does
+not run yet is refused by :class:`repro_torch.models.transformer.DecoderLM`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+
+    mixer: str = "attn"
+    rope_theta: float = 1.0e4
+    mrope_sections: tuple | None = None
+    attn_block_k: int = 512
+    n_experts: int = 0
+    vision_stub: bool = False
+
+    # BitDecoding KV cache
+    kv_bits: int = 4
+    kv_block: int = 128
+    kv_gran: str = "channel"
+
+    def with_(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def g_q(self) -> int:
+        return self.n_heads // max(1, self.n_kv_heads)
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 256; logits of the padding ids are
+        masked (``layers.mask_padded_vocab``)."""
+        return -(-self.vocab // 256) * 256
+
+
+_REGISTRY = ["llama3_8b", "llama2_7b"]
+
+
+def _mod_name(name: str) -> str:
+    return name.replace("-", "_").replace(".", "_")
+
+
+def _module(name: str):
+    mod_name = _mod_name(name)
+    if mod_name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; available: {_REGISTRY}")
+    return importlib.import_module(f"repro_torch.configs.{mod_name}")
+
+
+def get_config(name: str) -> ArchConfig:
+    return _module(name).CONFIG
+
+
+def smoke_config(name: str) -> ArchConfig:
+    """A reduced same-family config for CPU tests."""
+    return _module(name).SMOKE

@@ -1,0 +1,138 @@
+"""Build and bind the port's CUDA kernels (``csrc/*.cu``).
+
+One ``nvcc`` call compiles every source into one shared library with a plain
+C interface, for ``sm_90a``, on first CUDA use, and ``ctypes`` binds it.  The
+library is named by a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged tree is reused.  There is deliberately no
+``--use_fast_math``: the quantize kernels must produce the same codes as the
+plain PyTorch version, bit for bit.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`launch` raises when that is not 0 and otherwise counts the launch in
+:data:`launches`, the count a run reads to show which kernels it went through.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# kernel name -> launches since the last clear(); only :func:`launch` adds
+launches: collections.Counter = collections.Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+# kernel name -> C entry point and its signature (see csrc/*.cu)
+_SIGNATURES = {
+    "kv_quant": ("kv_quant_launch", [_P, _L, _L, _L, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _I, _P]),
+    "residual_flush": ("residual_flush_launch", [_P] * 10 + [_I] * 8 + [_P]),
+    "bitdecode": ("bitdecode_launch", [_P] * 13 + [_I] * 12 + [_F, _P]),
+}
+
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    for cand in (Path(home) / "bin" / "nvcc", shutil.which("nvcc")):
+        if cand and Path(cand).exists():
+            return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> ctypes.CDLL:
+    """Compile the library if it is missing, and bind its entry points."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"librepro_torch_{_digest()}.so"
+    with open(BUILD_DIR / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+            (BUILD_DIR / "nvcc.log").write_text(proc.stdout)
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed:\n{proc.stdout}")
+            os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for fn_name, argtypes in _SIGNATURES.values():
+        fn = getattr(lib, fn_name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    build_seconds = time.perf_counter() - t0
+    return lib
+
+
+def ptxas_report() -> str:
+    """nvcc's ``-Xptxas -v`` output (registers, shared memory, spills) of
+    the last build."""
+    log = BUILD_DIR / "nvcc.log"
+    return log.read_text() if log.exists() else ""
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s C entry point; raise if the launch failed."""
+    lib = build()
+    err = getattr(lib, _SIGNATURES[name][0])(*args)
+    if err:
+        msg = lib.repro_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {err})")
+    launches[name] += 1
+
+
+def stream_of(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def resolve_impl(impl: str, *tensors) -> str:
+    """'auto' -> 'cuda' when any tensor is on the card, else 'torch'.
+    'cuda' needs every tensor on the card and raises otherwise, so tensors
+    split between the CPU and the card raise under 'auto' too: there is no
+    silent fallback to the plain version."""
+    if impl not in ("auto", "cuda", "torch"):
+        raise ValueError(f"unknown impl {impl!r}; expected 'auto', 'cuda' or 'torch'")
+    devices = {t.device.type for t in tensors if t is not None}
+    if impl == "auto":
+        impl = "cuda" if "cuda" in devices else "torch"
+    if impl == "cuda" and devices != {"cuda"}:
+        raise ValueError(f"impl='cuda' needs CUDA tensors, got tensors on {sorted(devices)}; "
+                         "use impl='torch' for the plain version")
+    return impl

@@ -1,0 +1,70 @@
+"""Model-level attention block: projections + RoPE + the BitDecoding cache.
+
+Prefill runs blockwise flash attention and builds the quantized cache from
+its K/V; decode appends to the cache and runs the fused low-bit kernel
+through the query transformation (core/attention.py).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import attention as catt
+from repro_torch.core import qcache
+from repro_torch.models import layers
+from repro_torch.models.params import P
+
+
+def attn_def(cfg) -> dict:
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": P((d, hq, hd), fan_in=d),
+        "wk": P((d, hkv, hd), fan_in=d),
+        "wv": P((d, hkv, hd), fan_in=d),
+        "wo": P((hq, hd, d), fan_in=hq * hd),
+    }
+
+
+def _proj(x, w):
+    """x [B, S, d] @ w [d, H, k] -> [B, S, H, k]."""
+    return torch.matmul(x, w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def _out(o, w):
+    """o [B, S, H, k] @ w [H, k, d] -> [B, S, d]."""
+    return torch.matmul(o.reshape(*o.shape[:2], -1), w.reshape(-1, w.shape[-1]))
+
+
+def _qkv(p, cfg, x, positions):
+    q = layers.apply_rope(_proj(x, p["wq"]), positions, theta=cfg.rope_theta)
+    k = layers.apply_rope(_proj(x, p["wk"]), positions, theta=cfg.rope_theta)
+    return q, k, _proj(x, p["wv"])
+
+
+def attn_prefill_cache(p, cfg, x, positions, max_seq: int, *, quant_impl="auto",
+                       lengths=None):
+    """Causal attention over the prompt, and a cache built from its K/V.
+
+    ``lengths`` ([B] int32, optional) marks a ragged right-padded batch:
+    per-sequence cache occupancy follows the true lengths."""
+    q, k, v = _qkv(p, cfg, x, positions)
+    out = catt.blockwise_attention(q, k, v, block_k=cfg.attn_block_k)
+    cache = qcache.init_cache(
+        x.shape[0], cfg.n_kv_heads, cfg.head_dim, max_seq, bits=cfg.kv_bits,
+        block_n=cfg.kv_block, k_gran=cfg.kv_gran, device=x.device,
+    )
+    cache = qcache.prefill(cache, k.transpose(1, 2), v.transpose(1, 2),
+                           lengths=lengths, quant_impl=quant_impl)
+    return _out(out.to(x.dtype), p["wo"]), cache
+
+
+def attn_decode(p, cfg, x, positions, cache, *, impl="auto", quant_impl="auto",
+                num_splits="auto"):
+    """x: [B, 1, d]; appends to the cache (in place), then runs the fused
+    low-bit decode kernel.  ``impl`` picks the attention kernel,
+    ``quant_impl`` the flush, ``num_splits`` the split-KV count."""
+    q, k, v = _qkv(p, cfg, x, positions)
+    out, cache = catt.decode_append_attention(
+        q, cache, k.transpose(1, 2), v.transpose(1, 2), quant_impl=quant_impl,
+        impl=impl, num_splits=num_splits,
+    )
+    return _out(out.to(x.dtype), p["wo"]), cache

@@ -1,0 +1,159 @@
+"""Decoder-only LM with the BitDecoding cache: the attention family with a
+dense SwiGLU MLP stack (LLaMA-2/3).
+
+Per-layer parameters carry a leading ``layers`` axis, as in the JAX package,
+and the layers run in a Python loop over views of them.  The decode state is
+
+    {"caches": [QuantKVCache stacked over layers], "pos": int32 [B]}
+
+and :meth:`DecoderLM.decode_step` updates its caches in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import qcache
+from repro_torch.core.device import resolve_device
+from repro_torch.models import attention as mattn
+from repro_torch.models import layers
+from repro_torch.models.params import init_tree, stack
+
+_LATER = "ROADMAP queue A, item 10 (the other model families)"
+
+
+def _check_supported(cfg) -> None:
+    if cfg.mixer != "attn":
+        raise NotImplementedError(f"mixer={cfg.mixer!r} is not ported yet: {_LATER}")
+    if cfg.n_experts:
+        raise NotImplementedError(f"MoE stacks are not ported yet: {_LATER}")
+    if cfg.vision_stub:
+        raise NotImplementedError(f"the vision stub is not ported yet: {_LATER}")
+    if cfg.mrope_sections:
+        raise NotImplementedError(f"M-RoPE is not ported yet: {_LATER}")
+
+
+def _layer(tree, i: int):
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+class DecoderLM:
+    """Dense decoder-only LM (attention mixer, SwiGLU MLP, RMSNorm)."""
+
+    def __init__(self, cfg):
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.stacks = [("mlp", cfg.n_layers)]
+
+    # ------------------------------------------------------------ params
+
+    def _block_def(self):
+        cfg = self.cfg
+        return {
+            "ln1": layers.rmsnorm_def(cfg.d_model),
+            "attn": mattn.attn_def(cfg),
+            "mlp": layers.mlp_def(cfg.d_model, cfg.d_ff),
+            "ln2": layers.rmsnorm_def(cfg.d_model),
+        }
+
+    def param_defs(self):
+        cfg = self.cfg
+        defs = {
+            "embed": layers.embed_def(cfg.padded_vocab, cfg.d_model),
+            "final_norm": layers.rmsnorm_def(cfg.d_model),
+            "unembed": layers.unembed_def(cfg.d_model, cfg.padded_vocab),
+        }
+        for i, (_, n) in enumerate(self.stacks):
+            defs[f"stack_{i}"] = stack(self._block_def(), n)
+        return defs
+
+    def init(self, gen: torch.Generator, device=None):
+        """Random parameters drawn from ``gen``, on ``device`` (the card
+        unless given)."""
+        return init_tree(self.param_defs(), gen, device)
+
+    def _logits(self, params, x):
+        x = layers.rmsnorm(params["final_norm"], x)
+        return layers.unembed(params["unembed"], x, self.cfg.vocab)
+
+    def _mlp_residual(self, p, x):
+        return x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x))
+
+    # ------------------------------------------------------------ prefill
+
+    def prefill(self, params, batch, max_seq: int, *, lengths=None,
+                quant_impl: str = "auto", prior=None):
+        """Process the prompt ``batch["tokens"]`` [B, L], build the quantized
+        caches and return ``(last_logits [B, 1, V], state)``.
+
+        ``lengths`` ([B] int32, optional): the batch is ragged, right-padded
+        to L.  Cache occupancy follows the true lengths and the logits are
+        those of each sequence's last real token.  ``quant_impl`` picks the
+        quantize kernel ('auto' | 'cuda' | 'torch')."""
+        if prior is not None:
+            raise NotImplementedError(
+                "suffix prefill (prior=) comes with the paged cache and the "
+                "serving engine: ROADMAP queue A, items 7-8"
+            )
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = layers.embed(params["embed"], tokens)
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        caches = []
+        for i, (_, n) in enumerate(self.stacks):
+            layer_caches = []
+            for li in range(n):
+                p = _layer(params[f"stack_{i}"], li)
+                h = layers.rmsnorm(p["ln1"], x)
+                a, cache = mattn.attn_prefill_cache(
+                    p["attn"], self.cfg, h, positions, max_seq,
+                    quant_impl=quant_impl, lengths=lengths,
+                )
+                x = self._mlp_residual(p, x + a)
+                layer_caches.append(cache)
+            caches.append(qcache.stack_caches(layer_caches))
+        if lengths is None:
+            x_last = x[:, -1:]
+            pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        else:
+            lengths = lengths.to(device=x.device, dtype=torch.int32)
+            last = torch.clamp(lengths.long() - 1, 0, s - 1)
+            x_last = x[torch.arange(b, device=x.device), last][:, None]
+            pos = lengths.clone()
+        return self._logits(params, x_last), {"caches": caches, "pos": pos}
+
+    # ------------------------------------------------------------ decode
+
+    def init_decode_state(self, batch_size: int, max_seq: int, *, device=None):
+        """Empty caches and positions on ``device`` (the card unless given)."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        caches = []
+        for _, n in self.stacks:
+            one = [qcache.init_cache(
+                batch_size, cfg.n_kv_heads, cfg.head_dim, max_seq, bits=cfg.kv_bits,
+                block_n=cfg.kv_block, k_gran=cfg.kv_gran, device=device,
+            ) for _ in range(n)]
+            caches.append(qcache.stack_caches(one))
+        return {"caches": caches,
+                "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device)}
+
+    def decode_step(self, params, state, tokens, *, impl="auto", quant_impl="auto",
+                    num_splits="auto"):
+        """tokens [B, 1] -> (logits [B, 1, V], state).  The caches of
+        ``state`` are updated in place; the returned state holds the same
+        caches and ``pos + 1``.  ``num_splits`` is the decode attention's
+        split-KV count ('auto' or an integer)."""
+        x = layers.embed(params["embed"], tokens)
+        pos = state["pos"]
+        positions = pos[:, None]
+        for i, (_, n) in enumerate(self.stacks):
+            stacked = state["caches"][i]
+            for li in range(n):
+                p = _layer(params[f"stack_{i}"], li)
+                h = layers.rmsnorm(p["ln1"], x)
+                a, _ = mattn.attn_decode(
+                    p["attn"], self.cfg, h, positions, stacked.layer(li),
+                    impl=impl, quant_impl=quant_impl, num_splits=num_splits,
+                )
+                x = self._mlp_residual(p, x + a)
+        return self._logits(params, x), {"caches": state["caches"], "pos": pos + 1}

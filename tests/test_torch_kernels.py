@@ -1,0 +1,181 @@
+"""The port's three kernel modules against the JAX package's oracles.
+
+Plain versions on the CPU: kv_quant and residual_flush bit for bit,
+bitdecode within the reference's own tolerances (out 2e-2, lse 1e-3;
+tests/test_kernels_bitdecode.py).  The CUDA kernels are held against these
+plain versions on the card in tests/test_torch_gpu.py.
+"""
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.bitdecode import ops as jbd_ops
+from repro.kernels.kv_quant import ref as jkq_ref
+from repro.kernels.residual_flush import ref as jrf_ref
+from repro_torch.convert import to_torch
+from repro_torch.kernels import _build
+from repro_torch.kernels.bitdecode import ops as bd_ops
+from repro_torch.kernels.kv_quant import ops as kq_ops
+from repro_torch.kernels.residual_flush import ops as rf_ops
+
+
+def bits_of(t: torch.Tensor) -> np.ndarray:
+    t = t.cpu()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def from_jax(x) -> torch.Tensor:
+    return to_torch(np.asarray(x))
+
+
+def bf16_pair(a: np.ndarray):
+    return jnp.asarray(a, jnp.bfloat16), torch.from_numpy(a).to(torch.bfloat16)
+
+
+# ------------------------------------------------------------------ kv_quant
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("gran", ["channel", "tensor"])
+def test_kv_quant_plain_matches_jax_bitwise(bits, gran):
+    rng = np.random.default_rng(bits)
+    x = rng.standard_normal((2, 2, 3 * 64, 32)).astype(np.float32)
+    xj, xt = bf16_pair(x)
+    ref = jkq_ref.quantize_kv_ref(xj, bits, gran, block_n=64)
+    out = kq_ops.quantize_kv(xt, bits, gran, block_n=64)
+    for o, r in zip(out, ref):
+        np.testing.assert_array_equal(bits_of(o), bits_of(from_jax(r)))
+
+
+# ------------------------------------------------------------ residual_flush
+
+
+def _flush_case(rng, *, b, h, nb, block_n, d, bits, k_gran):
+    xk = rng.standard_normal((b, h, nb * block_n, d)).astype(np.float32)
+    xv = rng.standard_normal((b, h, nb * block_n, d)).astype(np.float32)
+    packed = [*jkq_ref.quantize_kv_ref(jnp.asarray(xk, jnp.bfloat16), bits, k_gran,
+                                       block_n=block_n),
+              *jkq_ref.quantize_kv_ref(jnp.asarray(xv, jnp.bfloat16), bits, "tensor",
+                                       block_n=block_n)]
+    res = [rng.standard_normal((b, h, block_n, d)).astype(np.float32) for _ in range(2)]
+    full = np.array([1, 0, 1, 1][:b], np.int32)
+    dest = np.array([0, 1, nb + 3, nb - 1][:b], np.int32)  # one past nb - 1
+    return packed, res, full, dest
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("k_gran", ["channel", "tensor"])
+def test_residual_flush_plain_matches_jax_bitwise(bits, k_gran):
+    rng = np.random.default_rng(100 + bits)
+    packed, res, full, dest = _flush_case(rng, b=4, h=2, nb=3, block_n=64, d=32,
+                                          bits=bits, k_gran=k_gran)
+    jres = [jnp.asarray(r, jnp.bfloat16) for r in res]
+    ref = jrf_ref.residual_flush_ref(
+        *packed, *jres, jnp.asarray(full), jnp.asarray(dest), bits=bits,
+        block_n=64, k_gran=k_gran, shared_kv=False,
+    )
+    tpacked = [from_jax(p) for p in packed]
+    out = rf_ops.residual_flush(
+        *tpacked, *(torch.from_numpy(r).to(torch.bfloat16) for r in res),
+        torch.from_numpy(full), torch.from_numpy(dest), bits=bits, block_n=64,
+        k_gran=k_gran,
+    )
+    for o, t, r in zip(out, tpacked, ref):
+        assert o is t  # updated in place
+        np.testing.assert_array_equal(bits_of(o), bits_of(from_jax(r)))
+
+
+# ----------------------------------------------------------------- bitdecode
+
+
+def _decode_case(seed, *, b, h, g, d, nb, block_n, bits, k_gran, pack_blocks, res_len):
+    rng = np.random.default_rng(seed)
+    k = rng.standard_normal((b, h, nb * block_n, d)).astype(np.float32)
+    k += 3.0 * rng.standard_normal(d).astype(np.float32)  # outlier channels
+    # per-channel V offsets keep the output O(1), so the 2e-2 tolerance is
+    # small beside it and a fault on the PV side shows
+    v_off = 2.0 * rng.standard_normal(d).astype(np.float32)
+    v = rng.standard_normal((b, h, nb * block_n, d)).astype(np.float32) + v_off
+    q = (rng.standard_normal((b, h, g, d)) / d**0.25).astype(np.float32)
+    k_res = rng.standard_normal((b, h, block_n, d)).astype(np.float32)
+    v_res = rng.standard_normal((b, h, block_n, d)).astype(np.float32) + v_off
+    kw, ks, kz = jkq_ref.quantize_kv_ref(jnp.asarray(k, jnp.bfloat16), bits, k_gran,
+                                         block_n=block_n)
+    vw, vs, vz = jkq_ref.quantize_kv_ref(jnp.asarray(v, jnp.bfloat16), bits, "tensor",
+                                         block_n=block_n)
+    jcase = dict(
+        q=jnp.asarray(q, jnp.bfloat16), kw=kw, k_scale=ks, k_zero=kz, vw=vw,
+        v_scale=vs, v_zero=vz, k_res=jnp.asarray(k_res, jnp.bfloat16),
+        v_res=jnp.asarray(v_res, jnp.bfloat16),
+        pack_blocks=jnp.asarray(pack_blocks, jnp.int32),
+        res_len=jnp.asarray(res_len, jnp.int32),
+    )
+    return jcase, {name: from_jax(a) for name, a in jcase.items()}
+
+
+DECODE_CASES = [  # (g, d, block_n, bits, k_gran, pack_blocks, res_len)
+    (1, 32, 64, 4, "channel", [4, 1], [37, 0]),
+    (2, 32, 64, 2, "tensor", [0, 4], [5, 64]),
+    (4, 128, 128, 4, "channel", [4, 3], [0, 100]),
+    (4, 128, 128, 8, "tensor", [2, 4], [1, 127]),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("num_splits", [1, 2, 3])
+def test_bitdecode_plain_matches_jax(case, num_splits):
+    g, d, block_n, bits, k_gran, pb, rl = case
+    jcase, tcase = _decode_case(num_splits, b=2, h=2, g=g, d=d, nb=4, block_n=block_n,
+                                bits=bits, k_gran=k_gran, pack_blocks=pb, res_len=rl)
+    kw = dict(bits=bits, block_n=block_n, k_gran=k_gran, num_splits=num_splits,
+              return_lse=True)
+    out_j, lse_j = jbd_ops.bitdecode_attention(**jcase, impl="xla", **kw)
+    out_t, lse_t = bd_ops.bitdecode_attention(**tcase, impl="torch", **kw)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), rtol=1e-3, atol=1e-3)
+
+
+def test_auto_splits_resolve_to_one_on_cpu():
+    assert bd_ops.resolve_num_splits("auto", 1, 8, 256, "cpu") == 1
+    # on a card with 132 SMs: B=1, H_kv=8 at 32K context splits 16 ways
+    assert bd_ops.auto_num_splits(1, 8, 256, cores=132) == 16
+    assert bd_ops.auto_num_splits(4, 8, 18, cores=132) == 5
+    assert bd_ops.auto_num_splits(64, 8, 256, cores=132) == 1
+
+
+# --------------------------------------------------------- no silent fallback
+
+
+def test_cuda_impl_on_cpu_tensors_raises():
+    x = torch.zeros((1, 1, 64, 32), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kq_ops.quantize_kv(x, 4, "channel", block_n=64, impl="cuda")
+    _, tcase = _decode_case(0, b=1, h=1, g=2, d=32, nb=2, block_n=64, bits=4,
+                            k_gran="channel", pack_blocks=[2], res_len=[3])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bd_ops.bitdecode_attention(**tcase, bits=4, block_n=64, impl="cuda")
+    packed = [tcase[n] for n in ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero")]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rf_ops.residual_flush(*packed, tcase["k_res"], tcase["v_res"],
+                              torch.ones(1, dtype=torch.int32),
+                              torch.zeros(1, dtype=torch.int32), bits=4,
+                              block_n=64, k_gran="channel", impl="cuda")
+    with pytest.raises(ValueError, match="unknown impl"):
+        kq_ops.quantize_kv(x, 4, "channel", block_n=64, impl="pallas")
+
+
+def test_auto_takes_the_kernel_when_any_tensor_is_on_the_card():
+    """'auto' resolves to the kernel as soon as one tensor lies on the card,
+    and tensors split between the CPU and the card raise: no call reaches
+    the plain version on the card unless it asks for impl='torch'."""
+    on_card = types.SimpleNamespace(device=torch.device("cuda", 0))
+    on_cpu = torch.zeros(1)
+    assert _build.resolve_impl("auto", on_card, None, on_card) == "cuda"
+    assert _build.resolve_impl("auto", on_cpu, None) == "torch"
+    assert _build.resolve_impl("torch", on_card) == "torch"
+    for impl in ("auto", "cuda"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            _build.resolve_impl(impl, on_card, on_cpu)
