@@ -8,16 +8,27 @@ H100), from the kernels' build to full-width llama3-8b decoding.
 Phases:
   1. device: name and power limit, SM count, kernel build time;
   2. every CUDA kernel against its plain PyTorch version on the card
-     (kv_quant and residual_flush bit for bit; bitdecode within out 2e-2 /
-     lse 1e-3), then timed with CUDA events at the main path's shapes
-     beside its bound (bytes / 3.35 TB/s vs operations / peak rate);
-  3. end to end: llama3-8b at full width and depth (32 layers, random bf16
-     weights from a seeded torch.Generator), 4 ragged prompts prefilled into
-     the 4-bit cache, 160 greedy decode steps; once with the plain versions,
-     once with the kernels and once with the plain versions split three
-     ways along the cache (a different summation order: the fidelity floor
-     of two correct implementations), all fed the plain run's token stream;
-  4. a JSON line per kernel, the card's name and power limit, and the
+     (kv_quant, residual_flush and paged_residual_flush bit for bit, with
+     the pages a paged flush must not touch unchanged; bitdecode and
+     paged_bitdecode within out 2e-2 / lse 1e-3, over scrambled and
+     identity page tables; paged_bitdecode on an identity table bit for bit
+     equal to bitdecode), then timed with CUDA events at the main paths'
+     shapes beside its bound (bytes / 3.35 TB/s vs operations / peak rate);
+  3. the dense path end to end: llama3-8b at full width and depth (32
+     layers, random bf16 weights from a seeded torch.Generator), 4 ragged
+     prompts prefilled into the 4-bit cache, 160 greedy decode steps; once
+     with the plain versions, once with the kernels and once with the plain
+     versions split three ways along the cache (a different summation
+     order: the fidelity floor of two correct implementations), all fed the
+     plain run's token stream;
+  4. the serving path end to end: the same model behind ``ServeEngine``
+     (4 slots, max_seq 4096), ten staggered requests with a shared prefix
+     and a copy-on-write pair, all on the kernels: (a) worst-case
+     reservations with prefix sharing, (b) an oversubscribed pool that
+     preempts, bit for bit equal to (a), (c) no prefix sharing, (d) the
+     dense kernel path fed (c)'s token streams, within the decode tolerance
+     of (c)'s logits; every run audited every cycle;
+  5. a JSON line per kernel, the card's name and power limit, and the
      result line.
 
 ``--jax-init`` instead draws the weights at the JAX package's scales (the
@@ -57,7 +68,82 @@ KERNELS = {
                            replaces="src/repro/kernels/residual_flush/kernel.py:124"),
     "bitdecode": dict(source="src/repro_torch/csrc/bitdecode.cu",
                       replaces="src/repro/kernels/bitdecode/kernel.py:232"),
+    "paged_residual_flush": dict(source="src/repro_torch/csrc/residual_flush.cu",
+                                 replaces="src/repro/kernels/residual_flush/kernel.py:292"),
+    "paged_bitdecode": dict(source="src/repro_torch/csrc/paged_bitdecode.cu",
+                            replaces="src/repro/kernels/paged_bitdecode/kernel.py:99"),
 }
+BITWISE = ("kv_quant", "residual_flush", "paged_residual_flush")
+DENSE_PATH = ("kv_quant", "residual_flush", "bitdecode")  # phase 3
+SERVE_PATH = ("kv_quant", "paged_residual_flush", "paged_bitdecode")  # phase 4
+
+
+# the serve phase: llama3-8b at full width and depth behind the paged engine
+SERVE_SLOTS, SERVE_MAX_SEQ = 4, 4096
+SERVE_STAGGER = 8  # cycles between submissions after the first SERVE_SLOTS
+SHARED_PREFIX = 1024  # 8 blocks shared by the four prefix sharers
+
+
+def serve_workload(vocab: int, seed: int = 7) -> list:
+    """The serve phase's ten requests as (uid, prompt, max_new_tokens), in
+    submission order: a donor and three sharers of one 1,024-token prefix,
+    two identical 100-token prompts that are the prefix's first 100 tokens
+    (they end mid-block inside a resident page: the speculative tail, copied
+    on write at their first flush), and four unrelated prompts.  Every
+    request decodes past a block boundary, so every one flushes through the
+    page table."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    toks = lambda n: rng.integers(0, vocab, n).astype(np.int32)  # noqa: E731
+    prefix = toks(SHARED_PREFIX)
+    shared = lambda n: np.concatenate([prefix, toks(n)])  # noqa: E731
+    spec = [  # prompt, max_new_tokens
+        (shared(300), 200),        # the donor
+        (toks(2600), 96), (toks(950), 110), (toks(1700), 100),
+        (prefix[:100].copy(), 120), (prefix[:100].copy(), 120),  # the pair
+        (shared(700), 150), (shared(1100), 130), (shared(450), 160),
+        (toks(2000), 100),
+    ]
+    return [(uid, p, n) for uid, (p, n) in enumerate(spec)]
+
+
+def serve_runs(work) -> dict:
+    """Engine options of runs (a)-(c): (a) worst-case reservations with
+    prefix sharing, audited every cycle; (b) the same in a pool of the
+    scratch pages plus half the worst case, expected-case reservations at
+    quantile 0 (every decode-time page must be won, so it preempts); (c) no
+    prefix sharing."""
+    worst = SERVE_SLOTS * max((len(p) + n) // BLOCK_N for _, p, n in work)
+    base = dict(audit_every=1)
+    return {
+        "a": dict(base, share_prefix=True),
+        "b": dict(base, share_prefix=True, n_pages=SERVE_SLOTS + -(-worst // 2),
+                  reserve_policy="expected", expected_quantile=0.0),
+        "c": dict(base, share_prefix=False),
+    }
+
+
+def drive_engine(engine, work):
+    """Submit ``work`` to ``engine`` (the first SERVE_SLOTS at once, then one
+    every SERVE_STAGGER cycles) and run it dry.  Returns (requests, summary)."""
+    import time as _time
+
+    from repro_torch.serve import Request
+
+    reqs = [Request(uid=uid, prompt=p, max_new_tokens=n) for uid, p, n in work]
+    t0 = _time.perf_counter()
+    for r in reqs[:SERVE_SLOTS]:
+        engine.submit(r)
+    pending, cycle = reqs[SERVE_SLOTS:], 0
+    while pending or engine._has_work():
+        engine.step()
+        cycle += 1
+        if pending and cycle % SERVE_STAGGER == 0:
+            engine.submit(pending.pop(0))
+    if engine.audit_every:
+        engine.audit().raise_if_violations()
+    return reqs, engine.summary(wall_s=_time.perf_counter() - t0)
 
 
 def log(msg: str) -> None:
@@ -125,6 +211,163 @@ def model_inputs(cfg, dev):
     return tokens, lengths
 
 
+def capture_logits(engine, uids=None, feed=None):
+    """Wrap ``engine._step`` to keep, per decode step of each active request
+    (of ``uids``; teacher-forced replay steps skipped), the token it was fed
+    and its logits row (CPU, f32).  ``feed`` (uid -> token list) overrides
+    what those requests are fed: step k of request u takes ``feed[u][k]``.
+    Returns (uid -> rows, uid -> fed tokens), filled as the engine runs."""
+    import torch
+
+    rows_of: dict = {}
+    fed_of: dict = {}
+    step = engine._step
+
+    def run(p, s, t):
+        take = [(slot, r.uid) for slot, r in engine.sched.active.items()
+                if r.replay_left == 0 and (uids is None or r.uid in uids)]
+        toks = {slot: int(engine.tokens[slot, 0]) for slot, _ in take}
+        forced = {slot: feed[uid][len(fed_of.get(uid, ()))] for slot, uid in take
+                  if feed is not None and uid in feed}
+        if forced:
+            toks.update(forced)
+            t = t.clone()
+            t[list(forced), 0] = torch.tensor(list(forced.values()), dtype=t.dtype,
+                                              device=t.device)
+        logits, s = step(p, s, t)
+        if take:
+            rows = logits[[slot for slot, _ in take], 0].float().cpu()
+            for row, (slot, uid) in zip(rows, take):
+                rows_of.setdefault(uid, []).append(row)
+                fed_of.setdefault(uid, []).append(toks[slot])
+        return logits, s
+
+    engine._step = run
+    return rows_of, fed_of
+
+
+def serve_phase(model, params, cfg, check, dev) -> dict:
+    """Runs (a)-(c) of the serve workload through ``ServeEngine`` on the
+    kernels, then (d): the dense kernel path fed (c)'s token streams as one
+    ragged batch.  Run (c) feeds the prefix sharers (a)'s token streams
+    (teacher forcing through the step function), so their logits with and
+    without sharing compare step for step.  Returns the launches of run (a)
+    and a report."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.serve import AuditError, Phase, ServeEngine
+
+    work = serve_workload(cfg.vocab)
+    sharers, donor, pair = (6, 7, 8), 0, (4, 5)
+    with torch.no_grad():  # warm-up (allocator, cuBLAS, the kernels), untimed
+        warm = ServeEngine(model, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=dev)
+        drive_engine(warm, [(0, work[1][1][:300], 4)])
+        del warm
+    runs, launches = {}, {}
+    for name, kw in serve_runs(work).items():
+        engine = ServeEngine(model, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                             device=dev, **kw)
+        rows, fed = {}, {}
+        if name == "a":
+            rows, fed = capture_logits(engine, set(sharers))
+        elif name == "c" and "a" in runs:
+            rows, fed = capture_logits(engine, feed={u: runs["a"]["out"][u] for u in sharers})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        try:
+            reqs, summ = drive_engine(engine, work)
+        except AuditError as err:
+            check(False, f"run ({name}): audit failed: {err}")
+            continue
+        torch.cuda.synchronize()
+        if name == "a":
+            launches = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        pool = engine.pool
+        log(f"  run ({name}) {kw}: {summ['steps']} cycles, {summ['decoded_tokens']} tokens, "
+            f"{summ['tokens_per_s']:.1f} tokens/s, TTFT p50 {summ['ttft_p50_ms']:.0f} / p99 "
+            f"{summ['ttft_p99_ms']:.0f} ms, TPOT p50 {summ['tpot_p50_ms']:.1f} / p99 "
+            f"{summ['tpot_p99_ms']:.1f} ms, host_stall_fraction "
+            f"{summ['host_stall_fraction']:.3f}, preempted {summ['preempted']}, cow "
+            f"{summ['cow_copies']}, prefix hit blocks {summ['sched_prefix_hit_blocks']}, "
+            f"peak {peak:.2f} GiB; launches {dict(_build.launches)}")
+        log(f"    phase seconds {summ['phase_s']}")
+        check(all(r.phase is Phase.DONE for r in reqs), f"run ({name}): all {len(reqs)} requests DONE")
+        check(pool.n_free == pool.capacity and pool.reserved == 0,
+              f"run ({name}): pool drained ({pool.n_free}/{pool.capacity} free, "
+              f"{pool.reserved} reserved)")
+        if name in "ab":
+            check(summ["cow_copies"] > 0 and summ["sched_prefix_hit_blocks"] > 0,
+                  f"run ({name}): copy on write ({summ['cow_copies']}) and prefix hits "
+                  f"({summ['sched_prefix_hit_blocks']} blocks)")
+        runs[name] = dict(out={r.uid: list(r.out_tokens) for r in reqs}, rows=rows, fed=fed,
+                          peak=peak, summary=summ)
+        del engine
+    report = {n: {k: r["summary"][k] for k in (
+        "steps", "decoded_tokens", "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
+        "tpot_p99_ms", "host_stall_fraction", "preempted", "cow_copies",
+        "sched_prefix_hit_blocks", "wall_s", "phase_s")} | {"peak_gib": r["peak"]}
+        for n, r in runs.items()}
+    if set(runs) != {"a", "b", "c"}:
+        return {"launches": launches, "report": report}
+    a, b, c = runs["a"], runs["b"], runs["c"]
+    check(b["summary"]["preempted"] > 0, f"run (b) preempted ({b['summary']['preempted']})")
+    diff = [u for u in a["out"] if a["out"][u] != b["out"][u]]
+    check(not diff, f"run (b) token streams equal run (a)'s bit for bit (differ: {diff})")
+    same = [u for u in (donor, *pair) if a["out"][u] == c["out"][u] == c["fed"][u]]
+    check(len(same) == 3, f"donor and copy-on-write pair equal with sharing on and off "
+                          f"(equal: {same} of {[donor, *pair]})")
+    sharer_fid = {}
+    for u in sharers:  # (c) was fed (a)'s stream: the same history at every step
+        f = fidelity(torch.stack(c["rows"][u])[:, None], torch.stack(a["rows"][u])[:, None])
+        sharer_fid[u] = f
+        log(f"  sharer {u}, (a) vs (c) on (a)'s token stream: mean KL {f['mean_kl']:.3e}, "
+            f"greedy agreement {f['greedy_agreement']:.3f}, max |dlogit| "
+            f"{f['max_abs_dlogit']:.3f} over {len(a['rows'][u])} steps (no tolerance: the "
+            "suffix attends a dequantized prefix by design)")
+    report["sharers_vs_unshared"] = sharer_fid
+
+    # (d) the dense kernel path, fed (c)'s streams, one ragged batch
+    lens = [len(p) for _, p, _ in work]
+    steps = max(n for _, _, n in work)
+    toks = torch.zeros((len(work), max(lens)), dtype=torch.long)
+    for uid, p, _ in work:
+        toks[uid, :len(p)] = torch.from_numpy(p)
+    rows_d, rows_c, worst = [], [], (-1.0, (None, None))
+    fails = 0
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, state = model.prefill(params, {"tokens": toks.to(dev)}, max(lens) + steps,
+                                      lengths=torch.tensor(lens, device=dev))
+        for k in range(steps):
+            feed = [[c["fed"][uid][k] if k < n else 0] for uid, _, n in work]
+            logits, state = model.decode_step(params, state, torch.tensor(feed, device=dev))
+            lg = logits[:, 0].float().cpu()
+            for uid, _, n in work:
+                if k < n:
+                    ref = c["rows"][uid][k]
+                    err = (lg[uid] - ref).abs().max().item()
+                    if err > worst[0]:
+                        worst = (err, (uid, k))
+                    fails += not torch.allclose(lg[uid], ref, rtol=2e-2, atol=3e-1)
+                    rows_d.append(lg[uid])
+                    rows_c.append(ref)
+        torch.cuda.synchronize()
+        t_dense = time.perf_counter() - t0
+    f = fidelity(torch.stack(rows_c)[:, None], torch.stack(rows_d)[:, None])
+    check(fails == 0, f"run (d) dense kernel path vs (c): logits within rtol 2e-2 / atol 3e-1 "
+                      f"at all {len(rows_d)} request-steps ({fails} outside; max |d| "
+                      f"{worst[0]:.3f} at request {worst[1][0]}, step {worst[1][1]})")
+    log(f"  run (d) vs (c): mean KL {f['mean_kl']:.3e}, greedy agreement "
+        f"{f['greedy_agreement']:.3f}, max |dlogit| {f['max_abs_dlogit']:.3f}; "
+        f"dense batch of {len(work)} took {t_dense:.1f} s")
+    report["dense_vs_c"] = f | {"request_steps": len(rows_d), "outside_tolerance": fails}
+    report["workload"] = [(len(p), n) for _, p, n in work]
+    return {"launches": launches, "report": report}
+
+
 def jax_init_witness(dev) -> int:
     """Full-width llama3-8b at the JAX package's init scales: the plain path
     split one way and three ways, and the kernels, over WITNESS_STEPS steps."""
@@ -179,6 +422,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.bitdecode import ops as bd_ops
     from repro_torch.kernels.kv_quant import ops as kq_ops
+    from repro_torch.kernels.paged_bitdecode import ops as pg_ops
     from repro_torch.kernels.residual_flush import ops as rf_ops
     from repro_torch.models.zoo import build_model
 
@@ -290,6 +534,77 @@ def main() -> int:
                       f"{(out_k - out_r).abs().max().item():.2e} (max|out| "
                       f"{out_r.abs().max().item():.2f}), max|dlse| "
                       f"{(lse_k - lse_r).abs().max().item():.2e}")
+
+    def pools_of(case):
+        """The case's dense [B, H, nb, ...] fields as pools [B * nb, H, ...]:
+        row b's block j is page b * nb + j."""
+        return [case[f].movedim(2, 1).reshape(-1, *case[f].shape[1:2], *case[f].shape[3:])
+                .contiguous() for f in ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero")]
+
+    paged_cases = [  # label, case args, table, split counts
+        ("serve shapes", (4, 8, 4, 128, 32, 128, 4, "channel", [14, 20, 0, 32], [5, 127, 128, 0]),
+         "scrambled", (1, 2, 5, 16, "auto")),
+        ("serve shapes", (4, 8, 4, 128, 32, 128, 4, "channel", [14, 20, 0, 32], [5, 127, 128, 0]),
+         "identity", (1, "auto")),
+        ("bits=2 tensor-K", (4, 8, 4, 128, 8, 128, 2, "tensor", [8, 3, 0, 5], [0, 64, 17, 128]),
+         "scrambled", (1, 3, "auto")),
+        ("bits=8", (2, 8, 4, 128, 16, 128, 8, "channel", [16, 9], [77, 0]), "scrambled",
+         (1, 4, 16)),
+        ("smoke d=32 bits=4 tensor-K", (2, 2, 2, 32, 6, 64, 4, "tensor", [6, 0], [64, 33]),
+         "scrambled", (1, 3, "auto")),
+    ]
+    for label, args, kind, splits in paged_cases:
+        case = decode_case(*args)
+        b, nb = args[0], args[4]
+        pools = pools_of(case)
+        order = (torch.randperm(b * nb, generator=gen, device=dev) if kind == "scrambled"
+                 else torch.arange(b * nb, device=dev))
+        table = order.reshape(b, nb).to(torch.int32)
+        pools = [torch.empty_like(p).index_copy_(0, order, p) for p in pools]  # page = order
+        pargs = [case["q"], *pools, case["k_res"], case["v_res"], table, case["pack_blocks"],
+                 case["res_len"]]
+        kw = dict(bits=args[6], block_n=args[5], k_gran=args[7], return_lse=True)
+        out_r, lse_r = pg_ops.paged_bitdecode_attention(*pargs, impl="torch", num_splits=1, **kw)
+        for ns in splits:
+            resolved = bd_ops.resolve_num_splits(ns, b, args[1], nb, dev)
+            out_k, lse_k = pg_ops.paged_bitdecode_attention(*pargs, impl="cuda", num_splits=ns,
+                                                            **kw)
+            note_err("paged_bitdecode", out_k, out_r)
+            ok = (torch.allclose(out_k, out_r, rtol=2e-2, atol=2e-2)
+                  and torch.allclose(lse_k, lse_r, rtol=1e-3, atol=1e-3))
+            check(ok, f"paged_bitdecode {label}, {kind} table, num_splits={ns} (->{resolved}): "
+                      f"max|dout| {(out_k - out_r).abs().max().item():.2e} (max|out| "
+                      f"{out_r.abs().max().item():.2f}), max|dlse| "
+                      f"{(lse_k - lse_r).abs().max().item():.2e}")
+            if kind == "identity":  # one body with the dense kernel: bit for bit
+                out_d, lse_d = bd_ops.bitdecode_attention(**case, impl="cuda", num_splits=ns,
+                                                          **kw)
+                check(torch.equal(out_k, out_d) and torch.equal(lse_k, lse_d),
+                      f"paged_bitdecode == bitdecode bit for bit, {label}, identity table, "
+                      f"num_splits={ns}")
+
+    n_pages = SERVE_SLOTS * (SERVE_MAX_SEQ // BLOCK_N) + SERVE_SLOTS  # the serve pool
+    for bits in (2, 4, 8):
+        for gran in ("channel", "tensor"):
+            b, h, d, bn = 4, 8, 128, BLOCK_N
+            pool = [*kq_ops.quantize_kv(randn(1, h, n_pages * bn, d), bits, gran, block_n=bn),
+                    *kq_ops.quantize_kv(randn(1, h, n_pages * bn, d), bits, "tensor", block_n=bn)]
+            pool = [x[0].movedim(1, 0).contiguous() for x in pool]
+            res = [randn(b, h, bn, d), randn(b, h, bn, d)]
+            full, dest = ints([1, 0, 1, 1]), ints([37, 1, 90, n_pages + 50])  # clamps to P-1
+            before = [x.clone() for x in pool]
+            twin = [x.clone() for x in pool]
+            kw = dict(bits=bits, block_n=bn, k_gran=gran)
+            out = rf_ops.paged_residual_flush(*pool, *res, full, dest, impl="cuda", **kw)
+            ref = rf_ops.paged_residual_flush(*twin, *res, full, dest, impl="torch", **kw)
+            kept = torch.tensor([p for p in range(n_pages) if p not in (37, 90, n_pages - 1)],
+                                device=dev)
+            for o, r in zip(out, ref):
+                note_err("paged_residual_flush", o, r)
+            check(all(bitwise(o, r) for o, r in zip(out, ref))
+                  and all(bitwise(o[kept], b0[kept]) for o, b0 in zip(out, before)),
+                  f"paged_residual_flush bitwise P={n_pages} bits={bits} {gran}, mixed full, "
+                  "dest past P-1; every other page unchanged")
     torch.cuda.synchronize()
 
     # timing at the main path's shapes: device time of one call, L2 scrubbed
@@ -352,13 +667,47 @@ def main() -> int:
                 + splits * b * h * g * (d + 1) * 4)             # partials
     bound("bitdecode", bd_bytes, 2 * 2 * g * d * tokens, BF16_OPS_PER_S)
     stats["bitdecode"]["num_splits"] = splits
+
+    # the paged kernels at the serve phase's shapes: its pool, a scrambled
+    # table, the block counts of a mid-run decode step
+    nb_max = SERVE_MAX_SEQ // bn
+    pool = [*kq_ops.quantize_kv(randn(1, h, n_pages * bn, d), BITS, "channel", block_n=bn),
+            *kq_ops.quantize_kv(randn(1, h, n_pages * bn, d), BITS, "tensor", block_n=bn)]
+    pool = [x[0].movedim(1, 0).contiguous() for x in pool]
+    table = (b + torch.randperm(n_pages - b, generator=gen, device=dev)[:b * nb_max]
+             ).reshape(b, nb_max).to(torch.int32)
+    flush_dest = table[:, 12].contiguous()
+    for full, key in ((ints([1] * b), ""), (ints([0] * b), "_no_flush")):
+        dest_ = flush_dest if key == "" else ints(list(range(b)))
+        for impl, field in (("cuda", "ms"), ("torch", "plain_ms")):
+            stats["paged_residual_flush"][field + key] = time_ms(
+                lambda: rf_ops.paged_residual_flush(*pool, *res, full, dest_, bits=BITS,
+                                                    block_n=bn, k_gran="channel", impl=impl))
+    bound("paged_residual_flush", n_res * 2 + n_res * BITS // 8 + 2 * 2 * b * h * (d + bn)
+          + 8 * b, 8 * n_res, F32_OPS_PER_S)
+    pb_serve, rl_serve = [10, 20, 7, 13], [100, 60, 30, 90]
+    pgd = lambda impl: pg_ops.paged_bitdecode_attention(  # noqa: E731
+        q, *pool, *res, table, ints(pb_serve), ints(rl_serve), bits=BITS, block_n=bn,
+        k_gran="channel", impl=impl)
+    stats["paged_bitdecode"].update(ms=time_ms(lambda: pgd("cuda")),
+                                    plain_ms=time_ms(lambda: pgd("torch")))
+    splits = bd_ops.resolve_num_splits("auto", b, h, nb_max, dev)
+    blocks = sum(pb_serve) * h
+    tokens = h * (sum(pb_serve) * bn + sum(rl_serve))
+    pg_bytes = (blocks * (2 * npr * d * 4 + 2 * 2 * (d + bn))   # words + params
+                + sum(pb_serve) * 4 + 8 * b                     # table entries, lengths
+                + 2 * b * h * bn * d * 2 + q.numel() * 2        # residual + q
+                + splits * b * h * g * (d + 1) * 4)             # partials
+    bound("paged_bitdecode", pg_bytes, 2 * 2 * g * d * tokens, BF16_OPS_PER_S)
+    stats["paged_bitdecode"]["num_splits"] = splits
     for name, st in stats.items():
         log(f"  time {name}: kernel {st['ms'] * 1e3:.1f} us, plain {st['plain_ms'] * 1e3:.1f} us, "
             f"bound {st['bound_ms'] * 1e3:.2f} us ({st['bound_by']})")
-    log(f"  residual_flush on a step without a flush: kernel "
-        f"{stats['residual_flush']['ms_no_flush'] * 1e3:.1f} us, plain "
-        f"{stats['residual_flush']['plain_ms_no_flush'] * 1e3:.1f} us")
-    del scrub, packed, res, x
+    for name in ("residual_flush", "paged_residual_flush"):
+        log(f"  {name} on a step without a flush: kernel "
+            f"{stats[name]['ms_no_flush'] * 1e3:.1f} us, plain "
+            f"{stats[name]['plain_ms_no_flush'] * 1e3:.1f} us")
+    del scrub, packed, res, x, pool
 
     # ------------------------------------------------------------ 3. end to end
     log("== 3. end to end: llama3-8b, full width and depth")
@@ -397,8 +746,8 @@ def main() -> int:
         f"{step_p * 1e3:.2f} ms/step, kernels {step_k * 1e3:.2f} ms/step (B={len(PROMPT_LENS)})")
     log(f"  peak device memory: plain {peak_plain / 2**30:.2f} GiB, kernels "
         f"{peak_kernel / 2**30:.2f} GiB; launches {launches}")
-    for name in KERNELS:
-        check(launches.get(name, 0) > 0, f"{name} launched on the main path ({launches.get(name, 0)})")
+    for name in DENSE_PATH:
+        check(launches.get(name, 0) > 0, f"{name} launched on the dense path ({launches.get(name, 0)})")
     check(bool(torch.isfinite(lg_k).all()) and lg_k.shape == (DECODE_STEPS + 1, len(PROMPT_LENS),
                                                              cfg.vocab), "logits finite, shaped")
     c_p, c_k = st_p["caches"][0], st_k["caches"][0]
@@ -425,13 +774,22 @@ def main() -> int:
             f"{f['max_abs_dlogit']:.3f}")
     kl = fid["kernels"]["mean_kl"]
 
-    # ------------------------------------------------------------ 4. summary
+    # ------------------------------------------------------------ 4. serve
+    log("== 4. serve: llama3-8b behind the paged engine, full width and depth")
+    serve = serve_phase(model, params, cfg, check, dev)
+    launches.update({k: v for k, v in serve["launches"].items() if k not in DENSE_PATH})
+    for name in SERVE_PATH:
+        n = serve["launches"].get(name, 0)
+        check(n > 0, f"{name} launched in serve run (a) ({n})")
+
+    # ------------------------------------------------------------ 5. summary
     rows = []
     for name, meta in KERNELS.items():
         st = stats[name]
         rows.append({
             "name": name, "route": "cuda", **meta, "launches": launches.get(name, 0),
-            "parity": "bitwise" if name != "bitdecode" else "out 2e-2, lse 1e-3",
+            "serve_launches": serve["launches"].get(name, 0),
+            "parity": "bitwise" if name in BITWISE else "out 2e-2, lse 1e-3",
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": None,
             "us": st["ms"] * 1e3, "plain_us": st["plain_ms"] * 1e3, "bound_us": st["bound_ms"] * 1e3,
@@ -442,7 +800,7 @@ def main() -> int:
         "decode_ms_per_step": {"plain": step_p * 1e3, "kernels": step_k * 1e3},
         "peak_gib": {"plain": peak_plain / 2**30, "kernels": peak_kernel / 2**30},
         "mean_kl": kl, "fidelity_vs_plain": fid, "batch": len(PROMPT_LENS), "prompt_lens": PROMPT_LENS,
-        "decode_steps": DECODE_STEPS}}), flush=True)
+        "decode_steps": DECODE_STEPS}, "serve": serve["report"]}), flush=True)
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed", file=sys.stderr)
         return 1

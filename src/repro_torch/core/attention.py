@@ -1,5 +1,6 @@
-"""Attention entry points: query transformation, decode dispatch, blockwise
-prefill attention.
+"""Attention entry points: query transformation, decode dispatch (dense and
+paged caches), blockwise prefill attention, and the suffix-over-prefix
+attention of a shared-prefix prefill.
 
 Query transformation (paper §V-A): the decode query ``[B, 1, h_q, d]`` is
 reshaped to ``[B, h_kv, g_q, d]`` (``g_q = h_q / h_kv``) so the query heads
@@ -11,8 +12,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import qcache
-from repro_torch.core.qcache import QuantKVCache
+from repro_torch.core.qcache import PagedQuantKVCache, QuantKVCache
 from repro_torch.kernels.bitdecode import ops as bd_ops
+from repro_torch.kernels.paged_bitdecode import ops as pg_ops
 
 MASK_VALUE = -1e37  # finite: with -inf an empty split or block turns into NaN
 
@@ -33,11 +35,16 @@ def inverse_query_transform(o: torch.Tensor) -> torch.Tensor:
     return o.reshape(b, 1, h_kv * g_q, d_v)
 
 
-def decode_attention(q, cache: QuantKVCache, *, sm_scale: float | None = None,
-                     impl: str = "auto", num_splits="auto"):
+def decode_attention(q, cache: QuantKVCache | PagedQuantKVCache, *,
+                     sm_scale: float | None = None, impl: str = "auto",
+                     num_splits="auto"):
     """Low-bit fused decode attention of q [B, 1, h_q, d_k] against the cache;
     returns f32 [B, 1, h_q, d_v].  ``num_splits`` is the in-kernel split-KV
-    count ('auto' or an integer)."""
+    count ('auto' or an integer).  A paged cache goes through the page table
+    (:func:`_paged_decode_attention`)."""
+    if isinstance(cache, PagedQuantKVCache):
+        return _paged_decode_attention(q, cache, sm_scale=sm_scale, impl=impl,
+                                       num_splits=num_splits)
     qt = query_transform(q, cache.kw.shape[1])
     out = bd_ops.bitdecode_attention(
         qt, cache.kw, cache.k_scale, cache.k_zero, cache.vw, cache.v_scale,
@@ -48,14 +55,79 @@ def decode_attention(q, cache: QuantKVCache, *, sm_scale: float | None = None,
     return inverse_query_transform(out)
 
 
-def decode_append_attention(q, cache: QuantKVCache, k_new, v_new, *,
-                            quant_impl: str = "auto", mask=None, **attn_kwargs):
+def _paged_decode_attention(q, cache: PagedQuantKVCache, *, sm_scale, impl,
+                            num_splits):
+    """Paged decode: the page-table walk of kernels/paged_bitdecode."""
+    qt = query_transform(q, cache.kw.shape[1])
+    out = pg_ops.paged_bitdecode_attention(
+        qt, cache.kw, cache.k_scale, cache.k_zero, cache.vw, cache.v_scale,
+        cache.v_zero, cache.k_res, cache.v_res, cache.page_table,
+        cache.pack_blocks, cache.res_len, bits=cache.bits, block_n=cache.block_n,
+        sm_scale=sm_scale, k_gran=cache.k_gran, impl=impl, num_splits=num_splits,
+    )
+    return inverse_query_transform(out)
+
+
+def decode_append_attention(q, cache: QuantKVCache | PagedQuantKVCache, k_new,
+                            v_new, *, quant_impl: str = "auto", mask=None,
+                            **attn_kwargs):
     """The per-token hot path: append the new KV token (residual write +
-    flush, in place) and run fused low-bit decode attention over the updated
-    cache.  Returns ``(out, cache)``.  ``attn_kwargs`` go to
-    :func:`decode_attention`."""
-    cache = qcache.append_decode(cache, k_new, v_new, quant_impl=quant_impl, mask=mask)
+    flush, in place; ``qcache.append_decode`` or ``qcache.paged_append_decode``
+    by the cache's type) and run fused low-bit decode attention over the
+    updated cache.  Returns ``(out, cache)``.  ``attn_kwargs`` go to
+    :func:`decode_attention`.  The serving engine swaps in a paged state and
+    the model code stays the same."""
+    append = (qcache.paged_append_decode if isinstance(cache, PagedQuantKVCache)
+              else qcache.append_decode)
+    cache = append(cache, k_new, v_new, quant_impl=quant_impl, mask=mask)
     return decode_attention(q, cache, **attn_kwargs), cache
+
+
+def prefix_suffix_attention(q, k, v, k_prior, v_prior, prior_len, *,
+                            sm_scale: float | None = None,
+                            q_chunk: int | None = None):
+    """Causal attention of a prompt *suffix* against a materialized prefix,
+    in plain PyTorch.
+
+    q [B, S, h_q, d_k], k/v [B, S, h_kv, d] (the suffix); k_prior/v_prior
+    [B, T, h_kv, d] (dequantized shared pages, right-padded) of which the
+    first ``prior_len[b]`` are valid.  Suffix row ``j`` attends prior columns
+    ``< prior_len[b]`` and suffix columns ``<= j``: rows
+    ``[prior_len, prior_len + S)`` of causal attention over the concatenated
+    sequence.  Returns f32 [B, S, h_q, d_v].
+
+    The score tile ``[B, h_kv, rows * g, T + S]`` is f32; at full width it
+    would run to gigabytes per layer, so the query rows go in chunks of
+    ``q_chunk`` (default: as many as keep the tile near 256 MiB).  Each chunk
+    keeps the whole key axis, so every row's softmax is the same function as
+    unchunked.  Products take bf16 operands with f32 accumulation.
+    """
+    b, s, h_q, d_k = q.shape
+    t = k_prior.shape[1]
+    h_kv, d_v = k.shape[2], v.shape[-1]
+    g = h_q // h_kv
+    if sm_scale is None:
+        sm_scale = 1.0 / (d_k**0.5)
+    if q_chunk is None:
+        q_chunk = max(1, (256 << 20) // (4 * b * h_kv * g * (t + s)))
+    qg = q.to(torch.bfloat16).float().reshape(b, s, h_kv, g, d_k).permute(0, 2, 1, 3, 4)
+    kcat = torch.cat([k_prior, k], dim=1).to(torch.bfloat16).float().permute(0, 2, 3, 1)
+    vcat = torch.cat([v_prior, v], dim=1).to(torch.bfloat16).float().permute(0, 2, 1, 3)
+    cols = torch.arange(t + s, device=q.device)
+    in_prior = (cols[None, :] < prior_len.to(q.device).long()[:, None]) & (cols[None, :] < t)
+    out = torch.empty((b, h_kv, s, g, d_v), dtype=torch.float32, device=q.device)
+    for lo in range(0, s, q_chunk):
+        hi = min(s, lo + q_chunk)
+        rows = torch.arange(lo, hi, device=q.device)
+        in_suffix = (cols[None, :] >= t) & (cols[None, :] - t <= rows[:, None])
+        valid = in_prior[:, None, :] | in_suffix[None]  # [B, rows, T + S]
+        scores = torch.matmul(qg[:, :, lo:hi].reshape(b, h_kv, (hi - lo) * g, d_k), kcat)
+        scores = scores.reshape(b, h_kv, hi - lo, g, t + s) * sm_scale
+        scores = torch.where(valid[:, None, :, None, :], scores, MASK_VALUE)
+        p = torch.softmax(scores, dim=-1).to(torch.bfloat16).float()
+        out[:, :, lo:hi] = torch.matmul(p.reshape(b, h_kv, (hi - lo) * g, t + s),
+                                        vcat).reshape(b, h_kv, hi - lo, g, d_v)
+    return out.permute(0, 2, 1, 3, 4).reshape(b, s, h_q, d_v)
 
 
 def blockwise_attention(q, k, v, *, sm_scale: float | None = None,

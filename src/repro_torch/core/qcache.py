@@ -1,5 +1,5 @@
 """Quantized KV cache with a bf16 residual buffer (paper §IV-A(2), §V-B),
-dense layout.
+dense and paged layouts.
 
 The sequence is split into packed low-bit blocks of ``block_n`` tokens plus
 a bf16 residual tail of capacity ``block_n``.  Decoded tokens append to the
@@ -12,6 +12,13 @@ same object.  The flush is launched on every decode step: the JAX reference
 skips it with ``lax.cond(any(full))``, but on the card a host-side check of
 ``full`` would synchronise every token, so instead each flush program returns
 at once for a row that is not full.
+
+The paged layout (:class:`PagedQuantKVCache`) keeps the packed blocks of all
+sequences in shared page pools and walks them through a page table; the
+serving engine (``repro_torch.serve``) decides which page holds which block.
+Its append (:func:`paged_append_decode`) follows the same conventions: in
+place, and the paged flush launched every step with its destinations
+computed on the device.
 """
 from __future__ import annotations
 
@@ -19,7 +26,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import layout
+from repro_torch.core import layout, quantizer
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.kv_quant import ops as kvq_ops
 from repro_torch.kernels.residual_flush import ops as rf_ops
@@ -182,3 +189,190 @@ def prefill(cache: QuantKVCache, k, v, *, lengths=None,
     cache.pack_blocks.fill_(n_full)
     cache.res_len.fill_(res)
     return cache
+
+
+# --------------------------------------------------------------------------
+# Paged cache (page pools + per-sequence page tables)
+# --------------------------------------------------------------------------
+
+_PAGED_FIELDS = ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero",
+                 "k_res", "v_res", "page_table", "pack_blocks", "res_len")
+
+
+@dataclasses.dataclass
+class PagedQuantKVCache:
+    """Paged twin of :class:`QuantKVCache`: packed blocks live in shared page
+    pools (``[P, H, ...]``, one pool entry = one ``block_n``-token block) and
+    each sequence walks its blocks through a ``page_table`` row; the bf16
+    residual tail stays dense per slot.
+
+    Invariants (``repro_torch.serve.pages`` maintains them):
+
+    * pool pages ``[0, B)`` are per-slot scratch, never allocated to a
+      request; a ``page_table`` entry that holds no allocated page equals
+      the slot index, so a flush through it lands in the slot's own scratch
+      page and the destinations of one flush stay pairwise distinct;
+    * ``page_table[b, j]`` holds the page of sequence ``b``'s packed block
+      ``j`` for every ``j < pack_blocks[b]``, and the page of block
+      ``pack_blocks[b]`` is allocated before the step whose flush commits it;
+    * ``length = pack_blocks * block_n + res_len``, as in the dense cache.
+
+    A cache stacked over layers (the serving state) prepends a layer axis to
+    every field; its ``page_table`` is one ``[B, nb_max]`` tensor expanded
+    over the layers, so one in-place copy updates every layer's view
+    (``serve.pages.set_page_tables``).
+    """
+
+    kw: torch.Tensor        # int32 [P, H, npr, d_k]
+    k_scale: torch.Tensor   # [P, H, d_k] (channel) or [P, H, block_n]
+    k_zero: torch.Tensor
+    vw: torch.Tensor        # int32 [P, H, npr, d_v]
+    v_scale: torch.Tensor   # [P, H, block_n]
+    v_zero: torch.Tensor
+    k_res: torch.Tensor     # bf16 [B, H, block_n, d_k]
+    v_res: torch.Tensor     # bf16 [B, H, block_n, d_v]
+    page_table: torch.Tensor   # int32 [B, nb_max]
+    pack_blocks: torch.Tensor  # int32 [B]
+    res_len: torch.Tensor      # int32 [B]
+    bits: int
+    block_n: int
+    k_gran: str
+
+    @property
+    def length(self) -> torch.Tensor:
+        return self.pack_blocks * self.block_n + self.res_len
+
+    @property
+    def n_pages(self) -> int:
+        return self.kw.shape[-4]
+
+    def layer(self, i: int) -> "PagedQuantKVCache":
+        """Layer ``i`` of a cache stacked over layers, as views."""
+        return dataclasses.replace(self, **{f: getattr(self, f)[i] for f in _PAGED_FIELDS})
+
+
+def init_paged_cache(n_pages: int, batch: int, h_kv: int, d_k: int, nb_max: int, *,
+                     d_v: int | None = None, bits: int = 4, block_n: int = 128,
+                     k_gran: str = "channel", layers: int | None = None,
+                     device=None) -> PagedQuantKVCache:
+    """Allocate empty page pools for ``batch`` decode slots on ``device`` (the
+    card unless given).
+
+    ``n_pages`` must exceed ``batch``: the first ``batch`` pages are the
+    per-slot scratch pages.  ``nb_max`` is the page-table width.  The fresh
+    table points every entry at its slot's scratch page.  ``layers`` stacks
+    the cache over that many layers, with one page table shared by all.
+    """
+    if n_pages <= batch:
+        raise ValueError(f"n_pages={n_pages} must exceed batch={batch} (the first "
+                         "`batch` pages are reserved per-slot scratch)")
+    device = resolve_device(device)
+    d_v = d_k if d_v is None else d_v
+    npr = layout.words_per_block(block_n, bits)
+    kp = d_k if k_gran == "channel" else block_n
+    lead = () if layers is None else (layers,)
+    bf16 = torch.bfloat16
+
+    def z(shape, dtype):
+        return torch.zeros((*lead, *shape), dtype=dtype, device=device)
+
+    table = torch.arange(batch, dtype=torch.int32, device=device)[:, None].repeat(1, nb_max)
+    return PagedQuantKVCache(
+        kw=z((n_pages, h_kv, npr, d_k), torch.int32),
+        k_scale=z((n_pages, h_kv, kp), bf16),
+        k_zero=z((n_pages, h_kv, kp), bf16),
+        vw=z((n_pages, h_kv, npr, d_v), torch.int32),
+        v_scale=z((n_pages, h_kv, block_n), bf16),
+        v_zero=z((n_pages, h_kv, block_n), bf16),
+        k_res=z((batch, h_kv, block_n, d_k), bf16),
+        v_res=z((batch, h_kv, block_n, d_v), bf16),
+        page_table=table.expand(*lead, batch, nb_max),
+        pack_blocks=z((batch,), torch.int32),
+        res_len=z((batch,), torch.int32),
+        bits=bits, block_n=block_n, k_gran=k_gran,
+    )
+
+
+def paged_append_decode(cache: PagedQuantKVCache, k_new, v_new, *,
+                        quant_impl: str = "auto", mask=None) -> PagedQuantKVCache:
+    """Append one decoded token per sequence (k_new/v_new: [B, H, 1, d]) to
+    the residual and commit every residual it fills through the page table
+    into the pools, in place.
+
+    The flush destination of row ``b`` is ``page_table[b, pack_blocks[b]]``
+    when its residual filled, else its scratch page ``b``, clamped to
+    ``P - 1``: computed on the device, and the flush launched every step, so
+    nothing here reads ``full`` on the host.  ``mask`` ([B] bool, optional):
+    rows with ``False`` keep residual, occupancy and pool pages unchanged."""
+    b = cache.k_res.shape[0]
+    nb_max = cache.page_table.shape[1]
+    rl, full = _append_residual(cache, k_new, v_new, mask)
+    rows = torch.arange(b, device=rl.device)
+    blk = torch.clamp(cache.pack_blocks.long(), 0, nb_max - 1)
+    dest = torch.where(full, cache.page_table[rows, blk], rows.to(torch.int32))
+    dest = torch.clamp(dest, 0, cache.n_pages - 1)
+    rf_ops.paged_residual_flush(
+        cache.kw, cache.k_scale, cache.k_zero, cache.vw, cache.v_scale,
+        cache.v_zero, cache.k_res, cache.v_res, full.to(torch.int32), dest,
+        bits=cache.bits, block_n=cache.block_n, k_gran=cache.k_gran,
+        impl=quant_impl,
+    )
+    cache.pack_blocks.copy_(torch.where(full, cache.pack_blocks + 1, cache.pack_blocks))
+    cache.res_len.copy_(torch.where(full, torch.zeros_like(rl), rl))
+    return cache
+
+
+# Pool fields of the paged cache with the rank each has before any stacking
+# dims are prepended (a layer axis in the serving state): the page axis of a
+# stacked field is ``ndim - base rank``.
+_PAGED_POOL_FIELDS = ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero")
+_PAGED_POOL_BASE_RANK = {"kw": 4, "k_scale": 3, "k_zero": 3, "vw": 4, "v_scale": 3,
+                         "v_zero": 3}
+
+
+def _page_axis(arr, field: str) -> int:
+    """Page-pool axis of a (possibly layer-stacked) pool field."""
+    return arr.ndim - _PAGED_POOL_BASE_RANK[field]
+
+
+def copy_pages(cache: PagedQuantKVCache, src, dst) -> PagedQuantKVCache:
+    """Copy-on-write primitive, in place: pool page ``dst[i]`` becomes a
+    bitwise replica of ``src[i]`` in all six pool fields and every stacked
+    layer.  ``dst`` entries are pairwise distinct and disjoint from ``src``."""
+    src = torch.as_tensor(src, dtype=torch.long, device=cache.kw.device)
+    dst = torch.as_tensor(dst, dtype=torch.long, device=cache.kw.device)
+    for f in _PAGED_POOL_FIELDS:
+        pool = getattr(cache, f)
+        ax = _page_axis(pool, f)
+        pool.index_copy_(ax, dst, pool.index_select(ax, src))
+    return cache
+
+
+def dequant_prior(cache: PagedQuantKVCache, pages):
+    """Gather pool pages ``pages`` (int [B, J], rows right-padded; the caller
+    masks the padding through ``prior_len``) and dequantize them into bf16
+    prior K/V for the shared-prefix suffix prefill.
+
+    Returns ``(k, v)`` shaped ``[*lead, B, J * block_n, H, d]`` (lead = the
+    cache's stacking dims, e.g. the layer axis) in natural token order: the
+    layout ``core.attention.prefix_suffix_attention`` takes.  Pool K is
+    stored after RoPE, so the prior needs no position re-applied."""
+
+    idx = torch.as_tensor(pages, dtype=torch.long, device=cache.kw.device)
+
+    def gather(field: str):
+        arr = getattr(cache, field)
+        return arr.movedim(_page_axis(arr, field), 0)[idx]  # [B, J, *lead, H, ...]
+
+    def to_prior(x):
+        # [B, J, *lead, H, n, d] -> [*lead, B, J * n, H, d]
+        b, j, *lead, h, n, d = x.shape
+        nl = len(lead)
+        x = x.permute(*range(2, 2 + nl), 0, 1, 3 + nl, 2 + nl, 4 + nl)
+        return x.reshape(*lead, b, j * n, h, d)
+
+    k = quantizer.unpack_and_dequantize(gather("kw"), gather("k_scale"),
+                                        gather("k_zero"), cache.bits, cache.k_gran)
+    v = quantizer.unpack_and_dequantize(gather("vw"), gather("v_scale"),
+                                        gather("v_zero"), cache.bits, "tensor")
+    return to_prior(k), to_prior(v)

@@ -43,6 +43,8 @@ _SIGNATURES = {
                                      _I, _I, _I, _I, _I, _I, _I, _P]),
     "residual_flush": ("residual_flush_launch", [_P] * 10 + [_I] * 8 + [_P]),
     "bitdecode": ("bitdecode_launch", [_P] * 13 + [_I] * 12 + [_F, _P]),
+    "paged_residual_flush": ("paged_residual_flush_launch", [_P] * 10 + [_I] * 8 + [_P]),
+    "paged_bitdecode": ("paged_bitdecode_launch", [_P] * 14 + [_I] * 13 + [_F, _P]),
 }
 
 _lib: ctypes.CDLL | None = None

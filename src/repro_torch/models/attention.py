@@ -41,13 +41,23 @@ def _qkv(p, cfg, x, positions):
 
 
 def attn_prefill_cache(p, cfg, x, positions, max_seq: int, *, quant_impl="auto",
-                       lengths=None):
+                       lengths=None, prior=None, prior_len=None):
     """Causal attention over the prompt, and a cache built from its K/V.
 
     ``lengths`` ([B] int32, optional) marks a ragged right-padded batch:
-    per-sequence cache occupancy follows the true lengths."""
+    per-sequence cache occupancy follows the true lengths.
+
+    ``prior`` (optional ``(k_prior, v_prior)``, each ``[B, T, H, d]``) marks
+    a *suffix* prefill (prefix sharing): ``x`` holds only the divergent
+    suffix, whose attention also covers the first ``prior_len[b]`` prior
+    tokens (dequantized shared pages, K already rotated;
+    ``qcache.dequant_prior``).  The cache holds suffix content only, and
+    ``positions`` must be the suffix's global ones (``prior_len + arange``)."""
     q, k, v = _qkv(p, cfg, x, positions)
-    out = catt.blockwise_attention(q, k, v, block_k=cfg.attn_block_k)
+    if prior is not None:
+        out = catt.prefix_suffix_attention(q, k, v, *prior, prior_len)
+    else:
+        out = catt.blockwise_attention(q, k, v, block_k=cfg.attn_block_k)
     cache = qcache.init_cache(
         x.shape[0], cfg.n_kv_heads, cfg.head_dim, max_seq, bits=cfg.kv_bits,
         block_n=cfg.kv_block, k_gran=cfg.kv_gran, device=x.device,

@@ -1,0 +1,54 @@
+"""Cache-family protocol: what a model declares about its decode state.
+
+Every backbone exposes ``model.paged_spec() -> PagedSpec | None`` and the
+serving engine (``repro_torch.serve.engine``) is driven by the returned spec.
+The port runs one family so far, the attention ``DecoderLM`` with split K/V
+pools; the fields of the other families (``shared_kv`` latent pools,
+``side_state``, ``exact_prefill``) are kept so that the engine can refuse
+what it does not serve yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedSpec:
+    """Declared decode-cache capabilities of one model family."""
+
+    paged: bool           # KV layers decode through the page table
+    block_n: int          # tokens per page-table column
+    n_kv_heads: int       # KV heads per paged layer
+    d_k: int              # packed K width
+    d_v: int              # value width
+    shared_kv: bool = False   # single latent pool (MLA) vs split K/V pools
+    page_layers: int = 0      # layer-cache instances behind each table column
+    # constant-size per-slot state spliced at admission: ("path", batch_dim)
+    side_state: tuple = ()
+    # prompts must prefill at their exact length (no right-padding)
+    exact_prefill: bool = False
+    # the model supports suffix prefill against a dequantized prior
+    # (``model.prefill(prior=...)``): the prefix-sharing prerequisite
+    supports_prior: bool = False
+
+    @property
+    def pages_per_token(self) -> float:
+        """Page-table columns consumed per cached token."""
+        return 1.0 / self.block_n if self.paged else 0.0
+
+
+def get_path(tree, path: str):
+    """Resolve a '/'-joined ``side_state`` path inside a decode state."""
+    node = tree
+    for part in path.split("/"):
+        node = node[part]
+    return node
+
+
+def set_path(tree, path: str, value) -> None:
+    """Write a '/'-joined ``side_state`` path inside a decode state."""
+    parts = path.split("/")
+    node = tree
+    for part in parts[:-1]:
+        node = node[part]
+    node[parts[-1]] = value

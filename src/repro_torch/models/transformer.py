@@ -6,7 +6,9 @@ and the layers run in a Python loop over views of them.  The decode state is
 
     {"caches": [QuantKVCache stacked over layers], "pos": int32 [B]}
 
-and :meth:`DecoderLM.decode_step` updates its caches in place.
+and :meth:`DecoderLM.decode_step` updates its caches in place.  The serving
+engine's state (:meth:`DecoderLM.init_paged_decode_state`) has the same shape
+with a ``PagedQuantKVCache`` per stack; ``decode_step`` serves both.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from repro_torch.core import qcache
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as mattn
 from repro_torch.models import layers
+from repro_torch.models.family import PagedSpec
 from repro_torch.models.params import init_tree, stack
 
 _LATER = "ROADMAP queue A, item 10 (the other model families)"
@@ -81,23 +84,34 @@ class DecoderLM:
     # ------------------------------------------------------------ prefill
 
     def prefill(self, params, batch, max_seq: int, *, lengths=None,
-                quant_impl: str = "auto", prior=None):
+                quant_impl: str = "auto", prior=None, prior_len=None):
         """Process the prompt ``batch["tokens"]`` [B, L], build the quantized
         caches and return ``(last_logits [B, 1, V], state)``.
 
         ``lengths`` ([B] int32, optional): the batch is ragged, right-padded
         to L.  Cache occupancy follows the true lengths and the logits are
         those of each sequence's last real token.  ``quant_impl`` picks the
-        quantize kernel ('auto' | 'cuda' | 'torch')."""
-        if prior is not None:
-            raise NotImplementedError(
-                "suffix prefill (prior=) comes with the paged cache and the "
-                "serving engine: ROADMAP queue A, items 7-8"
-            )
+        quantize kernel ('auto' | 'cuda' | 'torch').
+
+        ``prior`` / ``prior_len`` make this a *suffix* prefill (prefix
+        sharing, serving engine): ``batch["tokens"]`` holds only the
+        divergent suffix of each prompt, ``prior`` is a per-stack list of
+        ``(k_prior, v_prior)`` (``[layers, B, T, H, d]``, dequantized shared
+        pages; ``qcache.dequant_prior``) whose first ``prior_len[b]`` tokens
+        the suffix attends.  Positions start at ``prior_len``, the caches
+        hold suffix content only, and ``pos`` counts ``prior_len + lengths``.
+        """
+        if prior is not None and (lengths is None or prior_len is None):
+            raise ValueError("suffix prefill needs lengths and prior_len")
         tokens = batch["tokens"]
         b, s = tokens.shape
         x = layers.embed(params["embed"], tokens)
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        if prior is not None:
+            if len(prior) != len(self.stacks):
+                raise ValueError(f"prior holds {len(prior)} stacks, the model {len(self.stacks)}")
+            prior_len = prior_len.to(device=x.device, dtype=torch.int32)
+            positions = prior_len[:, None] + positions
         caches = []
         for i, (_, n) in enumerate(self.stacks):
             layer_caches = []
@@ -107,6 +121,8 @@ class DecoderLM:
                 a, cache = mattn.attn_prefill_cache(
                     p["attn"], self.cfg, h, positions, max_seq,
                     quant_impl=quant_impl, lengths=lengths,
+                    prior=None if prior is None else (prior[i][0][li], prior[i][1][li]),
+                    prior_len=prior_len,
                 )
                 x = self._mlp_residual(p, x + a)
                 layer_caches.append(cache)
@@ -118,7 +134,7 @@ class DecoderLM:
             lengths = lengths.to(device=x.device, dtype=torch.int32)
             last = torch.clamp(lengths.long() - 1, 0, s - 1)
             x_last = x[torch.arange(b, device=x.device), last][:, None]
-            pos = lengths.clone()
+            pos = lengths.clone() if prior_len is None else lengths + prior_len
         return self._logits(params, x_last), {"caches": caches, "pos": pos}
 
     # ------------------------------------------------------------ decode
@@ -134,6 +150,32 @@ class DecoderLM:
                 block_n=cfg.kv_block, k_gran=cfg.kv_gran, device=device,
             ) for _ in range(n)]
             caches.append(qcache.stack_caches(one))
+        return {"caches": caches,
+                "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device)}
+
+    def paged_spec(self) -> PagedSpec:
+        """Declared cache family (``models/family.py``): split K/V pools,
+        suffix prefill supported (prefix sharing)."""
+        cfg = self.cfg
+        return PagedSpec(
+            paged=True, block_n=cfg.kv_block, n_kv_heads=cfg.n_kv_heads,
+            d_k=cfg.head_dim, d_v=cfg.head_dim,
+            page_layers=sum(n for _, n in self.stacks), supports_prior=True,
+        )
+
+    def init_paged_decode_state(self, batch_size: int, *, n_pages: int, nb_max: int,
+                                device=None):
+        """Paged decode state for the serving engine, on ``device`` (the card
+        unless given): per stack, a ``PagedQuantKVCache`` stacked over its
+        layers, whose one page table (``[B, nb_max]``, expanded over the
+        layers) the engine fills from its host mirror."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        caches = [qcache.init_paged_cache(
+            n_pages, batch_size, cfg.n_kv_heads, cfg.head_dim, nb_max,
+            bits=cfg.kv_bits, block_n=cfg.kv_block, k_gran=cfg.kv_gran,
+            layers=n, device=device,
+        ) for _, n in self.stacks]
         return {"caches": caches,
                 "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device)}
 

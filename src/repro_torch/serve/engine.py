@@ -1,0 +1,741 @@
+"""Paged continuous-batching serving engine, synchronous cycle: the port of
+the JAX package's ``serve/engine.py`` for the attention family.
+
+The engine composes the serving pieces into one cycle (:meth:`ServeEngine.step`):
+
+1. admit waiting requests into free slots (:class:`~.scheduler.Scheduler`:
+   strict FIFO, gated on a free slot and on the page pool's commitment
+   budget); prefill them in suffix-length buckets, each right-padded to its
+   bucket, the shared leading blocks of a prompt (prefix index) read from
+   the pools as a dequantized prior (``model.prefill(prior=...)``); adopt
+   the prefilled blocks into freshly allocated pages behind the shared ones
+   (``pages.adopt_prefill``);
+2. allocate the destination page of every row whose residual fills on this
+   step; a destination that holds a page with refcount > 1 (a speculative
+   shared tail) is copied on write first (``qcache.copy_pages``);
+3. push the page table if it changed, then run one batched decode step over
+   all slots: ``self._step(params, state, tokens)``, the model's
+   ``decode_step`` with the engine's ``impl``/``quant_impl``, through the
+   page table on the paged kernels (``kernels/paged_bitdecode`` and the
+   paged residual flush);
+4. read the logits once (the cycle's one device sync), advance per-token
+   accounting, retire finished requests.
+
+Idle slots decode garbage into their own scratch pages (their table rows
+point there): wasted lanes, never corruption.
+
+Pressure: under ``reserve_policy="expected"`` a request that outlives its
+reservation extends it one page at a time and, when the pool is full,
+**preempts** a victim, which re-prefills its prompt on re-admission and
+replays its decoded tokens teacher-forced through the decode path, so its
+cache, and every later token, is rebuilt bit for bit.  Lifecycle guards
+(deadlines, :meth:`ServeEngine.cancel`, a poisoned logits row retiring only
+its request), the invariant auditor (``audit_every``), seeded faults
+(``faults``) and telemetry (metrics registry, per-phase timers,
+``trace=True`` for the Chrome-trace event log) work as in the JAX engine.
+
+What the port adds: one prefill call per (suffix bucket, prior width)
+instead of per suffix bucket, so that a request's prefill has the same
+shapes whichever requests it is admitted with.  On the card cuBLAS picks a
+matrix product's kernel by shape, and a row's result is then a function of
+that row alone: a preempted request rebuilds its prefill bit for bit.
+
+Not ported yet, and refused with ``NotImplementedError``: self-speculative
+decoding (``spec_k > 1``) and the async runtime (ROADMAP A9); a mesh, the
+split-KV routing and page-affine pools (A11); the exact-length shim
+(``paged=False``) and cache families other than split K/V attention (A10).
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import qcache
+from repro_torch.core.device import resolve_device
+from repro_torch.serve import pages as pg
+from repro_torch.serve.audit import audit_engine
+from repro_torch.serve.scheduler import (  # noqa: F401 (Phase/Request re-exported)
+    Phase,
+    Request,
+    Scheduler,
+    bucket_for,
+)
+from repro_torch.serve.telemetry import MetricsRegistry, Tracer
+
+#: cycle phases in execution order -> the registry histogram each feeds
+PHASE_METRICS = {
+    "schedule": "phase_schedule_s",
+    "prefill": "phase_prefill_s",
+    "decode_dispatch": "phase_decode_dispatch_s",
+    "device_wait": "phase_device_wait_s",
+    "advance": "phase_advance_s",
+}
+
+#: timing-derived ``summary()`` keys: what a determinism comparison strips
+TIMING_SUMMARY_KEYS = frozenset({
+    "wall_s", "tokens_per_s", "latency_p50_ms", "latency_p99_ms",
+    "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms", "tpot_p99_ms",
+    "queue_wait_p50_ms", "queue_wait_p99_ms", "e2e_p50_ms", "e2e_p99_ms",
+    "host_stall_fraction", "phase_s",
+})
+
+#: the engine's lifecycle counters (``stats`` and ``summary()`` show them)
+STAT_COUNTERS = (
+    "decoded_tokens", "steps", "prefill_calls", "prefill_tokens",
+    "prefill_tokens_saved", "cow_copies",
+    # retirement breakdown (each request counts in at most one):
+    # budget_retired = hit max_new_tokens without EOS
+    "budget_retired", "preempted", "preempt_remat_tokens",
+    "expired", "cancelled", "errored", "audits", "faults_injected",
+    # retained pages evicted back to the free list
+    "retained_reclaims",
+)
+
+
+def _percentile(xs: list[float], q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q)) if xs else 0.0
+
+
+class _PhaseTimer:
+    """Accumulating timer for one named cycle phase; with tracing on, each
+    block also emits one complete event on the engine track."""
+
+    __slots__ = ("engine", "name", "t0")
+
+    def __init__(self, engine, name: str):
+        self.engine = engine
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        acc = self.engine._phase_acc
+        acc[self.name] = acc.get(self.name, 0.0) + dt
+        if self.engine.tracer is not None:
+            self.engine.tracer.complete(self.name, t0=self.t0, dur_s=dt, cat="engine")
+        return False
+
+
+def _unported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP queue A, item {item}")
+
+
+class ServeEngine:
+    def __init__(self, model, params, *, slots: int = 8, max_seq: int = 2048,
+                 eos_id: int | None = None, impl: str = "auto",
+                 quant_impl: str = "auto", paged: bool | None = None,
+                 n_pages: int | None = None, min_bucket: int = 16,
+                 mesh=None, splitkv: str = "auto", share_prefix: bool = True,
+                 spec_tail: bool = True, retain_prefix: bool = False,
+                 page_affine: bool = False, reserve_policy: str = "worst_case",
+                 expected_quantile: float = 0.5, preempt_policy: str = "youngest",
+                 audit_every: int = 0, faults=None, clock=None, spec_k: int = 1,
+                 trace: bool | Tracer = False, metrics: MetricsRegistry | None = None,
+                 async_runtime: bool = False, device=None):
+        """The options are the JAX engine's (see its docstring): ``n_pages``
+        bounds the pool (default: full provisioning, ``slots * nb_max`` plus
+        the scratch pages), ``share_prefix``/``spec_tail``/``retain_prefix``
+        drive prefix sharing, ``reserve_policy``/``expected_quantile``/
+        ``preempt_policy`` the pressure handling, ``audit_every``/``faults``/
+        ``clock`` the self-checks and guards, ``trace``/``metrics`` telemetry.
+        ``impl``/``quant_impl`` pick the decode attention and flush kernels
+        ('auto' | 'cuda' | 'torch').  ``device``: where the state lives (the
+        card unless given)."""
+        if spec_k != 1 or async_runtime:
+            raise _unported("speculative decoding (spec_k > 1) and the async runtime", "9")
+        if mesh is not None or splitkv != "auto" or page_affine:
+            raise _unported("the mesh, split-KV routing and page-affine pools", "11")
+        if paged is False:
+            raise _unported("the exact-length shim (paged=False)", "10")
+        spec = model.paged_spec() if hasattr(model, "paged_spec") else None
+        if (spec is None or not spec.paged or spec.shared_kv or spec.side_state
+                or spec.exact_prefill):
+            raise _unported("serving a cache family other than split K/V attention", "10")
+        if preempt_policy not in ("youngest", "fewest_pages"):
+            raise ValueError(f"unknown preempt_policy {preempt_policy!r}")
+        self.model = model
+        self.params = params
+        self.spec = spec
+        self.paged = True
+        self.slots = slots
+        self.max_seq = max_seq
+        self.eos_id = eos_id
+        self.preempt_policy = preempt_policy
+        self.audit_every = audit_every
+        self.faults = faults
+        self.clock = clock if clock is not None else time.monotonic
+        self.device = resolve_device(device)
+        self._cycle = 0
+        cfg = model.cfg
+
+        # --- telemetry ---------------------------------------------------
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.tracer = trace if isinstance(trace, Tracer) else (Tracer() if trace else None)
+        for name in STAT_COUNTERS:
+            self.metrics.counter(name)
+        for hist in (*PHASE_METRICS.values(), "cycle_s", "device_idle_gap_s", "ttft_s",
+                     "tpot_s", "queue_wait_s", "e2e_latency_s"):
+            self.metrics.histogram(hist)
+        self._phase_acc: dict[str, float] = {}
+        self._cycle_worked = False
+        self._work_t0: float | None = None
+        self._work_t1: float | None = None
+        self._ttft_s: list[float] = []
+        self._tpot_s: list[float] = []
+        self._queue_wait_s: list[float] = []
+        self._e2e_s: list[float] = []
+        if faults is not None and getattr(faults, "on_fire", None) is None:
+            faults.on_fire = self._on_fault
+        # delayed-release fault parking lot: (ready_cycle, uid, pages)
+        self._deferred: list[tuple[int, int, list[int]]] = []
+
+        self.block_n = spec.block_n
+        self._impl, self._quant_impl = impl, quant_impl
+        # the decode step: a plain callable over (params, state, tokens), the
+        # counterpart of the JAX engine's jitted lambda; it updates the
+        # state's caches in place
+        self._step = lambda p, s, t: model.decode_step(p, s, t, impl=impl,
+                                                       quant_impl=quant_impl)
+        self.tokens = np.zeros((slots, 1), np.int32)
+        self._occupancy: list[float] = []
+
+        self.nb_max = -(-max_seq // self.block_n)
+        self.n_pages = n_pages if n_pages is not None else slots * self.nb_max + slots
+        self.state = model.init_paged_decode_state(
+            slots, n_pages=self.n_pages, nb_max=self.nb_max, device=self.device)
+        first = self.state["caches"][0]
+        if first.kw.shape[-1] != spec.d_k or first.vw.shape[-1] != spec.d_v:
+            raise ValueError(
+                "paged_spec() disagrees with init_paged_decode_state: declared "
+                f"(d_k={spec.d_k}, d_v={spec.d_v}) vs allocated "
+                f"(d_k={first.kw.shape[-1]}, d_v={first.vw.shape[-1]})")
+        # one page across every paged layer, measured from the pools
+        self.kv_page_bytes = sum(
+            getattr(pc, f).numel() * getattr(pc, f).element_size()
+            for pc in self.state["caches"] for f in qcache._PAGED_POOL_FIELDS
+        ) // self.n_pages
+        self.pool = pg.PagePool(self.n_pages, n_scratch=slots,
+                                page_bytes=self.kv_page_bytes, metrics=self.metrics)
+        share = share_prefix and spec.supports_prior
+        self.retain_prefix = retain_prefix and share
+        self.sched = Scheduler(
+            slots=slots, pool=self.pool, block_n=self.block_n, max_seq=max_seq,
+            min_bucket=min_bucket, share_prefix=share, spec_tail=spec_tail and share,
+            retain_prefix=self.retain_prefix, reserve_policy=reserve_policy,
+            expected_quantile=expected_quantile, clock=self.clock,
+            metrics=self.metrics,
+            namespace=f"{cfg.name}/b{cfg.kv_bits}/n{self.block_n}/{cfg.kv_gran}",
+        )
+        # host mirror of the device page table; unassigned entries point at
+        # the slot's scratch page (flush-destination injectivity)
+        self._table = np.broadcast_to(
+            np.arange(slots, dtype=np.int32)[:, None], (slots, self.nb_max)).copy()
+        self._table_dirty = False
+
+    # ------------------------------------------------------------ public
+
+    @property
+    def stats(self) -> dict:
+        """Lifecycle counters as a plain dict (a view of the registry)."""
+        return {k: int(self.metrics.value(k)) for k in STAT_COUNTERS}
+
+    def _phase(self, name: str) -> _PhaseTimer:
+        return _PhaseTimer(self, name)
+
+    def _on_fault(self, site: str, cycle: int, uid) -> None:
+        """``FaultPlan.on_fire`` hook: count and trace every injected fault."""
+        self.metrics.inc("faults_injected")
+        if self.tracer is not None:
+            self.tracer.instant("fault", args={"site": site, "cycle": cycle, "uid": uid})
+
+    def submit(self, req: Request) -> bool:
+        """Queue ``req``; False when it was retired REJECTED at submission
+        (``req.error`` names the reason)."""
+        ok = self.sched.submit(req)
+        if self.tracer is not None:
+            if ok:
+                self.tracer.begin("queue", uid=req.uid, cat="request")
+            else:
+                self.tracer.instant("rejected", uid=req.uid, cat="request")
+        return ok
+
+    def cancel(self, uid: int) -> Request | None:
+        """Cancel a waiting or active request by uid; returns the retired
+        request (CANCELLED, resources released, table row reset) or None."""
+        for req in list(self.sched.waiting):
+            if req.uid == uid:
+                self.sched.waiting.remove(req)
+                self._retire(req, Phase.CANCELLED, reason="cancelled")
+                return req
+        for req in list(self.sched.active.values()):
+            if req.uid == uid:
+                self._retire(req, Phase.CANCELLED, reason="cancelled")
+                return req
+        return None
+
+    def audit(self):
+        """Run the invariant auditor now."""
+        self.metrics.inc("audits")
+        report = audit_engine(self)
+        if self.tracer is not None:
+            self.tracer.instant("audit", args={"violations": len(report.violations)})
+        return report
+
+    def run(self, max_cycles: int = 10_000):
+        t0 = time.perf_counter()
+        cycles = 0
+        while self._has_work() and cycles < max_cycles:
+            self.step()
+            cycles += 1
+        if self.audit_every:
+            self.audit().raise_if_violations()  # clean at drain
+        return self.summary(wall_s=time.perf_counter() - t0)
+
+    def summary(self, *, wall_s: float | None = None) -> dict:
+        """Engine statistics.  ``wall_s`` defaults to the first-work to
+        last-work window of the cycles run so far."""
+        if wall_s is None:
+            if self._work_t0 is not None and self._work_t1 is not None:
+                wall_s = self._work_t1 - self._work_t0
+            else:
+                wall_s = 0.0
+        stats = self.stats
+        cycle_total = self.metrics.histogram("cycle_s").total
+        wait_total = self.metrics.histogram("phase_device_wait_s").total
+        lat = self._tpot_s if self._tpot_s else self._ttft_s
+        sched = self.sched.stats
+        return {
+            **stats,
+            "wall_s": wall_s,
+            "tokens_per_s": stats["decoded_tokens"] / wall_s if wall_s > 0 else 0.0,
+            **{f"sched_{k}": v for k, v in sched.items()},
+            "latency_p50_ms": 1e3 * _percentile(lat, 50),
+            "latency_p99_ms": 1e3 * _percentile(lat, 99),
+            "ttft_p50_ms": 1e3 * _percentile(self._ttft_s, 50),
+            "ttft_p99_ms": 1e3 * _percentile(self._ttft_s, 99),
+            "tpot_p50_ms": 1e3 * _percentile(self._tpot_s, 50),
+            "tpot_p99_ms": 1e3 * _percentile(self._tpot_s, 99),
+            "queue_wait_p50_ms": 1e3 * _percentile(self._queue_wait_s, 50),
+            "queue_wait_p99_ms": 1e3 * _percentile(self._queue_wait_s, 99),
+            "e2e_p50_ms": 1e3 * _percentile(self._e2e_s, 50),
+            "e2e_p99_ms": 1e3 * _percentile(self._e2e_s, 99),
+            # share of cycle time the host was not waiting on the device
+            "host_stall_fraction": (1.0 - min(1.0, wait_total / cycle_total)
+                                    if cycle_total > 0 else 0.0),
+            "phase_s": {**{name: self.metrics.histogram(h).total
+                           for name, h in PHASE_METRICS.items()},
+                        "cycle": cycle_total},
+            "occupancy_mean": float(np.mean(self._occupancy)) if self._occupancy else 0.0,
+            "occupancy_max": float(np.max(self._occupancy)) if self._occupancy else 0.0,
+            "kv_page_bytes": self.kv_page_bytes,
+            "kv_bytes_in_use": self.pool.bytes_in_use,
+            "kv_page_layers": self.spec.page_layers,
+            "pages_per_token": self.spec.pages_per_token,
+            "prefix_hit_rate": (sched["prefix_hit_blocks"]
+                                / max(1, sched["prefix_lookup_blocks"])),
+            "pool_pages_retained": self.pool.n_retained,
+        }
+
+    def _has_work(self) -> bool:
+        return self.sched.has_work or bool(self._deferred)
+
+    # ------------------------------------------------ the one decode cycle
+
+    def step(self) -> bool:
+        t0 = time.perf_counter()
+        self._cycle += 1
+        self._cycle_worked = False
+        try:
+            with torch.no_grad():
+                return self._step_once(t0)
+        finally:
+            self._finish_cycle(t0)
+
+    def _step_once(self, t0: float) -> bool:
+        with self._phase("schedule"):
+            self._service_deferred()
+            self._expire()
+            if self.faults is not None and self.faults.fires("forced_preempt",
+                                                             cycle=self._cycle):
+                victim = self._pick_victim()
+                if victim is not None:
+                    self._preempt(victim)
+            if self.faults is not None and self.faults.fires("evict_storm",
+                                                             cycle=self._cycle):
+                self.pool.reclaim_retained(self.faults.storm_pages)
+        self._admit_and_prefill()
+        if not self.sched.active:
+            return False
+        with self._phase("schedule"):
+            self._ensure_flush_pages()
+            if self.sched.active and self._table_dirty:
+                pg.set_page_tables(self.state["caches"], self._table)
+                self._table_dirty = False
+        if not self.sched.active:  # everyone self-preempted under faults
+            return False
+
+        self._cycle_worked = True
+        with self._phase("decode_dispatch"):
+            tokens = torch.from_numpy(self.tokens).to(self.device)
+            logits, self.state = self._step(self.params, self.state, tokens)
+        # the cycle's one device sync: reading the logits separates waiting
+        # on the device from the host work around it
+        with self._phase("device_wait"):
+            rows = logits[:, 0].float().cpu().numpy()
+        with self._phase("advance"):
+            if self.faults is not None:
+                for slot, req in list(self.sched.active.items()):
+                    if self.faults.fires("poison_logits", cycle=self._cycle, uid=req.uid,
+                                         progress=len(req.out_tokens)):
+                        rows[slot] = np.nan
+            nxt = np.argmax(rows, axis=-1)
+            # a poisoned row retires its request alone
+            finite = np.isfinite(rows).all(axis=-1)
+            bad = {slot: "non-finite logits row" for slot in self.sched.active
+                   if not finite[slot]}
+            self.metrics.inc("steps")
+            # occupancy at the cycle peak: after admission, before release
+            self._occupancy.append(self.pool.occupancy)
+            self._advance(nxt, time.perf_counter() - t0, bad=bad)
+        if self.audit_every and self._cycle % self.audit_every == 0:
+            self.audit().raise_if_violations()
+        return True
+
+    def _finish_cycle(self, t0: float) -> None:
+        """Cycle-boundary bookkeeping: fold the phase timers into the
+        registry, derive the device-idle gap, advance the work window."""
+        now = time.perf_counter()
+        cycle_s = now - t0
+        acc, self._phase_acc = self._phase_acc, {}
+        m = self.metrics
+        m.observe("cycle_s", cycle_s)
+        for name, hist in PHASE_METRICS.items():
+            if name in acc:
+                m.observe(hist, acc[name])
+        busy = acc.get("device_wait", 0.0) + acc.get("prefill", 0.0)
+        m.observe("device_idle_gap_s", max(0.0, cycle_s - busy))
+        if self._cycle_worked:
+            if self._work_t0 is None:
+                self._work_t0 = t0
+            self._work_t1 = now
+        if self.tracer is not None:
+            self.tracer.complete("cycle", t0=t0, dur_s=cycle_s, cat="engine",
+                                 args={"cycle": self._cycle})
+
+    def _advance(self, nxt: np.ndarray, dt: float, bad: dict[int, str] | None = None) -> None:
+        """Per-token accounting: record the decoded token, advance
+        ``req.pos``, retire on EOS or the token budget; slots in ``bad``
+        retire ERRORED and every other slot advances normally.  A
+        rematerializing request (``replay_left > 0``) is teacher-forced: its
+        next token is taken from its recorded stream, nothing is re-counted."""
+        now = time.perf_counter()
+        for slot, req in list(self.sched.active.items()):
+            self._advance_one(slot, req, int(nxt[slot]), (bad or {}).get(slot), dt, now)
+
+    def _advance_one(self, slot: int, req: Request, nxt_tok: int, bad: str | None,
+                     dt: float, now: float) -> None:
+        if req.replay_left > 0:
+            req.pos += 1
+            req.replay_left -= 1
+            if req.replay_left > 0:
+                self.tokens[slot, 0] = req.out_tokens[len(req.out_tokens) - req.replay_left]
+            else:  # replay complete: resume the parked stream
+                self.tokens[slot, 0] = req.pending_token
+                req.pending_token = None
+                if self.tracer is not None:
+                    self.tracer.instant("replay_done", uid=req.uid, cat="request")
+            return
+        tok = int(self.tokens[slot, 0])
+        req.out_tokens.append(tok)
+        req.pos += 1
+        req.token_latencies_s.append(dt)
+        self._observe_token(req, dt, now)
+        self.metrics.inc("decoded_tokens")
+        if bad is not None:
+            self._retire(req, Phase.ERRORED,
+                         reason=f"request {req.uid} step {self._cycle}: {bad}")
+            return
+        hit_eos = self.eos_id is not None and tok == self.eos_id
+        if hit_eos or len(req.out_tokens) >= req.max_new_tokens:
+            if not hit_eos:
+                self.metrics.inc("budget_retired")
+            self._retire(req, Phase.DONE)
+        else:
+            self.tokens[slot, 0] = int(nxt_tok)
+
+    def _observe_token(self, req: Request, per_tok_s: float, now: float) -> None:
+        """TTFT (submission to first token, queue wait included) for a
+        request's first token, TPOT (the cycle's time) for every later one."""
+        if req.t_first_token_s is None:
+            req.t_first_token_s = now
+            ttft = (now - req.t_submit_s) if req.t_submit_s is not None else per_tok_s
+            self._ttft_s.append(ttft)
+            self.metrics.observe("ttft_s", ttft)
+        else:
+            self._tpot_s.append(per_tok_s)
+            self.metrics.observe("tpot_s", per_tok_s)
+
+    # ---------------------------------------- retirement, expiry, preemption
+
+    def _retire(self, req: Request, phase: Phase, reason: str | None = None) -> None:
+        """The one retirement path: reset the table row to scratch, honour a
+        delayed-release fault, release through the scheduler, count."""
+        if req.slot is not None:
+            self._table[req.slot, :] = req.slot
+            self._table_dirty = True
+        if (self.faults is not None and req.pages
+                and self.faults.fires("delayed_release", cycle=self._cycle, uid=req.uid)):
+            self._deferred.append((self._cycle + self.faults.delay_cycles, req.uid,
+                                   list(req.pages)))
+            req.pages = []  # the scheduler releases reservation + slot only
+        self.sched.retire(req, phase, reason=reason)
+        stat = {Phase.EXPIRED: "expired", Phase.CANCELLED: "cancelled",
+                Phase.ERRORED: "errored"}.get(phase)
+        if stat is not None:
+            self.metrics.inc(stat)
+        if phase is Phase.DONE and req.t_submit_s is not None:
+            e2e = time.perf_counter() - req.t_submit_s
+            self._e2e_s.append(e2e)
+            self.metrics.observe("e2e_latency_s", e2e)
+        if self.tracer is not None:
+            self.tracer.end_open(uid=req.uid, cat="request")
+            self.tracer.instant(phase.value, uid=req.uid, cat="request",
+                                args={"reason": reason} if reason is not None else None)
+
+    def _service_deferred(self) -> None:
+        """Free pages whose injected release delay has elapsed."""
+        if not self._deferred:
+            return
+        due = [d for d in self._deferred if d[0] <= self._cycle]
+        self._deferred = [d for d in self._deferred if d[0] > self._cycle]
+        for _ready, uid, pages in due:
+            for page in pages:
+                self.pool.free(page, owner=uid)
+
+    def _expire(self) -> None:
+        """Retire every live request whose ``deadline_s`` has passed."""
+        for req in self.sched.expired(self.clock()):
+            if req.phase == Phase.WAITING:
+                self.sched.waiting.remove(req)
+            self._retire(req, Phase.EXPIRED, reason=(
+                f"request {req.uid}: deadline_s={req.deadline_s} exceeded before completion"))
+
+    def _pick_victim(self, exclude: Request | None = None) -> Request | None:
+        """An active DECODE request admitted in an earlier cycle: the latest
+        admission (``youngest``) or the fewest pages, ties to the youngest."""
+        cands = [r for r in self.sched.active.values()
+                 if r is not exclude and r.phase == Phase.DECODE
+                 and r.admit_cycle < self._cycle]
+        if not cands:
+            return None
+        if self.preempt_policy == "fewest_pages":
+            return min(cands, key=lambda r: (len(r.pages), -r.admit_seq))
+        return max(cands, key=lambda r: r.admit_seq)
+
+    def _preempt(self, req: Request) -> None:
+        """Preempt by rematerialization: park the decoded-but-unfed token
+        (a victim caught mid-replay keeps its parked one), reset the table
+        row and requeue at the FIFO head for re-prefill and replay."""
+        slot = req.slot
+        pending = req.pending_token if req.replay_left > 0 else int(self.tokens[slot, 0])
+        self._table[slot, :] = slot
+        self._table_dirty = True
+        self.metrics.inc("preempted")
+        self.metrics.inc("preempt_remat_tokens", len(req.out_tokens))
+        if self.tracer is not None:
+            self.tracer.end_open(uid=req.uid, cat="request")
+            self.tracer.instant("preempt", uid=req.uid, cat="request",
+                                args={"tokens_to_replay": len(req.out_tokens)})
+            self.tracer.begin("queue", uid=req.uid, cat="request")
+        self.sched.preempt(req, pending_token=pending)
+
+    # ----------------------------------------------------- paged admission
+
+    def _alloc_page(self, req: Request, *, admission: bool = False) -> int | None:
+        """Pool alloc charged to ``req``.  A request without reservation
+        left extends it by one unit, preempting victims while the pool is
+        full; with no victim it preempts itself (returns None).  An injected
+        ``alloc_fail`` takes the same victim path."""
+        if self.faults is not None and self.faults.fires("alloc_fail", cycle=self._cycle,
+                                                         uid=req.uid):
+            victim = self._pick_victim(exclude=req)
+            if victim is not None:
+                self._preempt(victim)
+            elif not admission and req.reserved_pages <= 0:
+                self._preempt(req)
+                return None
+        if req.reserved_pages <= 0:
+            while not self.pool.reserve(1, owner=req.uid):
+                victim = self._pick_victim(exclude=req)
+                if victim is None:
+                    self._preempt(req)
+                    return None
+                self._preempt(victim)
+            req.reserved_pages += 1
+        page = self.pool.alloc(owner=req.uid)
+        req.reserved_pages -= 1
+        req.pages.append(page)
+        return page
+
+    def _admit_and_prefill(self) -> None:
+        with self._phase("schedule"):
+            groups = self.sched.admit()
+            if groups:
+                self._note_admissions(groups)
+        for bucket_len, reqs in groups.items():
+            # one call per prior width as well (see the module docstring)
+            by_prior: dict[int, list[Request]] = {}
+            for req in reqs:
+                s = len(req.shared_pages)
+                by_prior.setdefault(bucket_for(s, min_bucket=1) if s else 0, []).append(req)
+            for part in by_prior.values():
+                with self._phase("prefill"):
+                    self._prefill_bucket(bucket_len, part)
+
+    def _note_admissions(self, groups: dict[int, list[Request]]) -> None:
+        """Close the queue span, open the prefill span, observe queue wait
+        (first admission only)."""
+        now = time.perf_counter()
+        for reqs in groups.values():
+            for req in reqs:
+                first_admit = req.t_admit_s is None
+                req.t_admit_s = now
+                if first_admit and req.t_submit_s is not None:
+                    qw = now - req.t_submit_s
+                    self._queue_wait_s.append(qw)
+                    self.metrics.observe("queue_wait_s", qw)
+                if self.tracer is not None:
+                    self.tracer.end_open(uid=req.uid, cat="request")
+                    self.tracer.begin("prefill", uid=req.uid, cat="request")
+
+    def _prefill(self, toks, lens):
+        return self.model.prefill(self.params, {"tokens": toks}, toks.shape[1],
+                                  lengths=lens, quant_impl=self._quant_impl)
+
+    def _prefill_shared(self, toks, lens, pages, prior_len):
+        """Suffix prefill over the shared prefix, dequantized from the pools."""
+        prior = [qcache.dequant_prior(c, pages) for c in self.state["caches"]]
+        return self.model.prefill(self.params, {"tokens": toks}, toks.shape[1],
+                                  lengths=lens, quant_impl=self._quant_impl,
+                                  prior=prior, prior_len=prior_len)
+
+    def _prefill_bucket(self, bucket_len: int, reqs: list[Request]) -> None:
+        # divergent-suffix prefill: row r holds request r's unshared tail
+        toks = np.zeros((self.slots, bucket_len), np.int64)
+        lens = np.ones((self.slots,), np.int32)  # pad rows: length 1
+        shared_blocks = [len(r.shared_pages) for r in reqs]
+        p_max = max(shared_blocks)
+        for r, req in enumerate(reqs):
+            sl = req.suffix_len(self.block_n)
+            toks[r, :sl] = req.prompt[len(req.shared_pages) * self.block_n:]
+            lens[r] = sl
+            self.metrics.inc("prefill_tokens", sl)
+            self.metrics.inc("prefill_tokens_saved", req.prompt_len - sl)
+        dev = self.device
+        t_toks, t_lens = torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev)
+        if p_max == 0:
+            logits, dstate = self._prefill(t_toks, t_lens)
+        else:
+            # the prior walk padded to a power-of-two block count
+            p_pad = bucket_for(p_max, min_bucket=1)
+            pages = np.zeros((self.slots, p_pad), np.int64)
+            plens = np.zeros((self.slots,), np.int32)
+            for r, req in enumerate(reqs):
+                s = len(req.shared_pages)
+                pages[r, :s] = req.shared_pages
+                plens[r] = s * self.block_n
+            logits, dstate = self._prefill_shared(
+                t_toks, t_lens, torch.from_numpy(pages).to(dev),
+                torch.from_numpy(plens).to(dev))
+        self.metrics.inc("prefill_calls")
+        first = logits[:, 0].argmax(-1).cpu().numpy()
+
+        slot_ids, lengths, pages_per_req = [], [], []
+        for r, req in enumerate(reqs):
+            s = len(req.shared_pages)
+            sl = req.suffix_len(self.block_n)
+            n_blocks = sl // self.block_n
+            # covered by the reservation floor: never preempts here
+            pgs = [self._alloc_page(req, admission=True) for _ in range(n_blocks)]
+            self._table[req.slot, :] = req.slot  # fresh scratch row
+            self._table[req.slot, :s] = req.shared_pages
+            if req.spec_page is not None:  # speculative flush destination
+                self._table[req.slot, s] = req.spec_page
+            self._table[req.slot, s:s + n_blocks] = pgs
+            slot_ids.append(req.slot)
+            lengths.append(sl)
+            pages_per_req.append(pgs)
+            req.phase = Phase.DECODE
+            req.pos = req.prompt_len
+            req.admit_cycle = self._cycle
+            if self.tracer is not None:
+                self.tracer.end("prefill", uid=req.uid, cat="request")
+                self.tracer.begin("decode", uid=req.uid, cat="request")
+            if req.replay_left > 0:
+                # rematerializing victim: teacher-force its recorded stream
+                self.tokens[req.slot, 0] = req.out_tokens[0]
+            elif req.pending_token is not None:
+                # preempted before any decode: resume from the parked token
+                self.tokens[req.slot, 0] = req.pending_token
+                req.pending_token = None
+            else:
+                self.tokens[req.slot, 0] = int(first[r])
+        self._table_dirty = True
+        pg.adopt_prefill(self.state["caches"], dstate["caches"], slot_ids=slot_ids,
+                         lengths=lengths, pages_per_req=pages_per_req,
+                         block_n=self.block_n, base_blocks=shared_blocks)
+        sidx = torch.as_tensor(slot_ids, device=dev)
+        self.state["pos"][sidx] = torch.as_tensor(
+            [r.prompt_len for r in reqs], dtype=torch.int32, device=dev)
+        # full prompt blocks (shared + fresh) become discoverable
+        for r, req in enumerate(reqs):
+            self.sched.register_prefix(req, req.shared_pages + pages_per_req[r])
+
+    def _ensure_flush_pages(self) -> None:
+        """Allocate the destination page of every row whose residual fills on
+        the coming step (``pos % block_n == block_n - 1``).  A destination
+        column that holds a page with refcount > 1 (a speculative shared
+        tail) is copied on write: the request gets a private page, the block
+        is replicated on the device, and only its own column is repointed.
+        A privately held page is overwritten in place, so its stale index
+        node is dropped.  Preemption can fire here, so the loop re-checks
+        each request is still active."""
+        cow_src, cow_dst = [], []
+        for req in list(self.sched.active.values()):
+            if self.sched.active.get(req.slot) is not req:
+                continue  # preempted by an earlier alloc this cycle
+            if req.pos % self.block_n != self.block_n - 1:
+                continue
+            blk = req.pos // self.block_n
+            entry = int(self._table[req.slot, blk])
+            if entry < self.slots:  # still scratch -> fresh private page
+                page = self._alloc_page(req)
+                if page is None:
+                    continue  # self-preempted: requeued, row reset
+                self._table[req.slot, blk] = page
+                self._table_dirty = True
+            elif self.pool.refcount(entry) > 1:  # shared -> copy on write
+                page = self._alloc_page(req)
+                if page is None:
+                    continue
+                cow_src.append(entry)
+                cow_dst.append(page)
+                req.pages.remove(entry)
+                if req.spec_page == entry:
+                    req.spec_page = None
+                self.pool.free(entry, owner=req.uid)
+                self._table[req.slot, blk] = page
+                self._table_dirty = True
+                self.metrics.inc("cow_copies")
+                if self.tracer is not None:
+                    self.tracer.instant("cow", uid=req.uid, cat="request",
+                                        args={"src": entry, "dst": page})
+            else:
+                self.sched.forget_page(entry)
+        if cow_src:
+            pg.cow_pages(self.state["caches"], cow_src, cow_dst)

@@ -5,9 +5,11 @@ imports only torch and the port, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-kv_quant and residual_flush must match bit for bit; bitdecode within the
-reference's tolerances (out 2e-2, lse 1e-3).  The plain versions are held
-against the JAX package in test_torch_kernels.py.
+kv_quant and residual_flush (dense and paged) must match bit for bit;
+bitdecode and paged_bitdecode within the reference's tolerances (out 2e-2,
+lse 1e-3), and paged_bitdecode over an identity page table bit for bit
+equal to bitdecode.  The plain versions are held against the JAX package in
+test_torch_kernels.py and test_torch_paged.py.
 """
 import functools
 
@@ -19,8 +21,10 @@ from repro_torch.configs import smoke_config
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitdecode import ops as bd_ops
 from repro_torch.kernels.kv_quant import ops as kq_ops
+from repro_torch.kernels.paged_bitdecode import ops as pg_ops
 from repro_torch.kernels.residual_flush import ops as rf_ops
 from repro_torch.models.zoo import build_model
+from repro_torch.serve import Request, ServeEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -172,3 +176,134 @@ def test_smoke_model_kernels_match_plain(cuda):
     assert torch.equal(ct.pack_blocks, ck.pack_blocks) and torch.equal(ct.res_len, ck.res_len)
     for f in ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero"):
         np.testing.assert_array_equal(bits_of(getattr(ck, f)[0]), bits_of(getattr(ct, f)[0]))
+
+
+# ------------------------------------------------------------ paged kernels
+
+
+def _pools(packed):
+    """Dense [B, H, nb, ...] fields -> pools [B * nb, H, ...] in which row b's
+    block j is page b * nb + j."""
+    return [x.movedim(2, 1).reshape(-1, *x.shape[1:2], *x.shape[3:]).contiguous()
+            for x in packed]
+
+
+PAGED_CASES = [  # (g, d, block_n, bits, k_gran, pack_blocks, res_len)
+    (4, 128, 128, 4, "channel", [5, 3], [17, 0]),
+    (4, 128, 128, 2, "tensor", [0, 6], [128, 1]),  # a row with no packed block
+    (4, 128, 128, 8, "channel", [6, 6], [0, 127]),
+    (2, 32, 64, 4, "tensor", [2, 6], [5, 64]),
+]
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+@pytest.mark.parametrize("num_splits", [1, 3, "auto"])
+def test_paged_bitdecode_kernel_matches_plain(cuda, case, num_splits):
+    """Scrambled table over a pool of 16 pages, O(1) outputs."""
+    g, d, block_n, bits, k_gran, pb, rl = case
+    gen = torch.Generator(device=cuda).manual_seed(g * d + bits)
+    args = _decode_args(gen, cuda, g, d, block_n, bits, k_gran, pb, rl, 1.0)
+    q, packed, res, lens = args[0], args[1:7], args[7:9], args[9:]
+    v_off = 2.0 * torch.randn(d, generator=gen, device=cuda)
+    pool = _pools(_packed(gen, cuda, b=4, h=2, nb=4, block_n=block_n, d=d, bits=bits,
+                          k_gran=k_gran, v_off=v_off))
+    res[1] = (res[1] + v_off).to(torch.bfloat16)
+    table = torch.randperm(16, generator=gen, device=cuda)[:12].reshape(2, 6).to(torch.int32)
+    fn = functools.partial(pg_ops.paged_bitdecode_attention, q, *pool, *res, table, *lens,
+                           bits=bits, block_n=block_n, k_gran=k_gran, return_lse=True)
+    out_k, lse_k = fn(impl="cuda", num_splits=num_splits)
+    out_r, lse_r = fn(impl="torch", num_splits=1)
+    assert out_r.abs().amax() > 0.5
+    torch.testing.assert_close(out_k, out_r, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse_k, lse_r, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("num_splits", [1, 3])
+def test_paged_bitdecode_equals_bitdecode_on_identity_table(cuda, case, num_splits):
+    """The pool laid out as the dense cache, the identity table: the two
+    kernels share one body and agree bit for bit."""
+    g, d, block_n, bits, k_gran = case[:5]
+    gen = torch.Generator(device=cuda).manual_seed(g * d)
+    q, *packed, k_res, v_res, pb, rl = _decode_args(gen, cuda, *case)
+    b, nb = q.shape[0], packed[0].shape[2]
+    table = torch.arange(b * nb, dtype=torch.int32, device=cuda).reshape(b, nb)
+    kw = dict(bits=bits, block_n=block_n, k_gran=k_gran, return_lse=True,
+              num_splits=num_splits, impl="cuda")
+    out_d, lse_d = bd_ops.bitdecode_attention(q, *packed, k_res, v_res, pb, rl, **kw)
+    out_p, lse_p = pg_ops.paged_bitdecode_attention(q, *_pools(packed), k_res, v_res,
+                                                    table, pb, rl, **kw)
+    assert torch.equal(out_p, out_d) and torch.equal(lse_p, lse_d)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("k_gran", ["channel", "tensor"])
+def test_paged_residual_flush_kernel_matches_plain_bitwise(cuda, bits, k_gran):
+    """Mixed ``full``, one destination past the pool (clamped); every page
+    that is not a full row's destination comes back unchanged."""
+    gen = torch.Generator(device=cuda).manual_seed(bits)
+    pool = _pools(_packed(gen, cuda, b=2, h=2, nb=6, block_n=128, d=128, bits=bits,
+                          k_gran=k_gran))
+    res = [randn(gen, (4, 2, 128, 128), cuda) for _ in range(2)]
+    full = torch.tensor([1, 0, 1, 1], dtype=torch.int32, device=cuda)
+    dest = torch.tensor([7, 1, 4, 40], dtype=torch.int32, device=cuda)  # 40 -> page 11
+    kw = dict(bits=bits, block_n=128, k_gran=k_gran)
+    before = [p.clone() for p in pool]
+    twin = [p.clone() for p in pool]
+    out = rf_ops.paged_residual_flush(*pool, *res, full, dest, impl="cuda", **kw)
+    ref = rf_ops.paged_residual_flush(*twin, *res, full, dest, impl="torch", **kw)
+    written = torch.tensor([7, 4, 11], device=cuda)
+    kept = torch.tensor([p for p in range(12) if p not in (7, 4, 11)], device=cuda)
+    for o, r, b0 in zip(out, ref, before):
+        np.testing.assert_array_equal(bits_of(o), bits_of(r))
+        assert torch.equal(o[kept], b0[kept])
+        assert not torch.equal(o[written], b0[written])
+
+
+def test_small_engine_kernels_match_plain(cuda):
+    """The serving engine on the card, the smoke model: kernels against
+    ``impl="torch"``, fed the plain run's tokens; the same schedule, pool and
+    page-table bookkeeping, logits within the decode tolerance, and both
+    paged kernels launched."""
+    cfg = smoke_config("llama3-8b").with_(kv_block=32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, cfg.vocab, 70).astype(np.int32)
+    prompts = [base, np.concatenate([base[:64], rng.integers(0, cfg.vocab, 30)]),
+               base[:10].copy(), rng.integers(0, cfg.vocab, 45).astype(np.int32)]
+    rec = []
+
+    def run(impl, feed=None):
+        eng = ServeEngine(model, params, slots=3, max_seq=192, impl=impl, quant_impl=impl,
+                          audit_every=1)
+        step = eng._step
+
+        def wrapped(p, s, t):
+            if feed is not None:
+                t = feed[len(rec)]
+            logits, s = step(p, s, t)
+            rec.append((t.clone(), logits.clone()))
+            return logits, s
+        eng._step = wrapped
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=40) for i, p in enumerate(prompts)]
+        eng.submit(reqs[0])
+        eng.step()
+        for r in reqs[1:]:
+            eng.submit(r)
+        eng.run()
+        return eng, reqs
+
+    with torch.no_grad():
+        plain, _ = run("torch")
+        plain_rec, rec[:] = list(rec), []
+        _build.launches.clear()
+        kern, reqs = run("auto", [t for t, _ in plain_rec])
+    assert _build.launches["paged_bitdecode"] > 0 and _build.launches["paged_residual_flush"] > 0
+    assert all(r.done for r in reqs)
+    assert np.array_equal(kern._table, plain._table)
+    assert kern.pool.free_pages() == plain.pool.free_pages()
+    assert kern.stats == plain.stats and kern.sched.stats == plain.sched.stats
+    assert kern.sched.stats["prefix_hit_blocks"] > 0 and kern.stats["cow_copies"] > 0
+    for (_, lk), (_, lp) in zip(rec, plain_rec):
+        torch.testing.assert_close(lk, lp, rtol=2e-2, atol=3e-1)

@@ -123,12 +123,18 @@ def test_unported_families_raise(change):
 
 
 def test_suffix_prefill_raises():
+    """A suffix prefill (``prior=``) needs the suffix lengths and the prior
+    lengths, and one prior per stack; without them it raises.  Its numbers
+    are held against JAX in tests/test_torch_paged.py."""
     cfg = smoke_config("llama3-8b")
     m = build_model(cfg)
     params = m.init(torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="prior"):
-        m.prefill(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)}, 64,
-                  prior=[(None, None)])
+    tokens = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
+    with pytest.raises(ValueError, match="prior"):
+        m.prefill(params, tokens, 64, prior=[(None, None)])
+    with pytest.raises(ValueError, match="prior"):
+        m.prefill(params, tokens, 64, prior=[], lengths=torch.tensor([4]),
+                  prior_len=torch.tensor([0]))
 
 
 def test_entry_points_default_to_the_card():
