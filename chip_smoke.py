@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of BitDecoding on one NVIDIA GPU (written for an
-H100), from the kernels' build to full-width llama3-8b decoding.
+H100), from the kernels' build to full-width decoding and serving of
+llama3-8b and gemma-7b, and the dense loop of starcoder2-3b and
+command-r-35b.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --jax-init   # the init-scale witness, see below
@@ -12,15 +14,20 @@ Phases:
      the pages a paged flush must not touch unchanged; bitdecode and
      paged_bitdecode within out 2e-2 / lse 1e-3, over scrambled and
      identity page tables; paged_bitdecode on an identity table bit for bit
-     equal to bitdecode), then timed with CUDA events at the main paths'
-     shapes beside its bound (bytes / 3.35 TB/s vs operations / peak rate);
+     equal to bitdecode; flash_prefill within out 3e-2 / lse 1e-3 over head
+     dims 32-256, 1, 4 and 12 query heads per KV head, S shorter than a
+     tile, ragged and aligned, causal and full), then timed with CUDA events
+     at the main paths' shapes beside its bound (bytes / 3.35 TB/s vs
+     operations / peak rate), flash_prefill also beside PyTorch's
+     ``scaled_dot_product_attention`` (the yardstick; the port never calls
+     it);
   3. the dense path end to end: llama3-8b at full width and depth (32
      layers, random bf16 weights from a seeded torch.Generator), 4 ragged
-     prompts prefilled into the 4-bit cache, 160 greedy decode steps; once
-     with the plain versions, once with the kernels and once with the plain
-     versions split three ways along the cache (a different summation
-     order: the fidelity floor of two correct implementations), all fed the
-     plain run's token stream;
+     prompts prefilled (flash_prefill) into the 4-bit cache, 160 greedy
+     decode steps; once with the plain versions, once with the kernels and
+     once with the plain versions split three ways along the cache (a
+     different summation order: the fidelity floor of two correct
+     implementations), all fed the plain run's token stream;
   4. the serving path end to end: the same model behind ``ServeEngine``
      (4 slots, max_seq 4096), ten staggered requests with a shared prefix
      and a copy-on-write pair, all on the kernels: (a) worst-case
@@ -28,7 +35,16 @@ Phases:
      preempts, bit for bit equal to (a), (c) no prefix sharing, (d) the
      dense kernel path fed (c)'s token streams, within the decode tolerance
      of (c)'s logits; every run audited every cycle;
-  5. a JSON line per kernel, the card's name and power limit, and the
+  5. gemma-7b at full width and depth (28 layers, head_dim 256, 16/16
+     heads, GeGLU, (1 + w) RMSNorm, tied scaled embeddings): the dense loop
+     as in phase 3 (plain vs kernels, every row flushing), then runs (a) and
+     (b) of the serve workload, (b) bit for bit equal to (a);
+  6. the dense loop, plain vs kernels, at full width: starcoder2-3b at full
+     depth (30 layers; LayerNorm, GELU, biases, 12 query heads per KV head)
+     and command-r-35b cut to 8 of its 40 layers (parallel residual, tied
+     embeddings; its ~61 GB of bf16 weights leave too little room on one
+     80 GB card for the plain comparison);
+  7. a JSON line per kernel, the card's name and power limit, and the
      result line.
 
 ``--jax-init`` instead draws the weights at the JAX package's scales (the
@@ -44,6 +60,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -72,10 +90,19 @@ KERNELS = {
                                  replaces="src/repro/kernels/residual_flush/kernel.py:292"),
     "paged_bitdecode": dict(source="src/repro_torch/csrc/paged_bitdecode.cu",
                             replaces="src/repro/kernels/paged_bitdecode/kernel.py:99"),
+    "flash_prefill": dict(source="src/repro_torch/csrc/flash_prefill.cu",
+                          replaces="src/repro/kernels/flash_prefill/kernel.py:82"),
 }
 BITWISE = ("kv_quant", "residual_flush", "paged_residual_flush")
-DENSE_PATH = ("kv_quant", "residual_flush", "bitdecode")  # phase 3
-SERVE_PATH = ("kv_quant", "paged_residual_flush", "paged_bitdecode")  # phase 4
+TOLERANCE = {"bitdecode": "out 2e-2, lse 1e-3", "paged_bitdecode": "out 2e-2, lse 1e-3",
+             "flash_prefill": "out 3e-2, lse 1e-3"}
+DENSE_PATH = ("kv_quant", "residual_flush", "bitdecode", "flash_prefill")  # phases 3, 5, 6
+SERVE_PATH = ("kv_quant", "paged_residual_flush", "paged_bitdecode", "flash_prefill")  # 4, 5
+
+# phases 5 and 6: the dense family at full width
+FAMILY_PROMPT_LENS = (1000, 1080, 1150, 1200)  # every row flushes within the steps
+FAMILY_STEPS = 96
+FAMILY = (("gemma-7b", {}), ("starcoder2-3b", {}), ("command-r-35b", {"n_layers": 8}))
 
 
 # the serve phase: llama3-8b at full width and depth behind the paged engine
@@ -188,7 +215,7 @@ def decode_run(model, params, tokens, lengths, steps, impl, num_splits="auto", f
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, state = model.prefill(params, {"tokens": tokens}, tokens.shape[1] + steps,
-                                  lengths=lengths, quant_impl=impl)
+                                  lengths=lengths, impl=impl, quant_impl=impl)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     out = [logits[:, -1]]
@@ -202,13 +229,127 @@ def decode_run(model, params, tokens, lengths, steps, impl, num_splits="auto", f
     return torch.stack(out), state, t_prefill, (time.perf_counter() - t0) / steps
 
 
-def model_inputs(cfg, dev):
+def model_inputs(cfg, dev, prompt_lens=PROMPT_LENS):
     import torch
 
-    lengths = torch.tensor(PROMPT_LENS, dtype=torch.int32, device=dev)
-    tokens = torch.randint(0, cfg.vocab, (len(PROMPT_LENS), max(PROMPT_LENS)), device=dev,
+    lengths = torch.tensor(prompt_lens, dtype=torch.int32, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (len(prompt_lens), max(prompt_lens)), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(1))
     return tokens, lengths
+
+
+def build_random(name: str, dev, **change):
+    """Config ``name`` (4-bit cache, 128-token blocks), its model, and
+    random parameters from a seeded generator on the card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.zoo import build_model
+
+    cfg = get_config(name).with_(kv_bits=BITS, kv_block=BLOCK_N, kv_gran="channel", **change)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in _leaves(params))
+    log(f"  {name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+        f"{n / 1e9:.2f} B parameters drawn in {time.perf_counter() - t0:.1f} s")
+    return cfg, model, params, n
+
+
+def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=False) -> dict:
+    """The dense loop end to end: the ragged prompts prefilled into the
+    4-bit cache and ``steps`` greedy decode steps, once on the plain
+    versions and once on the kernels fed the plain run's tokens (and, with
+    ``split3``, once more on the plain versions split three ways).  Checks
+    that every kernel of the path was launched, the logits at prefill and
+    around the first flush within rtol 2e-2 / atol 3e-1, every row flushed,
+    and layer 0's cache bit for bit.  Returns the report and the kernels'
+    launches in the kernel run."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    tokens, lengths = model_inputs(cfg, dev, prompt_lens)
+    bn, name = cfg.kv_block, cfg.name
+
+    def run(impl, feed=None, num_splits="auto"):
+        return decode_run(model, params, tokens, lengths, steps, impl,
+                          num_splits=num_splits, feed=feed)
+
+    with torch.no_grad():
+        for impl in ("torch", "auto"):  # warm-up (allocator, cuBLAS), untimed
+            lg, st = model.prefill(params, {"tokens": tokens[:, :2 * bn]}, 4 * bn, impl=impl,
+                                   quant_impl=impl)
+            model.decode_step(params, st, lg[:, -1].argmax(-1)[:, None], impl=impl,
+                              quant_impl=impl)
+        del lg, st
+        torch.cuda.reset_peak_memory_stats()
+        lg_p, st_p, pre_p, step_p = run("torch")
+        peak_plain = torch.cuda.max_memory_allocated()
+        feed = list(lg_p[:-1].argmax(-1)[:, :, None])
+        lg_p3 = run("torch", feed, num_splits=3)[0] if split3 else None
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        lg_k, st_k, pre_k, step_k = run("auto", feed)
+        launches = dict(_build.launches)
+        peak_kernel = torch.cuda.max_memory_allocated()
+
+    b = len(prompt_lens)
+    log(f"  {name} prefill: plain {pre_p:.3f} s, kernels {pre_k:.3f} s; decode: plain "
+        f"{step_p * 1e3:.2f} ms/step, kernels {step_k * 1e3:.2f} ms/step (B={b})")
+    log(f"  {name} peak device memory: plain {peak_plain / 2**30:.2f} GiB, kernels "
+        f"{peak_kernel / 2**30:.2f} GiB; launches {launches}")
+    for k in DENSE_PATH:
+        check(launches.get(k, 0) > 0, f"{name}: {k} launched on the dense path "
+                                      f"({launches.get(k, 0)})")
+    check(bool(torch.isfinite(lg_k).all()) and lg_k.shape == (steps + 1, b, cfg.vocab),
+          f"{name}: logits finite, shaped")
+    c_p, c_k = st_p["caches"][0], st_k["caches"][0]
+    check(torch.equal(c_p.pack_blocks, c_k.pack_blocks) and torch.equal(c_p.res_len, c_k.res_len),
+          f"{name}: pack_blocks {c_k.pack_blocks[0].tolist()} and res_len "
+          f"{c_k.res_len[0].tolist()} equal between the runs")
+    expect = [(n + steps) // bn for n in prompt_lens]
+    flushed = all((n + steps) // bn > n // bn for n in prompt_lens)
+    check(c_k.pack_blocks[0].tolist() == expect and flushed,
+          f"{name}: every row flushed: pack_blocks {expect}")
+    layer0 = [bitwise(getattr(c_k, f)[0], getattr(c_p, f)[0])
+              for f in ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero", "k_res", "v_res")]
+    check(all(layer0), f"{name}: layer 0's packed cache and residual bitwise equal between "
+                       "the runs")
+    # row i of the logits is decode step i (row 0: prefill); the first flush
+    # happens in step `flush` and the step after it reads the flushed block
+    flush = min(bn - n % bn for n in prompt_lens)
+    for idx, what in ((0, "prefill"), (flush, f"decode step {flush}, the first flush"),
+                      (flush + 1, f"decode step {flush + 1}, after the first flush")):
+        err = (lg_k[idx] - lg_p[idx]).abs().max().item()
+        check(torch.allclose(lg_k[idx], lg_p[idx], rtol=2e-2, atol=3e-1),
+              f"{name}: {what} logits within rtol 2e-2 / atol 3e-1 (max |d| {err:.3f})")
+    fid = {"kernels": fidelity(lg_p, lg_k)}
+    if split3:
+        fid["plain_split3"] = fidelity(lg_p, lg_p3)
+    for k, f in fid.items():
+        log(f"  {name}, {k} vs plain over {steps + 1} steps: mean KL {f['mean_kl']:.3e}; "
+            f"greedy agreement {f['greedy_agreement']:.3f}; max |dlogit| "
+            f"{f['max_abs_dlogit']:.3f}")
+    report = {"prefill_s": {"plain": pre_p, "kernels": pre_k},
+              "decode_ms_per_step": {"plain": step_p * 1e3, "kernels": step_k * 1e3},
+              "tokens_per_s": {"plain": b / step_p, "kernels": b / step_k},
+              "peak_gib": {"plain": peak_plain / 2**30, "kernels": peak_kernel / 2**30},
+              "mean_kl": fid["kernels"]["mean_kl"], "fidelity_vs_plain": fid, "batch": b,
+              "prompt_lens": list(prompt_lens), "decode_steps": steps,
+              "layers": cfg.n_layers, "launches": launches}
+    return report
+
+
+def bitwise(a, b):
+    """Tensors equal bit for bit (bf16 compared as its raw bits)."""
+    import torch
+
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
 
 
 def capture_logits(engine, uids=None, feed=None):
@@ -246,13 +387,13 @@ def capture_logits(engine, uids=None, feed=None):
     return rows_of, fed_of
 
 
-def serve_phase(model, params, cfg, check, dev) -> dict:
-    """Runs (a)-(c) of the serve workload through ``ServeEngine`` on the
-    kernels, then (d): the dense kernel path fed (c)'s token streams as one
-    ragged batch.  Run (c) feeds the prefix sharers (a)'s token streams
-    (teacher forcing through the step function), so their logits with and
-    without sharing compare step for step.  Returns the launches of run (a)
-    and a report."""
+def serve_phase(model, params, cfg, check, dev, names="abc") -> dict:
+    """Runs (a)-(c) of the serve workload (those of ``names``) through
+    ``ServeEngine`` on the kernels, then, with (c), run (d): the dense kernel
+    path fed (c)'s token streams as one ragged batch.  Run (c) feeds the
+    prefix sharers (a)'s token streams (teacher forcing through the step
+    function), so their logits with and without sharing compare step for
+    step.  Returns the launches of run (a) and a report."""
     import torch
 
     from repro_torch.kernels import _build
@@ -266,6 +407,8 @@ def serve_phase(model, params, cfg, check, dev) -> dict:
         del warm
     runs, launches = {}, {}
     for name, kw in serve_runs(work).items():
+        if name not in names:
+            continue
         engine = ServeEngine(model, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
                              device=dev, **kw)
         rows, fed = {}, {}
@@ -310,12 +453,15 @@ def serve_phase(model, params, cfg, check, dev) -> dict:
         "tpot_p99_ms", "host_stall_fraction", "preempted", "cow_copies",
         "sched_prefix_hit_blocks", "wall_s", "phase_s")} | {"peak_gib": r["peak"]}
         for n, r in runs.items()}
-    if set(runs) != {"a", "b", "c"}:
+    if not {"a", "b"} <= set(runs):
         return {"launches": launches, "report": report}
-    a, b, c = runs["a"], runs["b"], runs["c"]
+    a, b = runs["a"], runs["b"]
     check(b["summary"]["preempted"] > 0, f"run (b) preempted ({b['summary']['preempted']})")
     diff = [u for u in a["out"] if a["out"][u] != b["out"][u]]
     check(not diff, f"run (b) token streams equal run (a)'s bit for bit (differ: {diff})")
+    if "c" not in runs:
+        return {"launches": launches, "report": report}
+    c = runs["c"]
     same = [u for u in (donor, *pair) if a["out"][u] == c["out"][u] == c["fed"][u]]
     check(len(same) == 3, f"donor and copy-on-write pair equal with sharing on and off "
                           f"(equal: {same} of {[donor, *pair]})")
@@ -418,14 +564,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.bitdecode import ops as bd_ops
+    from repro_torch.kernels.flash_prefill import ops as fp_ops
     from repro_torch.kernels.kv_quant import ops as kq_ops
     from repro_torch.kernels.paged_bitdecode import ops as pg_ops
     from repro_torch.kernels.residual_flush import ops as rf_ops
-    from repro_torch.models.zoo import build_model
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: full f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -452,11 +598,6 @@ def main() -> int:
 
     def ints(vals):
         return torch.tensor(vals, dtype=torch.int32, device=dev)
-
-    def bitwise(a, b):
-        if a.dtype == torch.bfloat16:
-            a, b = a.view(torch.int16), b.view(torch.int16)
-        return torch.equal(a, b)
 
     def note_err(name, a, b):
         err = (a.float() - b.float()).abs().max().item() if a.numel() else 0.0
@@ -605,6 +746,29 @@ def main() -> int:
                   and all(bitwise(o[kept], b0[kept]) for o, b0 in zip(out, before)),
                   f"paged_residual_flush bitwise P={n_pages} bits={bits} {gran}, mixed full, "
                   "dest past P-1; every other page unchanged")
+
+    # flash_prefill over head dims x query heads per KV head x causal, S
+    # cycling through shorter than a tile, ragged and aligned, both layouts;
+    # per-channel V offsets keep the output O(1) beside the tolerance
+    for i, (d, g, causal) in enumerate(itertools.product((32, 64, 128, 256), (1, 4, 12),
+                                                         (True, False))):
+        s, layout = (48, 500, 1900, 2048)[i % 4], ("bhsd", "bshd")[(i // 2) % 2]
+        hkv = 4 if g == 1 else 2
+        shape = (lambda h: (2, h, s, d)) if layout == "bhsd" else (lambda h: (2, s, h, d))
+        q, k = randn(*shape(g * hkv)), randn(*shape(hkv))
+        v_off = 2.0 * torch.randn(d, generator=gen, device=dev)
+        v = (randn(*shape(hkv)) + v_off).to(torch.bfloat16)
+        kw = dict(causal=causal, layout=layout, return_lse=True)
+        out_k, lse_k = fp_ops.flash_prefill_attention(q, k, v, impl="cuda", **kw)
+        out_r, lse_r = fp_ops.flash_prefill_attention(q, k, v, impl="torch", **kw)
+        note_err("flash_prefill", out_k, out_r)
+        ok = (torch.allclose(out_k.float(), out_r.float(), rtol=3e-2, atol=3e-2)
+              and torch.allclose(lse_k, lse_r, rtol=1e-3, atol=1e-3))
+        check(ok, f"flash_prefill B=2 Hq={g * hkv} Hkv={hkv} S={s} d={d} "
+                  f"{'causal' if causal else 'full'} {layout}: max|dout| "
+                  f"{(out_k.float() - out_r.float()).abs().max().item():.2e} (max|out| "
+                  f"{out_r.float().abs().max().item():.2f}), max|dlse| "
+                  f"{(lse_k - lse_r).abs().max().item():.2e}")
     torch.cuda.synchronize()
 
     # timing at the main path's shapes: device time of one call, L2 scrubbed
@@ -700,6 +864,31 @@ def main() -> int:
                 + splits * b * h * g * (d + 1) * 4)             # partials
     bound("paged_bitdecode", pg_bytes, 2 * 2 * g * d * tokens, BF16_OPS_PER_S)
     stats["paged_bitdecode"]["num_splits"] = splits
+    # flash_prefill at the dense prefills' shapes (llama3-8b in phase 3,
+    # gemma-7b in phase 5), in the model's [B, S, H, d] layout, beside
+    # PyTorch's scaled_dot_product_attention on contiguous [B, H, S, d]
+    for key, (b, hq, hkv, s, d) in (("", (4, 32, 8, 2048, 128)),
+                                    ("gemma_", (4, 16, 16, 1200, 256))):
+        q, k, v = randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        fp = lambda impl: fp_ops.flash_prefill_attention(  # noqa: E731
+            q, k, v, layout="bshd", impl=impl)
+        st = stats["flash_prefill"]
+        st[key + "ms"] = time_ms(lambda: fp("cuda"))
+        st[key + "plain_ms"] = time_ms(lambda: fp("torch"), iters=3)
+        st[key + "library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True))
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * hq * s
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 4 * b * hq * d * (s * (s + 1) // 2) / BF16_OPS_PER_S * 1e3  # QK^T, PV: causal half
+        st[key + "bound_ms"] = max(t_bytes, t_ops)
+        st[key + "bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        st[key + "shape"] = dict(B=b, Hq=hq, Hkv=hkv, S=s, d=d)
+        log(f"  time flash_prefill {st[key + 'shape']}: kernel {st[key + 'ms'] * 1e3:.1f} us, "
+            f"plain {st[key + 'plain_ms'] * 1e3:.1f} us, scaled_dot_product_attention "
+            f"{st[key + 'library_ms'] * 1e3:.1f} us, bound {st[key + 'bound_ms'] * 1e3:.2f} us "
+            f"({st[key + 'bound_by']})")
+        del q, k, v, qh, kh, vh
     for name, st in stats.items():
         log(f"  time {name}: kernel {st['ms'] * 1e3:.1f} us, plain {st['plain_ms'] * 1e3:.1f} us, "
             f"bound {st['bound_ms'] * 1e3:.2f} us ({st['bound_by']})")
@@ -711,68 +900,9 @@ def main() -> int:
 
     # ------------------------------------------------------------ 3. end to end
     log("== 3. end to end: llama3-8b, full width and depth")
-    cfg = get_config("llama3-8b").with_(kv_bits=BITS, kv_block=BLOCK_N, kv_gran="channel")
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in _leaves(params))
-    log(f"  {n_params / 1e9:.2f} B parameters drawn in {time.perf_counter() - t0:.1f} s")
-    tokens, lengths = model_inputs(cfg, dev)
-
-    def run(impl, feed=None, num_splits="auto"):
-        return decode_run(model, params, tokens, lengths, DECODE_STEPS, impl,
-                          num_splits=num_splits, feed=feed)
-
-    with torch.no_grad():
-        for impl in ("torch", "auto"):  # warm-up (allocator, cuBLAS), untimed
-            lg, st = model.prefill(params, {"tokens": tokens[:, :2 * BLOCK_N]}, 4 * BLOCK_N,
-                                   quant_impl=impl)
-            model.decode_step(params, st, lg[:, -1].argmax(-1)[:, None], impl=impl,
-                              quant_impl=impl)
-        del lg, st
-        torch.cuda.reset_peak_memory_stats()
-        lg_p, st_p, pre_p, step_p = run("torch")
-        peak_plain = torch.cuda.max_memory_allocated()
-        feed = list(lg_p[:-1].argmax(-1)[:, :, None])
-        lg_p3 = run("torch", feed, num_splits=3)[0]
-        torch.cuda.reset_peak_memory_stats()
-        _build.launches.clear()
-        lg_k, st_k, pre_k, step_k = run("auto", feed)
-        launches = dict(_build.launches)
-        peak_kernel = torch.cuda.max_memory_allocated()
-
-    log(f"  prefill: plain {pre_p:.3f} s, kernels {pre_k:.3f} s; decode: plain "
-        f"{step_p * 1e3:.2f} ms/step, kernels {step_k * 1e3:.2f} ms/step (B={len(PROMPT_LENS)})")
-    log(f"  peak device memory: plain {peak_plain / 2**30:.2f} GiB, kernels "
-        f"{peak_kernel / 2**30:.2f} GiB; launches {launches}")
-    for name in DENSE_PATH:
-        check(launches.get(name, 0) > 0, f"{name} launched on the dense path ({launches.get(name, 0)})")
-    check(bool(torch.isfinite(lg_k).all()) and lg_k.shape == (DECODE_STEPS + 1, len(PROMPT_LENS),
-                                                             cfg.vocab), "logits finite, shaped")
-    c_p, c_k = st_p["caches"][0], st_k["caches"][0]
-    check(torch.equal(c_p.pack_blocks, c_k.pack_blocks) and torch.equal(c_p.res_len, c_k.res_len),
-          f"pack_blocks {c_k.pack_blocks[0].tolist()} and res_len {c_k.res_len[0].tolist()} "
-          "equal between the runs")
-    expect = [(n + DECODE_STEPS) // BLOCK_N for n in PROMPT_LENS]
-    check(c_k.pack_blocks[0].tolist() == expect, f"every row flushed: pack_blocks {expect}")
-    layer0 = [bitwise(getattr(c_k, f)[0], getattr(c_p, f)[0])
-              for f in ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero", "k_res", "v_res")]
-    check(all(layer0), "layer 0's packed cache and residual bitwise equal between the runs")
-    # row i of the logits is decode step i (row 0: prefill); the first flush
-    # happens in step `flush` and the step after it reads the flushed block
-    flush = min(BLOCK_N - n % BLOCK_N for n in PROMPT_LENS)
-    for idx, what in ((0, "prefill"), (flush, f"decode step {flush}, the first flush"),
-                      (flush + 1, f"decode step {flush + 1}, after the first flush")):
-        err = (lg_k[idx] - lg_p[idx]).abs().max().item()
-        check(torch.allclose(lg_k[idx], lg_p[idx], rtol=2e-2, atol=3e-1),
-              f"{what} logits within rtol 2e-2 / atol 3e-1 (max |d| {err:.3f})")
-    fid = {"kernels": fidelity(lg_p, lg_k), "plain_split3": fidelity(lg_p, lg_p3)}
-    for name, f in fid.items():
-        log(f"  {name} vs plain over {DECODE_STEPS + 1} steps: mean KL {f['mean_kl']:.3e}; "
-            f"greedy agreement {f['greedy_agreement']:.3f}; max |dlogit| "
-            f"{f['max_abs_dlogit']:.3f}")
-    kl = fid["kernels"]["mean_kl"]
+    cfg, model, params, n_params = build_random("llama3-8b", dev)
+    dense = dense_phase(model, params, cfg, check, dev, PROMPT_LENS, DECODE_STEPS, split3=True)
+    launches = dict(dense.pop("launches"))
 
     # ------------------------------------------------------------ 4. serve
     log("== 4. serve: llama3-8b behind the paged engine, full width and depth")
@@ -781,26 +911,59 @@ def main() -> int:
     for name in SERVE_PATH:
         n = serve["launches"].get(name, 0)
         check(n > 0, f"{name} launched in serve run (a) ({n})")
+    del model, params
+    gc.collect()  # the engines' logit captures form reference cycles
+    torch.cuda.empty_cache()
 
-    # ------------------------------------------------------------ 5. summary
+    # ------------------------------------------------- 5.-6. the dense family
+    family = {}
+    for name, change in FAMILY:
+        phase = 5 if name == "gemma-7b" else 6
+        cut = f", cut to {change['n_layers']} layers" if "n_layers" in change else ""
+        log(f"== {phase}. {name} at full width{cut or ' and depth'}: the dense loop"
+            + (" and the engine" if phase == 5 else ""))
+        cfg, model, params, n = build_random(name, dev, **change)
+        rep = dense_phase(model, params, cfg, check, dev, FAMILY_PROMPT_LENS, FAMILY_STEPS)
+        rep |= {"n_params": n, "cut": cut.lstrip(", ") or None}
+        if phase == 5:
+            sv = serve_phase(model, params, cfg, check, dev, names="ab")
+            for k in SERVE_PATH:
+                cnt = sv["launches"].get(k, 0)
+                check(cnt > 0, f"{name}: {k} launched in serve run (a) ({cnt})")
+            rep |= {"serve": sv["report"], "serve_launches": sv["launches"]}
+        family[name] = rep
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ 7. summary
     rows = []
     for name, meta in KERNELS.items():
         st = stats[name]
+        by_path = {"llama3-8b dense": launches.get(name, 0) if name in DENSE_PATH else 0,
+                   "llama3-8b serve (a)": serve["launches"].get(name, 0)}
+        for fam, rep in family.items():
+            by_path[f"{fam} dense"] = rep["launches"].get(name, 0)
+            if "serve_launches" in rep:
+                by_path[f"{fam} serve (a)"] = rep["serve_launches"].get(name, 0)
         rows.append({
             "name": name, "route": "cuda", **meta, "launches": launches.get(name, 0),
-            "serve_launches": serve["launches"].get(name, 0),
-            "parity": "bitwise" if name in BITWISE else "out 2e-2, lse 1e-3",
+            "serve_launches": serve["launches"].get(name, 0), "launches_by_path": by_path,
+            "parity": "bitwise" if name in BITWISE else TOLERANCE[name],
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
-            "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": None,
+            "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+            "library_ms": st.get("library_ms"),
             "us": st["ms"] * 1e3, "plain_us": st["plain_ms"] * 1e3, "bound_us": st["bound_ms"] * 1e3,
-            **{k: v for k, v in st.items() if k in ("ms_no_flush", "plain_ms_no_flush", "num_splits")},
+            "library_us": None if "library_ms" not in st else st["library_ms"] * 1e3,
+            **{k: v for k, v in st.items() if k in ("ms_no_flush", "plain_ms_no_flush",
+                                                    "num_splits", "shape")
+               or k.startswith("gemma_")},
         })
-    print(json.dumps({"kernels": rows, "e2e": {
-        "prefill_s": {"plain": pre_p, "kernels": pre_k},
-        "decode_ms_per_step": {"plain": step_p * 1e3, "kernels": step_k * 1e3},
-        "peak_gib": {"plain": peak_plain / 2**30, "kernels": peak_kernel / 2**30},
-        "mean_kl": kl, "fidelity_vs_plain": fid, "batch": len(PROMPT_LENS), "prompt_lens": PROMPT_LENS,
-        "decode_steps": DECODE_STEPS}, "serve": serve["report"]}), flush=True)
+    total_s = time.perf_counter() - t_start
+    print(json.dumps({"kernels": rows, "e2e": dense, "serve": serve["report"], "family": family,
+                      "n_params": n_params, "build_s": _build.build_seconds,
+                      "total_s": total_s}), flush=True)
+    log(f"  chip_smoke took {total_s:.1f} s, the build {_build.build_seconds:.1f} s of it")
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed", file=sys.stderr)
         return 1

@@ -1,9 +1,10 @@
 """Architecture configuration for the attention-family models the port runs.
 
 A copy of the fields of the JAX package's ``ArchConfig`` that the dense
-decoder path reads.  ``mixer``, ``n_experts``, ``vision_stub`` and
-``mrope_sections`` exist so that a config asking for a family the port does
-not run yet is refused by :class:`repro_torch.models.transformer.DecoderLM`.
+decoder path reads, with the JAX defaults.  ``mixer``, ``n_experts``,
+``vision_stub``, ``mrope_sections``, ``qk_norm`` and ``rope`` exist so that a
+config asking for what the port does not run yet is refused by
+:class:`repro_torch.models.transformer.DecoderLM`.
 """
 from __future__ import annotations
 
@@ -24,8 +25,17 @@ class ArchConfig:
     vocab: int
 
     mixer: str = "attn"
+    rope: bool = True
     rope_theta: float = 1.0e4
     mrope_sections: tuple | None = None
+    qk_norm: bool = False
+    attn_bias: bool = False
+    parallel_residual: bool = False
+    norm: str = "rms"  # rms | ln
+    act: str = "swiglu"  # swiglu | geglu | gelu
+    tie_embeddings: bool = False
+    embed_scale: bool = False  # gemma: embeddings * sqrt(d_model)
+    rms_plus_one: bool = False  # gemma: RMSNorm scales by (1 + w)
     attn_block_k: int = 512
     n_experts: int = 0
     vision_stub: bool = False
@@ -49,7 +59,7 @@ class ArchConfig:
         return -(-self.vocab // 256) * 256
 
 
-_REGISTRY = ["llama3_8b", "llama2_7b"]
+_REGISTRY = ["llama3_8b", "llama2_7b", "gemma_7b", "starcoder2_3b", "command_r_35b"]
 
 
 def _mod_name(name: str) -> str:

@@ -1,6 +1,6 @@
 """Attention entry points: query transformation, decode dispatch (dense and
-paged caches), blockwise prefill attention, and the suffix-over-prefix
-attention of a shared-prefix prefill.
+paged caches), blockwise prefill attention (the flash-prefill kernel on the
+card), and the suffix-over-prefix attention of a shared-prefix prefill.
 
 Query transformation (paper §V-A): the decode query ``[B, 1, h_q, d]`` is
 reshaped to ``[B, h_kv, g_q, d]`` (``g_q = h_q / h_kv``) so the query heads
@@ -13,7 +13,9 @@ import torch
 
 from repro_torch.core import qcache
 from repro_torch.core.qcache import PagedQuantKVCache, QuantKVCache
+from repro_torch.kernels import _build
 from repro_torch.kernels.bitdecode import ops as bd_ops
+from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.paged_bitdecode import ops as pg_ops
 
 MASK_VALUE = -1e37  # finite: with -inf an empty split or block turns into NaN
@@ -100,7 +102,9 @@ def prefix_suffix_attention(q, k, v, k_prior, v_prior, prior_len, *,
     would run to gigabytes per layer, so the query rows go in chunks of
     ``q_chunk`` (default: as many as keep the tile near 256 MiB).  Each chunk
     keeps the whole key axis, so every row's softmax is the same function as
-    unchunked.  Products take bf16 operands with f32 accumulation.
+    unchunked.  Products take bf16 operands with f32 accumulation.  There is
+    no kernel for it, in the JAX package either: the flash-prefill kernel
+    takes S == T only.
     """
     b, s, h_q, d_k = q.shape
     t = k_prior.shape[1]
@@ -130,15 +134,25 @@ def prefix_suffix_attention(q, k, v, k_prior, v_prior, prior_len, *,
     return out.permute(0, 2, 1, 3, 4).reshape(b, s, h_q, d_v)
 
 
-def blockwise_attention(q, k, v, *, sm_scale: float | None = None,
-                        block_k: int = 512):
-    """Causal flash-style attention in plain PyTorch: q [B, S, h_q, d_k],
-    k/v [B, S, h_kv, d]; returns f32 [B, S, h_q, d_v].
+def blockwise_attention(q, k, v, *, sm_scale: float | None = None, block_k: int = 512,
+                        impl: str = "auto"):
+    """Causal flash-style attention: q [B, S, h_q, d_k], k/v [B, T, h_kv, d].
 
-    Walks KV blocks of ``block_k`` with online-softmax carries and never
-    builds the [S, T] score matrix.  Products take bf16 operands with f32
-    accumulation (float32 matmuls of bf16-rounded values).
+    ``impl="cuda"`` runs the flash-prefill kernel (``kernels/flash_prefill``)
+    on the model's [B, S, H, d] layout as it is and returns bf16; it needs
+    S == T and d_k == d_v, as the JAX package's Pallas route does.
+    ``impl="torch"`` is the plain loop below, returning f32: it walks KV
+    blocks of ``block_k`` with online-softmax carries and never builds the
+    [S, T] score matrix; products take bf16 operands with f32 accumulation
+    (float32 matmuls of bf16-rounded values).  ``"auto"`` takes the kernel
+    for CUDA tensors and the plain loop for CPU tensors.
     """
+    if _build.resolve_impl(impl, q, k, v) == "cuda":
+        if q.shape[1] != k.shape[1]:
+            raise ValueError(f"the flash-prefill kernel needs S == T, got {q.shape[1]} "
+                             f"queries over {k.shape[1]} keys; use impl='torch'")
+        return fp_ops.flash_prefill_attention(q, k, v, sm_scale=sm_scale, layout="bshd",
+                                              impl="cuda")
     b, s, h_q, d_k = q.shape
     _, t, h_kv, d_v = v.shape
     g = h_q // h_kv

@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``).
 
-One ``nvcc`` call compiles every source into one shared library with a plain
-C interface, for ``sm_90a``, on first CUDA use, and ``ctypes`` binds it.  The
-library is named by a hash of the sources and flags, so an edited source is
+On first CUDA use, one ``nvcc`` process per source compiles it for
+``sm_90a``, all started together; one more links the objects into a shared
+library with a plain C interface, and ``ctypes`` binds it.  The library is
+named by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged tree is reused.  There is deliberately no
 ``--use_fast_math``: the quantize kernels must produce the same codes as the
 plain PyTorch version, bit for bit.
@@ -25,10 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> launches since the last clear(); only :func:`launch` adds
 launches: collections.Counter = collections.Counter()
@@ -45,6 +44,8 @@ _SIGNATURES = {
     "bitdecode": ("bitdecode_launch", [_P] * 13 + [_I] * 12 + [_F, _P]),
     "paged_residual_flush": ("paged_residual_flush_launch", [_P] * 10 + [_I] * 8 + [_P]),
     "paged_bitdecode": ("paged_bitdecode_launch", [_P] * 14 + [_I] * 13 + [_F, _P]),
+    "flash_prefill": ("flash_prefill_launch", [_P] * 5 + [_I] * 5 + [_L] * 12
+                      + [_I, _F, _P]),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -82,14 +83,7 @@ def build() -> ctypes.CDLL:
     with open(BUILD_DIR / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not so.exists():
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                  text=True)
-            (BUILD_DIR / "nvcc.log").write_text(proc.stdout)
-            if proc.returncode:
-                raise RuntimeError(f"nvcc failed:\n{proc.stdout}")
-            os.replace(tmp, so)
+            _compile_and_link(so)
     lib = ctypes.CDLL(str(so))
     for fn_name, argtypes in _SIGNATURES.values():
         fn = getattr(lib, fn_name)
@@ -99,6 +93,29 @@ def build() -> ctypes.CDLL:
     _lib = lib
     build_seconds = time.perf_counter() - t0
     return lib
+
+
+def _compile_and_link(so: Path) -> None:
+    """One ``nvcc -c`` per source, all running at once, then the link."""
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = any(proc.returncode for proc in procs)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(link.stdout)
+        failed = link.returncode != 0
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    (BUILD_DIR / "nvcc.log").write_text("".join(logs))
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{''.join(logs)}")
+    os.replace(tmp, so)
 
 
 def ptxas_report() -> str:

@@ -1,0 +1,88 @@
+"""Entry point of the flash-prefill attention: the CUDA kernel
+(``csrc/flash_prefill.cu``) or its plain PyTorch version (``ref.py``).
+
+Two layouts are taken: ``"bhsd"`` ([B, H, S, d], the TPU kernel's and the
+plain version's shapes) and ``"bshd"`` ([B, S, H, d], the layout the model
+holds its projections in).  The kernel reads either through strides, so the
+model path makes no transposed copy; the output comes back in the layout of
+the input.  Unlike the TPU entry point, nothing is padded: the kernel masks
+the ragged end of S itself and takes d in {32, 64, 128, 256} as it is.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_prefill import ref as _ref
+
+HEAD_DIMS = (32, 64, 128, 256)
+_LAYOUTS = ("bhsd", "bshd")
+
+
+def _as_bshd(x, layout: str):
+    return x.transpose(1, 2) if layout == "bhsd" else x
+
+
+def _kernel_operand(x):
+    """bf16 with unit channel stride and 16-byte aligned rows (the kernel's
+    vector loads), copied only when ``x`` is not already so."""
+    x = x.to(torch.bfloat16)
+    if (x.stride(-1) != 1 or x.data_ptr() % 16
+            or any(st % 8 for st in x.stride()[:-1])):
+        x = x.contiguous()
+    return x
+
+
+def flash_prefill_cuda(q, k, v, *, sm_scale: float, causal: bool, layout: str):
+    """Launch the kernel; returns (out bf16 in ``layout``, lse f32 [B, Hq, S])."""
+    q, k, v = (_kernel_operand(_as_bshd(x, layout)) for x in (q, k, v))
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    if k.shape != v.shape or k.shape[:2] != (b, s) or k.shape[3] != d:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not match "
+                         f"q {tuple(q.shape)}: the kernel needs S == T and d_k == d_v")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} has no kernel instance; built for {HEAD_DIMS}")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"h_q={hq} is not a multiple of h_kv={hkv}")
+    shape = (b, hq, s, d) if layout == "bhsd" else (b, s, hq, d)
+    out = torch.empty(shape, dtype=torch.bfloat16, device=q.device)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    o = _as_bshd(out, layout)
+    strides = [st for x in (q, k, v, o) for st in x.stride()[:3]]
+    _build.launch(
+        "flash_prefill", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b, hq, hkv, s, d, *strides, int(causal), float(sm_scale),
+        _build.stream_of(q),
+    )
+    return out, lse
+
+
+def flash_prefill_attention(q, k, v, *, sm_scale: float | None = None,
+                            causal: bool = True, layout: str = "bhsd",
+                            impl: str = "auto", return_lse: bool = False):
+    """Causal (or full) attention, forward only.
+
+    q [B, Hq, S, d] and k, v [B, Hkv, S, d] (``layout="bhsd"``), or the
+    same as [B, S, H, d] (``layout="bshd"``); query head h reads KV head
+    h // (Hq / Hkv).  Returns out (bf16, in ``layout``) and, with
+    ``return_lse``, lse (f32 [B, Hq, S]).  ``sm_scale`` defaults to
+    1/sqrt(d).  impl: 'cuda' (the kernel), 'torch' (the plain version) or
+    'auto' (the kernel for CUDA tensors, the plain version for CPU tensors).
+    """
+    if layout not in _LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; expected one of {_LAYOUTS}")
+    d = q.shape[-1]
+    if sm_scale is None:
+        sm_scale = 1.0 / d**0.5
+    if _build.resolve_impl(impl, q, k, v) == "cuda":
+        out, lse = flash_prefill_cuda(q, k, v, sm_scale=sm_scale, causal=causal,
+                                      layout=layout)
+    else:
+        bhsd = (lambda x: x) if layout == "bhsd" else (lambda x: x.transpose(1, 2))
+        out, lse = _ref.flash_prefill_ref(bhsd(q), bhsd(k), bhsd(v), sm_scale=sm_scale,
+                                          causal=causal)
+        out = bhsd(out)
+    return (out, lse) if return_lse else out

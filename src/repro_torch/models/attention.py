@@ -1,4 +1,5 @@
-"""Model-level attention block: projections + RoPE + the BitDecoding cache.
+"""Model-level attention block: projections (with optional biases) + RoPE +
+the BitDecoding cache.
 
 Prefill runs blockwise flash attention and builds the quantized cache from
 its K/V; decode appends to the cache and runs the fused low-bit kernel
@@ -16,12 +17,17 @@ from repro_torch.models.params import P
 
 def attn_def(cfg) -> dict:
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
+    defs = {
         "wq": P((d, hq, hd), fan_in=d),
         "wk": P((d, hkv, hd), fan_in=d),
         "wv": P((d, hkv, hd), fan_in=d),
         "wo": P((hq, hd, d), fan_in=hq * hd),
     }
+    if cfg.attn_bias:
+        defs["bq"] = P((hq, hd), "zeros", torch.float32)
+        defs["bk"] = P((hkv, hd), "zeros", torch.float32)
+        defs["bv"] = P((hkv, hd), "zeros", torch.float32)
+    return defs
 
 
 def _proj(x, w):
@@ -35,14 +41,22 @@ def _out(o, w):
 
 
 def _qkv(p, cfg, x, positions):
-    q = layers.apply_rope(_proj(x, p["wq"]), positions, theta=cfg.rope_theta)
-    k = layers.apply_rope(_proj(x, p["wk"]), positions, theta=cfg.rope_theta)
-    return q, k, _proj(x, p["wv"])
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.attn_bias:  # biases cast to the activation dtype before the add
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = layers.apply_rope(q, positions, theta=cfg.rope_theta)
+    k = layers.apply_rope(k, positions, theta=cfg.rope_theta)
+    return q, k, v
 
 
-def attn_prefill_cache(p, cfg, x, positions, max_seq: int, *, quant_impl="auto",
-                       lengths=None, prior=None, prior_len=None):
+def attn_prefill_cache(p, cfg, x, positions, max_seq: int, *, impl="auto",
+                       quant_impl="auto", lengths=None, prior=None, prior_len=None):
     """Causal attention over the prompt, and a cache built from its K/V.
+
+    ``impl`` picks the prefill attention (``core.attention.blockwise_attention``:
+    the flash-prefill kernel on the card), ``quant_impl`` the quantize kernel.
 
     ``lengths`` ([B] int32, optional) marks a ragged right-padded batch:
     per-sequence cache occupancy follows the true lengths.
@@ -57,7 +71,7 @@ def attn_prefill_cache(p, cfg, x, positions, max_seq: int, *, quant_impl="auto",
     if prior is not None:
         out = catt.prefix_suffix_attention(q, k, v, *prior, prior_len)
     else:
-        out = catt.blockwise_attention(q, k, v, block_k=cfg.attn_block_k)
+        out = catt.blockwise_attention(q, k, v, block_k=cfg.attn_block_k, impl=impl)
     cache = qcache.init_cache(
         x.shape[0], cfg.n_kv_heads, cfg.head_dim, max_seq, bits=cfg.kv_bits,
         block_n=cfg.kv_block, k_gran=cfg.kv_gran, device=x.device,

@@ -1,19 +1,44 @@
-"""Shared model layers: RMSNorm, RoPE, the SwiGLU MLP, embeddings."""
+"""Shared model layers: norms, RoPE, the MLPs, embeddings."""
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.models.params import P
 
 
-def rmsnorm_def(d: int):
-    return {"w": P((d,), "ones", torch.float32)}
+def rmsnorm_def(d: int, *, plus_one: bool = False):
+    """A ``(1 + w)`` norm starts from w = 0, the identity scale (the JAX
+    package draws w = 1; see models/params.py)."""
+    return {"w": P((d,), "zeros" if plus_one else "ones", torch.float32)}
 
 
-def rmsnorm(p, x, *, eps: float = 1e-6):
+def rmsnorm(p, x, *, eps: float = 1e-6, plus_one: bool = False):
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * p["w"]).to(x.dtype)
+    w = p["w"] + 1.0 if plus_one else p["w"]
+    return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
+
+
+def layernorm_def(d: int):
+    return {"w": P((d,), "ones", torch.float32), "b": P((d,), "zeros", torch.float32)}
+
+
+def layernorm(p, x, *, eps: float = 1e-5):
+    """LayerNorm with bias over the last axis, population variance, in f32."""
+    xf = x.float()
+    xc = xf - xf.mean(dim=-1, keepdim=True)
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    return (xc * torch.rsqrt(var + eps) * p["w"] + p["b"]).to(x.dtype)
+
+
+def norm_def(kind: str, d: int, *, plus_one: bool = False):
+    return layernorm_def(d) if kind == "ln" else rmsnorm_def(d, plus_one=plus_one)
+
+
+def apply_norm(kind: str, p, x, *, plus_one: bool = False):
+    return layernorm(p, x) if kind == "ln" else rmsnorm(p, x, plus_one=plus_one)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):
@@ -31,8 +56,13 @@ def apply_rope(x, positions, *, theta: float):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def mlp_def(d: int, d_ff: int):
-    return {"wi": P((d, 2 * d_ff)), "wo": P((d_ff, d))}
+def mlp_def(d: int, d_ff: int, act: str = "swiglu", bias: bool = False):
+    defs = {"wi": P((d, 2 * d_ff if act in ("swiglu", "geglu") else d_ff)),
+            "wo": P((d_ff, d))}
+    if bias:
+        defs["bi"] = P((defs["wi"].shape[-1],), "zeros", torch.float32)
+        defs["bo"] = P((d,), "zeros", torch.float32)
+    return defs
 
 
 def silu(x):
@@ -43,10 +73,38 @@ def silu(x):
     return x * (1 / (1 + torch.exp(-x)))
 
 
-def mlp(p, x):
-    """SwiGLU: ``wi`` projects to ``[u | g]``; returns ``(u * silu(g)) @ wo``."""
-    u, g = torch.matmul(x, p["wi"]).chunk(2, dim=-1)
-    return torch.matmul(u * silu(g), p["wo"])
+def gelu(x):
+    """The tanh form of GELU as XLA evaluates a bf16 ``jax.nn.gelu``: the
+    constants rounded to x's dtype, ``x ** 3`` as two products, every op
+    rounded to x's dtype.  On every normal bf16 input it equals JAX bit for
+    bit (XLA flushes subnormals to zero; PyTorch keeps them)."""
+    c = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    k = torch.tensor((2.0 / math.pi) ** 0.5, dtype=x.dtype, device=x.device)
+    return x * ((torch.tanh((x + x * x * x * c) * k) + 1.0) * 0.5)
+
+
+def mlp(p, x, act: str = "swiglu"):
+    """``wi``, the activation, ``wo``; biases ``bi``/``bo`` where the
+    definition has them, cast to the activation dtype before the add.
+    swiglu / geglu: ``wi`` projects to ``[u | g]`` and the product is
+    ``u * silu(g)`` / ``u * gelu(g)``; gelu: ``gelu(x @ wi)``."""
+    h = torch.matmul(x, p["wi"])
+    if "bi" in p:
+        h = h + p["bi"].to(h.dtype)
+    if act == "swiglu":
+        u, g = h.chunk(2, dim=-1)
+        h = u * silu(g)
+    elif act == "geglu":
+        u, g = h.chunk(2, dim=-1)
+        h = u * gelu(g)
+    elif act == "gelu":
+        h = gelu(h)
+    else:
+        raise ValueError(f"unknown activation {act!r}")
+    out = torch.matmul(h, p["wo"])
+    if "bo" in p:
+        out = out + p["bo"].to(out.dtype)
+    return out
 
 
 def embed_def(vocab: int, d: int):
@@ -63,6 +121,12 @@ def unembed_def(d: int, vocab: int):
 
 def unembed(p, x, true_vocab: int | None = None):
     logits = torch.matmul(x, p["w"]).float()
+    return mask_padded_vocab(logits, true_vocab)
+
+
+def tied_unembed(p, x, true_vocab: int | None = None):
+    """Logits through the embedding table (tied embeddings)."""
+    logits = torch.matmul(x, p["table"].t()).float()
     return mask_padded_vocab(logits, true_vocab)
 
 

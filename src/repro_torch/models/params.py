@@ -15,6 +15,11 @@ from layer to layer.  ``chip_smoke.py --jax-init`` shows it: at those
 scales the plain decode path summed in three splits departs from itself as
 far as the CUDA kernels depart from it.  With the true fan-in, scores are
 O(1).
+
+The ``(1 + w)`` RMSNorm weights (gemma) start from zeros here, the
+effective scale of 1 that every other norm starts from, where the JAX
+package draws them as ones (scale 2).  Like the fan-in above, this changes
+only the random init: converted JAX parameters are taken as they are.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from repro_torch.core.device import resolve_device
 @dataclasses.dataclass(frozen=True)
 class P:
     shape: tuple[int, ...]
-    init: str = "normal"  # normal | ones | embed
+    init: str = "normal"  # normal | zeros | ones | embed
     dtype: torch.dtype = torch.bfloat16
     fan_in: int | None = None  # default: the second-to-last dim, as in JAX
 
@@ -59,8 +64,8 @@ def leaves(defs, prefix=()):
 
 def _init_leaf(p: P, gen: torch.Generator, device) -> torch.Tensor:
     out = torch.empty(p.shape, dtype=p.dtype, device=device)
-    if p.init == "ones":
-        return out.fill_(1.0)
+    if p.init in ("zeros", "ones"):
+        return out.fill_(float(p.init == "ones"))
     # drawn one leading slice (layer) at a time, on the generator's device, so
     # a stacked leaf never needs a full float32 copy of itself
     for sl in out if out.dim() >= 3 else [out]:

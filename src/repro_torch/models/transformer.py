@@ -1,5 +1,7 @@
-"""Decoder-only LM with the BitDecoding cache: the attention family with a
-dense SwiGLU MLP stack (LLaMA-2/3).
+"""Decoder-only LM with the BitDecoding cache: the dense attention family
+(LLaMA-2/3, Gemma, StarCoder2, Command-R): RMSNorm, ``(1 + w)`` RMSNorm or
+LayerNorm with bias; SwiGLU, GeGLU or GELU MLPs, with or without biases;
+sequential or parallel residual; untied, tied or scaled embeddings.
 
 Per-layer parameters carry a leading ``layers`` axis, as in the JAX package,
 and the layers run in a Python loop over views of them.  The decode state is
@@ -33,6 +35,10 @@ def _check_supported(cfg) -> None:
         raise NotImplementedError(f"the vision stub is not ported yet: {_LATER}")
     if cfg.mrope_sections:
         raise NotImplementedError(f"M-RoPE is not ported yet: {_LATER}")
+    if cfg.qk_norm:
+        raise NotImplementedError(f"qk_norm is not ported yet: {_LATER}")
+    if not cfg.rope:
+        raise NotImplementedError(f"attention without RoPE is not ported yet: {_LATER}")
 
 
 def _layer(tree, i: int):
@@ -40,7 +46,7 @@ def _layer(tree, i: int):
 
 
 class DecoderLM:
-    """Dense decoder-only LM (attention mixer, SwiGLU MLP, RMSNorm)."""
+    """Dense decoder-only LM (attention mixer and MLP, per ``cfg``)."""
 
     def __init__(self, cfg):
         _check_supported(cfg)
@@ -49,22 +55,33 @@ class DecoderLM:
 
     # ------------------------------------------------------------ params
 
+    def _norm_def(self):
+        cfg = self.cfg
+        return layers.norm_def(cfg.norm, cfg.d_model, plus_one=cfg.rms_plus_one)
+
+    def _norm(self, p, x):
+        cfg = self.cfg
+        return layers.apply_norm(cfg.norm, p, x, plus_one=cfg.rms_plus_one)
+
     def _block_def(self):
         cfg = self.cfg
-        return {
-            "ln1": layers.rmsnorm_def(cfg.d_model),
+        defs = {
+            "ln1": self._norm_def(),
             "attn": mattn.attn_def(cfg),
-            "mlp": layers.mlp_def(cfg.d_model, cfg.d_ff),
-            "ln2": layers.rmsnorm_def(cfg.d_model),
+            "mlp": layers.mlp_def(cfg.d_model, cfg.d_ff, cfg.act, cfg.attn_bias),
         }
+        if not cfg.parallel_residual:
+            defs["ln2"] = self._norm_def()
+        return defs
 
     def param_defs(self):
         cfg = self.cfg
         defs = {
             "embed": layers.embed_def(cfg.padded_vocab, cfg.d_model),
-            "final_norm": layers.rmsnorm_def(cfg.d_model),
-            "unembed": layers.unembed_def(cfg.d_model, cfg.padded_vocab),
+            "final_norm": self._norm_def(),
         }
+        if not cfg.tie_embeddings:
+            defs["unembed"] = layers.unembed_def(cfg.d_model, cfg.padded_vocab)
         for i, (_, n) in enumerate(self.stacks):
             defs[f"stack_{i}"] = stack(self._block_def(), n)
         return defs
@@ -74,24 +91,43 @@ class DecoderLM:
         unless given)."""
         return init_tree(self.param_defs(), gen, device)
 
+    def _embed(self, params, tokens):
+        x = layers.embed(params["embed"], tokens)
+        if self.cfg.embed_scale:  # the scale rounded to x's dtype first, as in JAX
+            x = x * torch.tensor(self.cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+        return x
+
     def _logits(self, params, x):
-        x = layers.rmsnorm(params["final_norm"], x)
+        x = self._norm(params["final_norm"], x)
+        if self.cfg.tie_embeddings:
+            return layers.tied_unembed(params["embed"], x, self.cfg.vocab)
         return layers.unembed(params["unembed"], x, self.cfg.vocab)
 
-    def _mlp_residual(self, p, x):
-        return x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x))
+    def _block(self, p, x, attend):
+        """One block around ``attend(h) -> (a, cache)``: ``x + a + f`` with
+        the MLP on the same normed input under ``parallel_residual``, else
+        ``x + a`` and then the MLP over its own norm."""
+        h = self._norm(p["ln1"], x)
+        a, cache = attend(h)
+        if self.cfg.parallel_residual:
+            return x + a + layers.mlp(p["mlp"], h, self.cfg.act), cache
+        x = x + a
+        return x + layers.mlp(p["mlp"], self._norm(p["ln2"], x), self.cfg.act), cache
 
     # ------------------------------------------------------------ prefill
 
-    def prefill(self, params, batch, max_seq: int, *, lengths=None,
+    def prefill(self, params, batch, max_seq: int, *, lengths=None, impl: str = "auto",
                 quant_impl: str = "auto", prior=None, prior_len=None):
         """Process the prompt ``batch["tokens"]`` [B, L], build the quantized
         caches and return ``(last_logits [B, 1, V], state)``.
 
         ``lengths`` ([B] int32, optional): the batch is ragged, right-padded
         to L.  Cache occupancy follows the true lengths and the logits are
-        those of each sequence's last real token.  ``quant_impl`` picks the
-        quantize kernel ('auto' | 'cuda' | 'torch').
+        those of each sequence's last real token.  ``impl`` picks the prefill
+        attention (the flash-prefill kernel for 'cuda' and, on the card,
+        'auto'), ``quant_impl`` the quantize kernel ('auto' | 'cuda' |
+        'torch').  A suffix prefill's attention is plain PyTorch whatever
+        ``impl`` says (``core.attention.prefix_suffix_attention``).
 
         ``prior`` / ``prior_len`` make this a *suffix* prefill (prefix
         sharing, serving engine): ``batch["tokens"]`` holds only the
@@ -105,7 +141,7 @@ class DecoderLM:
             raise ValueError("suffix prefill needs lengths and prior_len")
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = layers.embed(params["embed"], tokens)
+        x = self._embed(params, tokens)
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         if prior is not None:
             if len(prior) != len(self.stacks):
@@ -117,14 +153,12 @@ class DecoderLM:
             layer_caches = []
             for li in range(n):
                 p = _layer(params[f"stack_{i}"], li)
-                h = layers.rmsnorm(p["ln1"], x)
-                a, cache = mattn.attn_prefill_cache(
-                    p["attn"], self.cfg, h, positions, max_seq,
+                x, cache = self._block(p, x, lambda h: mattn.attn_prefill_cache(
+                    p["attn"], self.cfg, h, positions, max_seq, impl=impl,
                     quant_impl=quant_impl, lengths=lengths,
                     prior=None if prior is None else (prior[i][0][li], prior[i][1][li]),
                     prior_len=prior_len,
-                )
-                x = self._mlp_residual(p, x + a)
+                ))
                 layer_caches.append(cache)
             caches.append(qcache.stack_caches(layer_caches))
         if lengths is None:
@@ -185,17 +219,15 @@ class DecoderLM:
         ``state`` are updated in place; the returned state holds the same
         caches and ``pos + 1``.  ``num_splits`` is the decode attention's
         split-KV count ('auto' or an integer)."""
-        x = layers.embed(params["embed"], tokens)
+        x = self._embed(params, tokens)
         pos = state["pos"]
         positions = pos[:, None]
         for i, (_, n) in enumerate(self.stacks):
             stacked = state["caches"][i]
             for li in range(n):
                 p = _layer(params[f"stack_{i}"], li)
-                h = layers.rmsnorm(p["ln1"], x)
-                a, _ = mattn.attn_decode(
+                x, _ = self._block(p, x, lambda h: mattn.attn_decode(
                     p["attn"], self.cfg, h, positions, stacked.layer(li),
                     impl=impl, quant_impl=quant_impl, num_splits=num_splits,
-                )
-                x = self._mlp_residual(p, x + a)
+                ))
         return self._logits(params, x), {"caches": state["caches"], "pos": pos + 1}

@@ -7,7 +7,8 @@ The engine composes the serving pieces into one cycle (:meth:`ServeEngine.step`)
    strict FIFO, gated on a free slot and on the page pool's commitment
    budget); prefill them in suffix-length buckets, each right-padded to its
    bucket, the shared leading blocks of a prompt (prefix index) read from
-   the pools as a dequantized prior (``model.prefill(prior=...)``); adopt
+   the pools as a dequantized prior (``model.prefill(prior=...)``); a
+   prefill with no prior runs the flash-prefill kernel on the card; adopt
    the prefilled blocks into freshly allocated pages behind the shared ones
    (``pages.adopt_prefill``);
 2. allocate the destination page of every row whose residual fills on this
@@ -143,9 +144,10 @@ class ServeEngine:
         drive prefix sharing, ``reserve_policy``/``expected_quantile``/
         ``preempt_policy`` the pressure handling, ``audit_every``/``faults``/
         ``clock`` the self-checks and guards, ``trace``/``metrics`` telemetry.
-        ``impl``/``quant_impl`` pick the decode attention and flush kernels
-        ('auto' | 'cuda' | 'torch').  ``device``: where the state lives (the
-        card unless given)."""
+        ``impl`` picks the prefill and decode attention kernels (a suffix
+        prefill over a shared prefix stays plain PyTorch), ``quant_impl`` the
+        quantize and flush kernels ('auto' | 'cuda' | 'torch').  ``device``:
+        where the state lives (the card unless given)."""
         if spec_k != 1 or async_runtime:
             raise _unported("speculative decoding (spec_k > 1) and the async runtime", "9")
         if mesh is not None or splitkv != "auto" or page_affine:
@@ -615,7 +617,8 @@ class ServeEngine:
 
     def _prefill(self, toks, lens):
         return self.model.prefill(self.params, {"tokens": toks}, toks.shape[1],
-                                  lengths=lens, quant_impl=self._quant_impl)
+                                  lengths=lens, impl=self._impl,
+                                  quant_impl=self._quant_impl)
 
     def _prefill_shared(self, toks, lens, pages, prior_len):
         """Suffix prefill over the shared prefix, dequantized from the pools."""

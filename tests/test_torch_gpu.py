@@ -8,8 +8,9 @@ imports only torch and the port, so it runs where JAX is not installed:
 kv_quant and residual_flush (dense and paged) must match bit for bit;
 bitdecode and paged_bitdecode within the reference's tolerances (out 2e-2,
 lse 1e-3), and paged_bitdecode over an identity page table bit for bit
-equal to bitdecode.  The plain versions are held against the JAX package in
-test_torch_kernels.py and test_torch_paged.py.
+equal to bitdecode; flash_prefill within its kernel's tolerance (out 3e-2,
+lse 1e-3).  The plain versions are held against the JAX package in
+test_torch_kernels.py, test_torch_paged.py and test_torch_flash_prefill.py.
 """
 import functools
 
@@ -18,8 +19,10 @@ import pytest
 import torch
 
 from repro_torch.configs import smoke_config
+from repro_torch.core import attention as catt
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitdecode import ops as bd_ops
+from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.kv_quant import ops as kq_ops
 from repro_torch.kernels.paged_bitdecode import ops as pg_ops
 from repro_torch.kernels.residual_flush import ops as rf_ops
@@ -143,11 +146,12 @@ def test_entry_points_default_to_the_card(cuda):
     assert m.init(torch.Generator().manual_seed(0))["embed"]["table"].is_cuda
 
 
-def test_smoke_model_kernels_match_plain(cuda):
+@pytest.mark.parametrize("arch", ["llama3-8b", "gemma-7b", "starcoder2-3b", "command-r-35b"])
+def test_smoke_model_kernels_match_plain(cuda, arch):
     """Ragged prefill (one full block in row 0) + 30 decode steps (each row
     flushes once) of the smoke model: kernels vs plain versions, same token
     stream; layer 0's packed cache equal bit for bit."""
-    cfg = smoke_config("llama3-8b")
+    cfg = smoke_config(arch)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
     tokens = torch.randint(0, cfg.vocab, (2, 100), device=cuda,
@@ -156,7 +160,7 @@ def test_smoke_model_kernels_match_plain(cuda):
 
     def run(impl, feed=None):
         logits, state = model.prefill(params, {"tokens": tokens}, 256,
-                                      lengths=lengths, quant_impl=impl)
+                                      lengths=lengths, impl=impl, quant_impl=impl)
         out = [logits]
         for i in range(30):
             tok = logits[:, -1].argmax(-1)[:, None] if feed is None else feed[i]
@@ -169,13 +173,59 @@ def test_smoke_model_kernels_match_plain(cuda):
         out_t, s_t = run("torch")
         _build.launches.clear()
         out_k, s_k = run("auto", [o[:, -1].argmax(-1)[:, None] for o in out_t])
-    assert min(_build.launches[k] for k in ("kv_quant", "residual_flush", "bitdecode")) > 0
+    assert min(_build.launches[k] for k in ("kv_quant", "residual_flush", "bitdecode",
+                                            "flash_prefill")) > 0
     for a, b in zip(out_k, out_t):
         torch.testing.assert_close(a, b, rtol=2e-2, atol=3e-1)
     ct, ck = s_t["caches"][0], s_k["caches"][0]
     assert torch.equal(ct.pack_blocks, ck.pack_blocks) and torch.equal(ct.res_len, ck.res_len)
     for f in ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero"):
         np.testing.assert_array_equal(bits_of(getattr(ck, f)[0]), bits_of(getattr(ct, f)[0]))
+
+
+# ------------------------------------------------------------ flash prefill
+
+FLASH_CASES = [  # (B, Hq, Hkv, S, d, causal)
+    (2, 4, 4, 48, 32, True),      # shorter than one tile, MHA
+    (2, 8, 2, 500, 64, True),     # ragged S, g = 4
+    (1, 24, 2, 300, 128, True),   # g = 12
+    (2, 4, 4, 200, 256, True),    # d = 256, g = 1
+    (1, 8, 2, 1900, 128, False),  # full attention
+    (1, 4, 1, 130, 256, False),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_flash_prefill_kernel_matches_plain(cuda, case, layout):
+    """Per-channel V offsets keep the output O(1) beside the tolerance."""
+    b, hq, hkv, s, d, causal = case
+    gen = torch.Generator(device=cuda).manual_seed(hq * s + d)
+    shape = (lambda h: (b, h, s, d)) if layout == "bhsd" else (lambda h: (b, s, h, d))
+    q, k = randn(gen, shape(hq), cuda), randn(gen, shape(hkv), cuda)
+    v = (randn(gen, shape(hkv), cuda) + 2.0 * torch.randn(d, generator=gen, device=cuda)
+         ).to(torch.bfloat16)
+    fn = functools.partial(fp_ops.flash_prefill_attention, q, k, v, causal=causal,
+                           layout=layout, return_lse=True)
+    out_k, lse_k = fn(impl="cuda")
+    out_r, lse_r = fn(impl="torch")
+    assert out_k.shape == out_r.shape and out_r.float().abs().amax() > 0.5
+    torch.testing.assert_close(out_k.float(), out_r.float(), rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(lse_k, lse_r, rtol=1e-3, atol=1e-3)
+
+
+def test_blockwise_attention_takes_the_kernel_on_the_card(cuda):
+    """'auto' on CUDA tensors launches the kernel on the model's layout;
+    'torch' is the plain loop; S != T raises rather than fall back."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (randn(gen, (2, 100, h, 64), cuda) for h in (8, 2, 2))
+    _build.launches.clear()
+    out_k = catt.blockwise_attention(q, k, v)
+    assert _build.launches["flash_prefill"] == 1 and out_k.dtype == torch.bfloat16
+    out_r = catt.blockwise_attention(q, k, v, impl="torch", block_k=64)
+    torch.testing.assert_close(out_k.float(), out_r, rtol=3e-2, atol=3e-2)
+    with pytest.raises(ValueError, match="S == T"):
+        catt.blockwise_attention(q[:, :50], k, v)
 
 
 # ------------------------------------------------------------ paged kernels
@@ -299,7 +349,8 @@ def test_small_engine_kernels_match_plain(cuda):
         plain_rec, rec[:] = list(rec), []
         _build.launches.clear()
         kern, reqs = run("auto", [t for t, _ in plain_rec])
-    assert _build.launches["paged_bitdecode"] > 0 and _build.launches["paged_residual_flush"] > 0
+    assert min(_build.launches[k] for k in ("paged_bitdecode", "paged_residual_flush",
+                                            "flash_prefill")) > 0
     assert all(r.done for r in reqs)
     assert np.array_equal(kern._table, plain._table)
     assert kern.pool.free_pages() == plain.pool.free_pages()

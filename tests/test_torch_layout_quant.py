@@ -79,7 +79,8 @@ def test_quant_params_float16_bitwise():
     np.testing.assert_array_equal(bits_of(tz), bits_of(jz))
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "llama2-7b"])
+@pytest.mark.parametrize("name", ["llama3-8b", "llama2-7b", "gemma-7b", "starcoder2-3b",
+                                  "command-r-35b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_copy_matches_jax(name, smoke):
     get_t = tconfigs.smoke_config if smoke else tconfigs.get_config
