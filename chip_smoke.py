@@ -8,19 +8,24 @@ command-r-35b.
     python3 chip_smoke.py --jax-init   # the init-scale witness, see below
 
 Phases:
-  1. device: name and power limit, SM count, kernel build time;
+  1. device: name and power limit, SM count, kernel build time, ptxas's
+     registers and spills per kernel, flash_prefill's shared memory per
+     head dim and its HGMMA / UTMALDG instruction counts (cuobjdump; the
+     check fails if either is 0);
   2. every CUDA kernel against its plain PyTorch version on the card
      (kv_quant, residual_flush and paged_residual_flush bit for bit, with
      the pages a paged flush must not touch unchanged; bitdecode and
      paged_bitdecode within out 2e-2 / lse 1e-3, over scrambled and
      identity page tables; paged_bitdecode on an identity table bit for bit
      equal to bitdecode; flash_prefill within out 3e-2 / lse 1e-3 over head
-     dims 32-256, 1, 4 and 12 query heads per KV head, S shorter than a
-     tile, ragged and aligned, causal and full), then timed with CUDA events
-     at the main paths' shapes beside its bound (bytes / 3.35 TB/s vs
-     operations / peak rate), flash_prefill also beside PyTorch's
+     dims 32-256, 1, 4 and 12 query heads per KV head, S from one row to
+     2,100 across every edge of its 64-row warpgroups and 128-row KV tiles,
+     causal and full, both layouts and head slices of a fused QKV buffer),
+     then timed with CUDA events at the main paths' shapes beside its bound
+     (bytes / 3.35 TB/s vs operations / peak rate), flash_prefill also at
+     long context (one 8,192-token prompt) and beside PyTorch's
      ``scaled_dot_product_attention`` (the yardstick; the port never calls
-     it);
+     it), with its TFLOP/s and share of the bound;
   3. the dense path end to end: llama3-8b at full width and depth (32
      layers, random bf16 weights from a seeded torch.Generator), 4 ragged
      prompts prefilled (flash_prefill) into the 4-bit cache, 160 greedy
@@ -586,8 +591,21 @@ def main() -> int:
     _build.build()
     log(f"  kernels built in {_build.build_seconds:.1f} s (nvcc, sm_90a)")
     for line in _build.ptxas_report().splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
+        if "Compiling entry" in line or "Used" in line or "spill" in line or "C75" in line:
             log(f"  ptxas: {line.strip()}")
+    for d in fp_ops.HEAD_DIMS:
+        log(f"  flash_prefill d={d}: {_build.build().flash_prefill_smem_bytes(d)} bytes of "
+            "dynamic shared memory a CTA")
+    sass = _build.sass_counts(("HGMMA", "UTMALDG"), "flash_prefill")
+    if sass is None:
+        log("  cuobjdump: not available (no HGMMA / UTMALDG count)")
+    else:
+        for fn, cnt in sass.items():
+            log(f"  sass {fn[:40]}...: HGMMA {cnt['HGMMA']}, UTMALDG {cnt['UTMALDG']}")
+        check(len(sass) == len(fp_ops.HEAD_DIMS)
+              and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in sass.values()),
+              f"every flash_prefill instance ({len(sass)}) runs wgmma (HGMMA) on TMA loads "
+              "(UTMALDG)")
     if args.jax_init:
         return jax_init_witness(dev)
 
@@ -750,25 +768,43 @@ def main() -> int:
     # flash_prefill over head dims x query heads per KV head x causal, S
     # cycling through shorter than a tile, ragged and aligned, both layouts;
     # per-channel V offsets keep the output O(1) beside the tolerance
-    for i, (d, g, causal) in enumerate(itertools.product((32, 64, 128, 256), (1, 4, 12),
-                                                         (True, False))):
-        s, layout = (48, 500, 1900, 2048)[i % 4], ("bhsd", "bshd")[(i // 2) % 2]
-        hkv = 4 if g == 1 else 2
-        shape = (lambda h: (2, h, s, d)) if layout == "bhsd" else (lambda h: (2, s, h, d))
-        q, k = randn(*shape(g * hkv)), randn(*shape(hkv))
-        v_off = 2.0 * torch.randn(d, generator=gen, device=dev)
-        v = (randn(*shape(hkv)) + v_off).to(torch.bfloat16)
+    def v_off(v):
+        return (v + 2.0 * torch.randn(v.shape[-1], generator=gen, device=dev)).to(torch.bfloat16)
+
+    def flash_case(q, k, v, causal, layout, what):
+        d = q.shape[-1]
         kw = dict(causal=causal, layout=layout, return_lse=True)
         out_k, lse_k = fp_ops.flash_prefill_attention(q, k, v, impl="cuda", **kw)
         out_r, lse_r = fp_ops.flash_prefill_attention(q, k, v, impl="torch", **kw)
         note_err("flash_prefill", out_k, out_r)
         ok = (torch.allclose(out_k.float(), out_r.float(), rtol=3e-2, atol=3e-2)
               and torch.allclose(lse_k, lse_r, rtol=1e-3, atol=1e-3))
-        check(ok, f"flash_prefill B=2 Hq={g * hkv} Hkv={hkv} S={s} d={d} "
-                  f"{'causal' if causal else 'full'} {layout}: max|dout| "
-                  f"{(out_k.float() - out_r.float()).abs().max().item():.2e} (max|out| "
+        check(ok, f"flash_prefill {what} d={d} {'causal' if causal else 'full'} {layout}: "
+                  f"max|dout| {(out_k.float() - out_r.float()).abs().max().item():.2e} (max|out| "
                   f"{out_r.float().abs().max().item():.2f}), max|dlse| "
                   f"{(lse_k - lse_r).abs().max().item():.2e}")
+
+    for i, (d, g, causal) in enumerate(itertools.product((32, 64, 128, 256), (1, 4, 12),
+                                                         (True, False))):
+        s, layout = (48, 500, 1900, 2048)[i % 4], ("bhsd", "bshd")[(i // 2) % 2]
+        hkv = 4 if g == 1 else 2
+        shape = (lambda h: (2, h, s, d)) if layout == "bhsd" else (lambda h: (2, s, h, d))
+        flash_case(randn(*shape(g * hkv)), randn(*shape(hkv)), v_off(randn(*shape(hkv))), causal,
+                   layout, f"B=2 Hq={g * hkv} Hkv={hkv} S={s}")
+    # the edges of the 64-row consumer warpgroups and the 128-row KV tiles,
+    # and a long ragged S: every head dim, g 12, 4 and 1, causal and full
+    for i, s in enumerate((1, 63, 64, 65, 127, 128, 129, 2100)):
+        for causal in (True, False):
+            d, g = (64, 32, 128, 256)[i % 4], (12, 4, 1)[(i + causal) % 3]
+            hkv = 1 if g == 12 else 2
+            flash_case(randn(2, s, g * hkv, d), randn(2, s, hkv, d), v_off(randn(2, s, hkv, d)),
+                       causal, "bshd", f"B=2 Hq={g * hkv} Hkv={hkv} S={s}")
+    # head slices of one fused [B, S, Hq + 2 Hkv, d] projection, read through
+    # their strides
+    qkv = randn(2, 300, 8 + 2 * 2, 128)
+    qkv[:, :, 10:] = v_off(qkv[:, :, 10:])
+    flash_case(qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:], True, "bshd",
+               "B=2 Hq=8 Hkv=2 S=300, q/k/v head slices of one fused buffer,")
     torch.cuda.synchronize()
 
     # timing at the main path's shapes: device time of one call, L2 scrubbed
@@ -865,33 +901,43 @@ def main() -> int:
     bound("paged_bitdecode", pg_bytes, 2 * 2 * g * d * tokens, BF16_OPS_PER_S)
     stats["paged_bitdecode"]["num_splits"] = splits
     # flash_prefill at the dense prefills' shapes (llama3-8b in phase 3,
-    # gemma-7b in phase 5), in the model's [B, S, H, d] layout, beside
-    # PyTorch's scaled_dot_product_attention on contiguous [B, H, S, d]
+    # gemma-7b in phase 5) and at long context (llama3-8b, one 8,192-token
+    # prompt), in the model's [B, S, H, d] layout, beside PyTorch's
+    # scaled_dot_product_attention on contiguous [B, H, S, d]; the plain
+    # version is not timed at 8,192 (its f32 score matrix alone is 8.6 GB)
     for key, (b, hq, hkv, s, d) in (("", (4, 32, 8, 2048, 128)),
-                                    ("gemma_", (4, 16, 16, 1200, 256))):
+                                    ("gemma_", (4, 16, 16, 1200, 256)),
+                                    ("long_", (1, 32, 8, 8192, 128))):
         q, k, v = randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         fp = lambda impl: fp_ops.flash_prefill_attention(  # noqa: E731
             q, k, v, layout="bshd", impl=impl)
         st = stats["flash_prefill"]
         st[key + "ms"] = time_ms(lambda: fp("cuda"))
-        st[key + "plain_ms"] = time_ms(lambda: fp("torch"), iters=3)
+        st[key + "plain_ms"] = time_ms(lambda: fp("torch"), iters=3) if key != "long_" else None
         st[key + "library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qh, kh, vh, is_causal=True, enable_gqa=True))
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * hq * s
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 4 * b * hq * d * (s * (s + 1) // 2) / BF16_OPS_PER_S * 1e3  # QK^T, PV: causal half
+        ops = 4 * b * hq * d * (s * (s + 1) // 2)  # QK^T and PV over the causal half
+        t_ops = ops / BF16_OPS_PER_S * 1e3
         st[key + "bound_ms"] = max(t_bytes, t_ops)
         st[key + "bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         st[key + "shape"] = dict(B=b, Hq=hq, Hkv=hkv, S=s, d=d)
-        log(f"  time flash_prefill {st[key + 'shape']}: kernel {st[key + 'ms'] * 1e3:.1f} us, "
-            f"plain {st[key + 'plain_ms'] * 1e3:.1f} us, scaled_dot_product_attention "
-            f"{st[key + 'library_ms'] * 1e3:.1f} us, bound {st[key + 'bound_ms'] * 1e3:.2f} us "
-            f"({st[key + 'bound_by']})")
+        st[key + "tflops"] = ops / st[key + "ms"] / 1e9
+        st[key + "share_of_bound"] = st[key + "bound_ms"] / st[key + "ms"]
+        st[key + "vs_library"] = st[key + "ms"] / st[key + "library_ms"]
+        plain = "not timed" if st[key + "plain_ms"] is None else f"{st[key + 'plain_ms'] * 1e3:.1f} us"
+        log(f"  time flash_prefill {st[key + 'shape']}: kernel {st[key + 'ms'] * 1e3:.1f} us "
+            f"({st[key + 'tflops']:.0f} TFLOP/s, {st[key + 'share_of_bound']:.1%} of the bound), "
+            f"plain {plain}, scaled_dot_product_attention {st[key + 'library_ms'] * 1e3:.1f} us "
+            f"(kernel / sdpa {st[key + 'vs_library']:.2f}), bound {st[key + 'bound_ms'] * 1e3:.2f} "
+            f"us ({st[key + 'bound_by']})")
         del q, k, v, qh, kh, vh
     for name, st in stats.items():
-        log(f"  time {name}: kernel {st['ms'] * 1e3:.1f} us, plain {st['plain_ms'] * 1e3:.1f} us, "
-            f"bound {st['bound_ms'] * 1e3:.2f} us ({st['bound_by']})")
+        if name != "flash_prefill":  # its shapes are printed above
+            log(f"  time {name}: kernel {st['ms'] * 1e3:.1f} us, plain {st['plain_ms'] * 1e3:.1f} "
+                f"us, bound {st['bound_ms'] * 1e3:.2f} us ({st['bound_by']})")
     for name in ("residual_flush", "paged_residual_flush"):
         log(f"  {name} on a step without a flush: kernel "
             f"{stats[name]['ms_no_flush'] * 1e3:.1f} us, plain "
@@ -957,7 +1003,8 @@ def main() -> int:
             "library_us": None if "library_ms" not in st else st["library_ms"] * 1e3,
             **{k: v for k, v in st.items() if k in ("ms_no_flush", "plain_ms_no_flush",
                                                     "num_splits", "shape")
-               or k.startswith("gemma_")},
+               or k.startswith(("gemma_", "long_"))
+               or k in ("tflops", "share_of_bound", "vs_library")},
         })
     total_s = time.perf_counter() - t_start
     print(json.dumps({"kernels": rows, "e2e": dense, "serve": serve["report"], "family": family,

@@ -45,7 +45,7 @@ _SIGNATURES = {
     "paged_residual_flush": ("paged_residual_flush_launch", [_P] * 10 + [_I] * 8 + [_P]),
     "paged_bitdecode": ("paged_bitdecode_launch", [_P] * 14 + [_I] * 13 + [_F, _P]),
     "flash_prefill": ("flash_prefill_launch", [_P] * 5 + [_I] * 5 + [_L] * 12
-                      + [_I, _F, _P]),
+                      + [_I, _F, _I, _P]),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -90,6 +90,8 @@ def build() -> ctypes.CDLL:
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
     lib.repro_error_string.argtypes = [ctypes.c_int]
     lib.repro_error_string.restype = ctypes.c_char_p
+    lib.flash_prefill_smem_bytes.argtypes = [ctypes.c_int]
+    lib.flash_prefill_smem_bytes.restype = ctypes.c_int
     _lib = lib
     build_seconds = time.perf_counter() - t0
     return lib
@@ -116,6 +118,37 @@ def _compile_and_link(so: Path) -> None:
     if failed:
         raise RuntimeError(f"nvcc failed:\n{''.join(logs)}")
     os.replace(tmp, so)
+
+
+def sass_counts(names: tuple[str, ...], fn_filter: str) -> dict | None:
+    """Per kernel function of the built library whose mangled name holds
+    ``fn_filter``, how many of its SASS instructions start with each of
+    ``names`` (``cuobjdump -sass``); None where the toolkit has no
+    cuobjdump."""
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", build()._name], capture_output=True, text=True,
+                          check=True).stdout
+    return count_sass(sass, names, fn_filter)
+
+
+def count_sass(sass: str, names: tuple[str, ...], fn_filter: str) -> dict:
+    """The counting of :func:`sass_counts` on ``cuobjdump -sass`` text."""
+    counts: dict = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            fn = fn if fn_filter in fn else None
+            if fn:
+                counts[fn] = dict.fromkeys(names, 0)
+        elif fn and "*/" in line:
+            words = line.split("*/", 1)[1].split()  # [@predicate] opcode operands
+            op = words[1] if words and words[0].startswith("@") else words[0] if words else ""
+            for name in names:
+                counts[fn][name] += op.startswith(name)
+    return counts
 
 
 def ptxas_report() -> str:

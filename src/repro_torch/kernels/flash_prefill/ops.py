@@ -7,6 +7,8 @@ holds its projections in).  The kernel reads either through strides, so the
 model path makes no transposed copy; the output comes back in the layout of
 the input.  Unlike the TPU entry point, nothing is padded: the kernel masks
 the ragged end of S itself and takes d in {32, 64, 128, 256} as it is.
+The kernel loads its operands by TMA through one 4-D tensor map each, built
+from these strides, so a head slice of a fused QKV buffer is read as it is.
 """
 from __future__ import annotations
 
@@ -16,7 +18,22 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_prefill import ref as _ref
 
 HEAD_DIMS = (32, 64, 128, 256)
+BLOCK_Q = 128  # query rows of one work tile (two consumer warpgroups of 64)
 _LAYOUTS = ("bhsd", "bshd")
+
+
+def work_tiles(b: int, hq: int, s: int) -> int:
+    """The kernel's work tiles: (128 query rows, q-head, batch row)."""
+    return -(-s // BLOCK_Q) * hq * b
+
+
+def launch_ctas(b: int, hq: int, s: int, d: int, sm_count: int) -> int:
+    """CTAs to launch: persistent, one per SM, at d <= 128 (a work tile's
+    loads then run under the last one's products and epilogue); one per work
+    tile at d = 256, where the hardware's dispatch balanced gemma-7b's few,
+    uneven waves better than the kernel's static walk (PERF.md)."""
+    n = work_tiles(b, hq, s)
+    return n if d > 128 else max(1, min(n, sm_count))
 
 
 def _as_bshd(x, layout: str):
@@ -24,12 +41,14 @@ def _as_bshd(x, layout: str):
 
 
 def _kernel_operand(x):
-    """bf16 with unit channel stride and 16-byte aligned rows (the kernel's
-    vector loads), copied only when ``x`` is not already so."""
+    """bf16 with unit channel stride, a 16-byte aligned start and strides
+    that are nonzero multiples of 16 bytes wherever the extent is above 1
+    (TMA's rules for a tensor map), copied only when ``x`` is not already
+    so."""
     x = x.to(torch.bfloat16)
     if (x.stride(-1) != 1 or x.data_ptr() % 16
-            or any(st % 8 for st in x.stride()[:-1])):
-        x = x.contiguous()
+            or any(st % 8 or (st == 0 and n > 1) for st, n in zip(x.stride()[:-1], x.shape))):
+        x = x.clone(memory_format=torch.contiguous_format)  # a fresh, aligned allocation
     return x
 
 
@@ -52,10 +71,11 @@ def flash_prefill_cuda(q, k, v, *, sm_scale: float, causal: bool, layout: str):
         return out, lse
     o = _as_bshd(out, layout)
     strides = [st for x in (q, k, v, o) for st in x.stride()[:3]]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     _build.launch(
         "flash_prefill", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, hq, hkv, s, d, *strides, int(causal), float(sm_scale),
-        _build.stream_of(q),
+        launch_ctas(b, hq, s, d, sms), _build.stream_of(q),
     )
     return out, lse
 

@@ -127,3 +127,54 @@ def test_model_prefill_routes_impl():
         with pytest.raises(ValueError, match="CUDA tensors"):
             run(impl="cuda")
 
+
+
+@pytest.mark.parametrize("b,hq,s,d,sms,expect", [
+    (4, 32, 2048, 128, 132, 132),   # llama3-8b's prefill: one CTA per SM
+    (1, 2, 100, 64, 132, 2),        # fewer work tiles than SMs
+    (4, 16, 1200, 256, 132, 640),   # gemma-7b's: one CTA per work tile
+    (1, 1, 1, 32, 132, 1),
+])
+def test_launch_ctas(b, hq, s, d, sms, expect):
+    """The kernel's CTA count: persistent (at most one per SM) at d <= 128,
+    one per work tile of 128 query rows at d = 256; always 1 to the number
+    of work tiles, the range the C entry point accepts."""
+    n = fp_ops.work_tiles(b, hq, s)
+    assert n == -(-s // 128) * hq * b
+    assert fp_ops.launch_ctas(b, hq, s, d, sms) == expect and 1 <= expect <= n
+
+
+def test_kernel_operand_copies_only_what_tma_cannot_read():
+    """Head slices of a fused QKV buffer and [B, H, S, d] transposes are
+    taken as they are; a broadcast (stride 0) axis, a channel stride or a
+    start off 16 bytes is copied, as TMA requires."""
+    qkv = torch.zeros((2, 40, 12, 64), dtype=torch.bfloat16)
+    for view in (qkv[:, :, 8:10], qkv[:, :, :8].transpose(1, 2)):
+        assert fp_ops._kernel_operand(view).data_ptr() == view.data_ptr()
+    one = torch.zeros((2, 40, 1, 64), dtype=torch.bfloat16)
+    n = 2 * 40 * 12 * 64
+    off16 = torch.zeros(n + 8, dtype=torch.bfloat16)[4:4 + n].view(2, 40, 12, 64)
+    for view in (one.expand(2, 40, 4, 64), qkv[..., ::2], off16):
+        kept = fp_ops._kernel_operand(view)
+        assert kept.data_ptr() != view.data_ptr() and torch.equal(kept, view)
+    assert fp_ops._kernel_operand(one).data_ptr() == one.data_ptr()  # extent-1 axes are free
+
+
+def test_count_sass_counts_opcodes_per_kernel():
+    """``_build.count_sass`` (behind chip_smoke.py's HGMMA / UTMALDG check)
+    on ``cuobjdump -sass`` text: per matching function, predicated
+    instructions included, encoding lines and other functions ignored."""
+    from repro_torch.kernels import _build
+
+    sass = "\n".join([
+        "\tFunction : _Z20flash_prefill_kernelILi128EEv14CUtensorMap_st",
+        "        /*0ce0*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR16], RZ, !UPT, gsb0 ;  /* 0x0 */",
+        "                                                                              /* 0x1 */",
+        "        /*0cf0*/   @P0 UTMALDG.4D [UR8], [UR4] ;  /* 0x2 */",
+        "        /*0d00*/   HGMMA.64x128x16.F32.BF16 R24, R164, gdesc[UR4].tnspB, R24 ;",
+        "\tFunction : _Z17bitdecode_kernelILi128EEvv",
+        "        /*0ce0*/   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR16], RZ, !UPT, gsb0 ;",
+    ])
+    counts = _build.count_sass(sass, ("HGMMA", "UTMALDG"), "flash_prefill")
+    assert counts == {"_Z20flash_prefill_kernelILi128EEv14CUtensorMap_st":
+                      {"HGMMA": 2, "UTMALDG": 1}}

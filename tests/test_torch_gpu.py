@@ -192,6 +192,15 @@ FLASH_CASES = [  # (B, Hq, Hkv, S, d, causal)
     (2, 4, 4, 200, 256, True),    # d = 256, g = 1
     (1, 8, 2, 1900, 128, False),  # full attention
     (1, 4, 1, 130, 256, False),
+    # S around the 64-row warpgroup and the 128-row KV tile edges
+    (1, 12, 1, 1, 64, True),      # one row, g = 12
+    (2, 24, 2, 63, 32, True),     # d = 32 (one zero-filled 64-channel box), g = 12
+    (1, 4, 2, 64, 128, True),
+    (2, 4, 4, 65, 256, True),     # d = 256: 64-row KV tiles
+    (1, 24, 2, 127, 64, False),   # d = 64, g = 12
+    (1, 8, 8, 128, 128, True),
+    (2, 24, 2, 129, 32, True),
+    (1, 2, 1, 2100, 256, True),   # many KV tiles, ragged, the wide head
 ]
 
 
@@ -212,6 +221,46 @@ def test_flash_prefill_kernel_matches_plain(cuda, case, layout):
     assert out_k.shape == out_r.shape and out_r.float().abs().amax() > 0.5
     torch.testing.assert_close(out_k.float(), out_r.float(), rtol=3e-2, atol=3e-2)
     torch.testing.assert_close(lse_k, lse_r, rtol=1e-3, atol=1e-3)
+
+
+def test_flash_prefill_reads_head_slices_of_a_fused_buffer(cuda):
+    """q, k and v as strided head slices of one [B, S, Hq + 2 Hkv, d]
+    projection: read through their strides (no copy: one launch, nothing
+    else), the same as on contiguous copies."""
+    b, s, hq, hkv, d = 2, 300, 8, 2, 128
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    qkv = randn(gen, (b, s, hq + 2 * hkv, d), cuda)
+    q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+    assert not q.is_contiguous() and fp_ops._kernel_operand(k).data_ptr() == k.data_ptr()
+    _build.launches.clear()
+    out, lse = fp_ops.flash_prefill_attention(q, k, v, layout="bshd", impl="cuda",
+                                              return_lse=True)
+    assert dict(_build.launches) == {"flash_prefill": 1}
+    out_c, lse_c = fp_ops.flash_prefill_attention(
+        *(x.contiguous() for x in (q, k, v)), layout="bshd", impl="cuda", return_lse=True)
+    np.testing.assert_array_equal(bits_of(out), bits_of(out_c))
+    torch.testing.assert_close(lse, lse_c, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_prefill_launches_once_per_call_whatever_the_ctas(cuda, monkeypatch, d):
+    """One launch per call; the result is the same bit for bit with one CTA
+    walking every work tile, one per SM and one per work tile (the KV ring
+    runs on across work tiles, heaviest first)."""
+    b, hq, hkv, s = 2, 4, 2, 700
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (randn(gen, (b, s, h, d), cuda) for h in (hq, hkv, hkv))
+    outs = []
+    n = fp_ops.work_tiles(b, hq, s)
+    for ctas in (1, 5, n):
+        monkeypatch.setattr(fp_ops, "launch_ctas", lambda *a, c=ctas: c)
+        _build.launches.clear()
+        outs.append(fp_ops.flash_prefill_attention(q, k, v, layout="bshd", impl="cuda",
+                                                   return_lse=True))
+        assert _build.launches["flash_prefill"] == 1
+    for out, lse in outs[1:]:
+        np.testing.assert_array_equal(bits_of(out), bits_of(outs[0][0]))
+        torch.testing.assert_close(lse, outs[0][1], rtol=0, atol=0)
 
 
 def test_blockwise_attention_takes_the_kernel_on_the_card(cuda):
