@@ -10,29 +10,36 @@ command-r-35b.
 Phases:
   1. device: name and power limit, SM count, kernel build time, ptxas's
      registers and spills per kernel, flash_prefill's shared memory per
-     head dim and its HGMMA / UTMALDG instruction counts (cuobjdump; the
-     check fails if either is 0);
+     head dim and its HGMMA / UTMALDG instruction counts, and every
+     bitdecode / paged_bitdecode instance's HMMA / LDGSTS counts
+     (cuobjdump; the checks fail if any is 0);
   2. every CUDA kernel against its plain PyTorch version on the card
      (kv_quant, residual_flush and paged_residual_flush bit for bit, with
      the pages a paged flush must not touch unchanged; bitdecode and
      paged_bitdecode within out 2e-2 / lse 1e-3, over scrambled and
-     identity page tables; paged_bitdecode on an identity table bit for bit
-     equal to bitdecode; flash_prefill within out 3e-2 / lse 1e-3 over head
-     dims 32-256, 1, 4 and 12 query heads per KV head, S from one row to
-     2,100 across every edge of its 64-row warpgroups and 128-row KV tiles,
-     causal and full, both layouts and head slices of a fused QKV buffer),
-     then timed with CUDA events at the main paths' shapes beside its bound
-     (bytes / 3.35 TB/s vs operations / peak rate), flash_prefill also at
-     long context (one 8,192-token prompt) and beside PyTorch's
-     ``scaled_dot_product_attention`` (the yardstick; the port never calls
-     it), with its TFLOP/s and share of the bound;
+     identity page tables, at the decode shapes of llama3-8b, gemma-7b,
+     starcoder2-3b and command-r-35b, bits 2, 4, 8, block_n 32-128, rows
+     with fewer blocks than splits, empty rows and full residuals;
+     paged_bitdecode on an identity table bit for bit equal to bitdecode;
+     one decode call at most two launches; the split merge alone within
+     1e-5 of its plain version; flash_prefill within out 3e-2 / lse 1e-3
+     over head dims 32-256, 1, 4 and 12 query heads per KV head, S from one
+     row to 2,100 across every edge of its 64-row warpgroups and 128-row KV
+     tiles, causal and full, both layouts and head slices of a fused QKV
+     buffer), then timed with CUDA events at the main paths' shapes beside
+     its bound (bytes / 3.35 TB/s vs operations / peak rate): bitdecode and
+     paged_bitdecode as whole calls (merge included) at the three decode
+     shapes, flash_prefill also at long context (one 8,192-token prompt)
+     and beside PyTorch's ``scaled_dot_product_attention`` (the yardstick;
+     the port never calls it), with its TFLOP/s and share of the bound;
   3. the dense path end to end: llama3-8b at full width and depth (32
      layers, random bf16 weights from a seeded torch.Generator), 4 ragged
      prompts prefilled (flash_prefill) into the 4-bit cache, 160 greedy
      decode steps; once with the plain versions, once with the kernels and
      once with the plain versions split three ways along the cache (a
      different summation order: the fidelity floor of two correct
-     implementations), all fed the plain run's token stream;
+     implementations), all fed the plain run's token stream; then the
+     device time of three decode steps by kernel (torch.profiler);
   4. the serving path end to end: the same model behind ``ServeEngine``
      (4 slots, max_seq 4096), ten staggered requests with a shared prefix
      and a copy-on-write pair, all on the kernels: (a) worst-case
@@ -68,6 +75,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -97,12 +105,20 @@ KERNELS = {
                             replaces="src/repro/kernels/paged_bitdecode/kernel.py:99"),
     "flash_prefill": dict(source="src/repro_torch/csrc/flash_prefill.cu",
                           replaces="src/repro/kernels/flash_prefill/kernel.py:82"),
+    # the split merge of K3 and K4 (the TPU version's XLA epilogue)
+    "bitdecode_merge": dict(source="src/repro_torch/csrc/bitdecode.cu",
+                            replaces="src/repro/kernels/bitdecode/kernel.py:126"),
 }
+# dense and paged x (bits, unit rows) x head dims x g <= 8 or 16 x K params per
+# channel or token (bd_dispatch in csrc/bitdecode_body.cuh)
+DECODE_INSTANCES = 2 * 4 * 4 * 2 * 2
 BITWISE = ("kv_quant", "residual_flush", "paged_residual_flush")
 TOLERANCE = {"bitdecode": "out 2e-2, lse 1e-3", "paged_bitdecode": "out 2e-2, lse 1e-3",
-             "flash_prefill": "out 3e-2, lse 1e-3"}
-DENSE_PATH = ("kv_quant", "residual_flush", "bitdecode", "flash_prefill")  # phases 3, 5, 6
-SERVE_PATH = ("kv_quant", "paged_residual_flush", "paged_bitdecode", "flash_prefill")  # 4, 5
+             "flash_prefill": "out 3e-2, lse 1e-3", "bitdecode_merge": "out 1e-5, lse 1e-5"}
+# phases 3, 5, 6; at B = 4 every configuration's decode resolves to > 1 split
+DENSE_PATH = ("kv_quant", "residual_flush", "bitdecode", "bitdecode_merge", "flash_prefill")
+SERVE_PATH = ("kv_quant", "paged_residual_flush", "paged_bitdecode", "bitdecode_merge",
+              "flash_prefill")  # phases 4, 5
 
 # phases 5 and 6: the dense family at full width
 FAMILY_PROMPT_LENS = (1000, 1080, 1150, 1200)  # every row flushes within the steps
@@ -338,7 +354,15 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
         log(f"  {name}, {k} vs plain over {steps + 1} steps: mean KL {f['mean_kl']:.3e}; "
             f"greedy agreement {f['greedy_agreement']:.3f}; max |dlogit| "
             f"{f['max_abs_dlogit']:.3f}")
-    report = {"prefill_s": {"plain": pre_p, "kernels": pre_k},
+    prof = device_profile(model, params, tokens, lengths)
+    log(f"  {name} device time a decode step (torch.profiler, 3 steps): all kernels "
+        f"{prof['all_ms_per_step']:.3f} ms, decode attention + merge "
+        f"{prof['decode_attention_ms_per_step']:.3f} ms, flush {prof['flush_ms_per_step']:.3f} "
+        f"ms, of {prof['wall_ms_per_step_profiled']:.2f} ms a step under the profiler")
+    if prof["all_ms_per_step"] > 0:  # else the profiler saw no device time: not measured
+        check(prof["decode_attention_ms_per_step"] > 0,
+              f"{name}: the profiler saw the decode attention's kernels on the card")
+    report = {"prefill_s": {"plain": pre_p, "kernels": pre_k}, "device_profile": prof,
               "decode_ms_per_step": {"plain": step_p * 1e3, "kernels": step_k * 1e3},
               "tokens_per_s": {"plain": b / step_p, "kernels": b / step_k},
               "peak_gib": {"plain": peak_plain / 2**30, "kernels": peak_kernel / 2**30},
@@ -346,6 +370,44 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
               "prompt_lens": list(prompt_lens), "decode_steps": steps,
               "layers": cfg.n_layers, "launches": launches}
     return report
+
+
+def device_profile(model, params, tokens, lengths, steps=3) -> dict:
+    """Device time of ``steps`` decode steps on the kernels, from a fresh
+    prefill of the same prompts: torch.profiler, each kernel's own time
+    summed by name.  Returns ms a step for all kernels,
+    for the decode attention (bitdecode / paged_bitdecode and the merge) and
+    the flush, beside the steps' wall time under the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        logits, state = model.prefill(params, {"tokens": tokens}, tokens.shape[1] + steps + 1,
+                                      lengths=lengths)
+        logits, state = model.decode_step(params, state, logits[:, -1].argmax(-1)[:, None])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                logits, state = model.decode_step(params, state, logits[:, -1].argmax(-1)[:, None])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    by_kind = {"all": 0.0, "decode_attention": 0.0, "flush": 0.0}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:  # the kernels' own rows, not the ops'
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        us = getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
+        by_kind["all"] += us
+        if "bitdecode" in ev.key:
+            by_kind["decode_attention"] += us
+        elif "residual_flush" in ev.key:
+            by_kind["flush"] += us
+    out = {f"{k}_ms_per_step": v / steps / 1e3 for k, v in by_kind.items()}
+    out["wall_ms_per_step_profiled"] = wall / steps * 1e3
+    out["device_busy_share"] = by_kind["all"] / 1e3 / (wall * 1e3) if wall else None
+    return out
 
 
 def bitwise(a, b):
@@ -571,6 +633,7 @@ def main() -> int:
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.bitdecode import ops as bd_ops
+    from repro_torch.kernels.bitdecode import ref as bd_ref
     from repro_torch.kernels.flash_prefill import ops as fp_ops
     from repro_torch.kernels.kv_quant import ops as kq_ops
     from repro_torch.kernels.paged_bitdecode import ops as pg_ops
@@ -590,9 +653,28 @@ def main() -> int:
     log(f"  {power}; {sms} SMs; torch {torch.__version__}, CUDA {torch.version.cuda}")
     _build.build()
     log(f"  kernels built in {_build.build_seconds:.1f} s (nvcc, sm_90a)")
+    decode_regs = {}  # bitdecode instance -> (registers, spill bytes)
+    entry = None
     for line in _build.ptxas_report().splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line or "C75" in line:
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        if entry and "bitdecode_kernel" in entry:
+            regs = re.search(r"Used (\d+) registers", line)
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            if regs:
+                decode_regs[entry] = (int(regs.group(1)), decode_regs.get(entry, (0, 0))[1])
+            if spill:
+                decode_regs[entry] = (decode_regs.get(entry, (0, 0))[0], int(spill.group(1)))
+            if "Used" in line and any(f"ILi4ELi4ELi{d}ELi{d}ELi{nt}ELb1E" in entry
+                                      for d, nt in ((128, 1), (256, 1), (128, 2))):
+                log(f"  ptxas: {entry[:48]}...: {line.split(':', 1)[-1].strip()}")
+        elif "Compiling entry" in line or "Used" in line or "spill" in line or "C75" in line:
             log(f"  ptxas: {line.strip()}")
+    if decode_regs:
+        spilled = sorted(e for e, (_, sp) in decode_regs.items() if sp)
+        log(f"  ptxas: {len(decode_regs)} bitdecode / paged_bitdecode instances, "
+            f"{min(r for r, _ in decode_regs.values())}-{max(r for r, _ in decode_regs.values())} "
+            f"registers; spills in {len(spilled)} ({', '.join(e[:48] for e in spilled)})")
     for d in fp_ops.HEAD_DIMS:
         log(f"  flash_prefill d={d}: {_build.build().flash_prefill_smem_bytes(d)} bytes of "
             "dynamic shared memory a CTA")
@@ -606,6 +688,18 @@ def main() -> int:
               and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in sass.values()),
               f"every flash_prefill instance ({len(sass)}) runs wgmma (HGMMA) on TMA loads "
               "(UTMALDG)")
+    sass = _build.sass_counts(("HMMA", "LDGSTS", "MOVM"), "bitdecode_kernel")
+    if sass is None:
+        log("  cuobjdump: not available (no HMMA / LDGSTS count)")
+    else:
+        for fn, cnt in sass.items():
+            if any(f"ILi4ELi4ELi{d}ELi{d}ELi1ELb1E" in fn for d in (128, 256)):
+                log(f"  sass {fn[:48]}...: HMMA {cnt['HMMA']}, LDGSTS {cnt['LDGSTS']}, "
+                    f"MOVM {cnt['MOVM']}")
+        check(len(sass) == DECODE_INSTANCES
+              and all(c["HMMA"] > 0 and c["LDGSTS"] > 0 for c in sass.values()),
+              f"every bitdecode / paged_bitdecode instance ({len(sass)} of {DECODE_INSTANCES}) "
+              "runs mma.sync (HMMA) on words prefetched by cp.async (LDGSTS)")
     if args.jax_init:
         return jax_init_witness(dev)
 
@@ -667,6 +761,32 @@ def main() -> int:
                     k_res=randn(b, h, bn, d), v_res=(randn(b, h, bn, d) + v_off).to(torch.bfloat16),
                     pack_blocks=ints(pb), res_len=ints(rl))
 
+    def splits_of(ns, b, h, g, d, nb, bn, bits, gran="channel"):
+        units = bd_ops.work_units(nb, bn, bits, bn)
+        return bd_ops.resolve_num_splits(ns, b, h, units, dev, g=g, d=d, block_n=bn, bits=bits,
+                                         k_channel=gran == "channel")
+
+    def check_decode(name, what, got, ref, pb, rl):
+        """Rows with a valid token within out 2e-2 / lse 1e-3 of the plain
+        version; a row with none (pack_blocks 0, res_len 0) o = 0 and lse
+        ~ -1e37, as an empty split (the plain version has no defined value
+        there: a uniform softmax over masked slots)."""
+        (out_k, lse_k), (out_r, lse_r) = got, ref
+        live = torch.tensor([p > 0 or r > 0 for p, r in zip(pb, rl)], device=dev)
+        note_err(name, out_k[live], out_r[live])
+        ok = (torch.allclose(out_k[live], out_r[live], rtol=2e-2, atol=2e-2)
+              and torch.allclose(lse_k[live], lse_r[live], rtol=1e-3, atol=1e-3)
+              and not out_k[~live].any() and bool((lse_k[~live] < -1e36).all()))
+        empty = int((~live).sum())
+        check(ok, f"{name} {what}: max|dout| {(out_k[live] - out_r[live]).abs().max().item():.2e} "
+                  f"(max|out| {out_r[live].abs().max().item():.2f}), max|dlse| "
+                  f"{(lse_k[live] - lse_r[live]).abs().max().item():.2e}"
+                  + (f"; {empty} empty row(s): o = 0, lse < -1e36" if empty else ""))
+
+    # B, H_kv, g, d, nb, block_n, bits, K granularity, pack_blocks, res_len
+    llama = (4, 8, 4, 128, 18, 128, 4, "channel", [14, 15, 16, 16], [108, 80, 2, 52])
+    gemma = (4, 16, 1, 256, 11, 128, 4, "channel", [8, 8, 9, 9], [104, 56, 126, 48])
+    starcoder = (4, 2, 12, 128, 11, 128, 4, "channel", [8, 8, 9, 9], [104, 56, 126, 48])
     decode_cases = [  # label, case args, split counts
         ("B=4 4K ctx", (4, 8, 4, 128, 32, 128, 4, "channel", [32, 31, 30, 32], [5, 127, 64, 0]),
          (1, 3, "auto")),
@@ -678,21 +798,27 @@ def main() -> int:
         ("B=4 4K ctx, scores in the hundreds", (4, 8, 4, 128, 32, 128, 4, "channel",
                                                 [32, 31, 30, 32], [5, 127, 64, 0], 256.0),
          (1, 3, "auto")),
+        ("llama3-8b decode shape", llama, (1, 3, "auto")),
+        ("gemma-7b decode shape g=1 d=256", gemma, (1, 3, "auto")),
+        ("starcoder2-3b decode shape g=12", starcoder, (1, 3, "auto")),
+        ("command-r-35b g=8", (4, 8, 8, 128, 18, 128, 4, "channel", [14, 15, 16, 16],
+                               [108, 80, 2, 52]), (1, "auto")),
+        ("bits=2 block_n=64", (2, 4, 4, 64, 8, 64, 2, "tensor", [8, 5], [17, 64]), (1, 3, "auto")),
+        ("bits=8 block_n=64", (2, 4, 2, 128, 8, 64, 8, "channel", [6, 8], [64, 3]),
+         (1, 3, "auto")),
+        ("bits=4 block_n=32", (2, 4, 4, 64, 12, 32, 4, "channel", [12, 7], [31, 16]), (1, 3)),
+        ("fewer blocks than splits, pack_blocks 0 with res_len 0, full residuals",
+         (4, 8, 4, 128, 18, 128, 4, "channel", [1, 0, 2, 16], [0, 0, 128, 128]), (1, 3, 16, "auto")),
     ]
     for label, args, splits in decode_cases:
         case = decode_case(*args)
         kw = dict(bits=args[6], block_n=args[5], k_gran=args[7], return_lse=True)
-        out_r, lse_r = bd_ops.bitdecode_attention(**case, impl="torch", num_splits=1, **kw)
+        ref = bd_ops.bitdecode_attention(**case, impl="torch", num_splits=1, **kw)
         for ns in splits:
-            resolved = bd_ops.resolve_num_splits(ns, args[0], args[1], args[4], dev)
-            out_k, lse_k = bd_ops.bitdecode_attention(**case, impl="cuda", num_splits=ns, **kw)
-            note_err("bitdecode", out_k, out_r)
-            ok = (torch.allclose(out_k, out_r, rtol=2e-2, atol=2e-2)
-                  and torch.allclose(lse_k, lse_r, rtol=1e-3, atol=1e-3))
-            check(ok, f"bitdecode {label} num_splits={ns} (->{resolved}): max|dout| "
-                      f"{(out_k - out_r).abs().max().item():.2e} (max|out| "
-                      f"{out_r.abs().max().item():.2f}), max|dlse| "
-                      f"{(lse_k - lse_r).abs().max().item():.2e}")
+            resolved = splits_of(ns, *args[:8])
+            got = bd_ops.bitdecode_attention(**case, impl="cuda", num_splits=ns, **kw)
+            check_decode("bitdecode", f"{label} num_splits={ns} (->{resolved})", got, ref,
+                         args[8], args[9])
 
     def pools_of(case):
         """The case's dense [B, H, nb, ...] fields as pools [B * nb, H, ...]:
@@ -700,6 +826,7 @@ def main() -> int:
         return [case[f].movedim(2, 1).reshape(-1, *case[f].shape[1:2], *case[f].shape[3:])
                 .contiguous() for f in ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero")]
 
+    serve_lens = ([10, 20, 7, 13], [100, 60, 30, 90])
     paged_cases = [  # label, case args, table, split counts
         ("serve shapes", (4, 8, 4, 128, 32, 128, 4, "channel", [14, 20, 0, 32], [5, 127, 128, 0]),
          "scrambled", (1, 2, 5, 16, "auto")),
@@ -711,6 +838,18 @@ def main() -> int:
          (1, 4, 16)),
         ("smoke d=32 bits=4 tensor-K", (2, 2, 2, 32, 6, 64, 4, "tensor", [6, 0], [64, 33]),
          "scrambled", (1, 3, "auto")),
+        ("gemma-7b serve shapes g=1 d=256", (*gemma[:4], 32, *gemma[5:8], *serve_lens),
+         "scrambled", (1, 3, "auto")),
+        ("gemma-7b serve shapes g=1 d=256", (*gemma[:4], 32, *gemma[5:8], *serve_lens),
+         "identity", (1, "auto")),
+        ("starcoder2-3b serve shapes g=12", (*starcoder[:4], 32, *starcoder[5:8], *serve_lens),
+         "scrambled", (1, 3, "auto")),
+        ("starcoder2-3b serve shapes g=12", (*starcoder[:4], 32, *starcoder[5:8], *serve_lens),
+         "identity", (1, "auto")),
+        ("bits=2 block_n=64, fewer blocks than splits, an empty row",
+         (2, 4, 4, 64, 8, 64, 2, "tensor", [0, 1], [0, 64]), "scrambled", (1, 3, "auto")),
+        ("bits=8 block_n=64, full residual", (2, 4, 2, 128, 8, 64, 8, "channel", [8, 6], [64, 3]),
+         "scrambled", (1, 3)),
     ]
     for label, args, kind, splits in paged_cases:
         case = decode_case(*args)
@@ -723,24 +862,53 @@ def main() -> int:
         pargs = [case["q"], *pools, case["k_res"], case["v_res"], table, case["pack_blocks"],
                  case["res_len"]]
         kw = dict(bits=args[6], block_n=args[5], k_gran=args[7], return_lse=True)
-        out_r, lse_r = pg_ops.paged_bitdecode_attention(*pargs, impl="torch", num_splits=1, **kw)
+        ref = pg_ops.paged_bitdecode_attention(*pargs, impl="torch", num_splits=1, **kw)
         for ns in splits:
-            resolved = bd_ops.resolve_num_splits(ns, b, args[1], nb, dev)
-            out_k, lse_k = pg_ops.paged_bitdecode_attention(*pargs, impl="cuda", num_splits=ns,
-                                                            **kw)
-            note_err("paged_bitdecode", out_k, out_r)
-            ok = (torch.allclose(out_k, out_r, rtol=2e-2, atol=2e-2)
-                  and torch.allclose(lse_k, lse_r, rtol=1e-3, atol=1e-3))
-            check(ok, f"paged_bitdecode {label}, {kind} table, num_splits={ns} (->{resolved}): "
-                      f"max|dout| {(out_k - out_r).abs().max().item():.2e} (max|out| "
-                      f"{out_r.abs().max().item():.2f}), max|dlse| "
-                      f"{(lse_k - lse_r).abs().max().item():.2e}")
+            resolved = splits_of(ns, *args[:8])
+            got = pg_ops.paged_bitdecode_attention(*pargs, impl="cuda", num_splits=ns, **kw)
+            check_decode("paged_bitdecode", f"{label}, {kind} table, num_splits={ns} "
+                                            f"(->{resolved})", got, ref, args[8], args[9])
             if kind == "identity":  # one body with the dense kernel: bit for bit
                 out_d, lse_d = bd_ops.bitdecode_attention(**case, impl="cuda", num_splits=ns,
                                                           **kw)
-                check(torch.equal(out_k, out_d) and torch.equal(lse_k, lse_d),
+                check(torch.equal(got[0], out_d) and torch.equal(got[1], lse_d),
                       f"paged_bitdecode == bitdecode bit for bit, {label}, identity table, "
                       f"num_splits={ns}")
+
+    # one call on the card is at most two launches: the kernel, and the
+    # merge when it runs as more than one split
+    case = decode_case(*llama)
+    for name, ns, want in (("bitdecode", 1, {"bitdecode": 1}),
+                           ("bitdecode", "auto", {"bitdecode": 1, "bitdecode_merge": 1}),
+                           ("paged_bitdecode", "auto",
+                            {"paged_bitdecode": 1, "bitdecode_merge": 1})):
+        kw = dict(bits=BITS, block_n=BLOCK_N, k_gran="channel", num_splits=ns)
+        if name == "bitdecode":
+            call = lambda: bd_ops.bitdecode_attention(**case, **kw)  # noqa: E731
+        else:
+            ident = torch.arange(4 * 18, dtype=torch.int32, device=dev).reshape(4, 18)
+            call = lambda: pg_ops.paged_bitdecode_attention(  # noqa: E731
+                case["q"], *pools_of(case), case["k_res"], case["v_res"], ident,
+                case["pack_blocks"], case["res_len"], **kw)
+        call()
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        call()
+        check(dict(_build.launches) == want, f"one {name} call, num_splits={ns}: launches "
+                                             f"{dict(_build.launches)} (want {want})")
+    # the merge on its own against ref.merge_partials, with empty splits
+    for s_, rows, dv in ((8, (4, 8, 4), 128), (2, (4, 16, 1), 256), (16, (4, 2, 12), 128)):
+        o_p = torch.randn((s_, *rows, dv), generator=gen, device=dev)
+        l_p = 4.0 * torch.randn((s_, *rows), generator=gen, device=dev)
+        l_p[0] = -1e37  # an empty split
+        got = bd_ops.merge_cuda(o_p, l_p)
+        ref = bd_ref.merge_partials(o_p, l_p)
+        note_err("bitdecode_merge", got[0], ref[0])
+        check(torch.allclose(got[0], ref[0], rtol=1e-5, atol=1e-5)
+              and torch.allclose(got[1], ref[1], rtol=1e-5, atol=1e-5),
+              f"bitdecode_merge S={s_} rows={rows} d_v={dv}, an empty split: max|dout| "
+              f"{(got[0] - ref[0]).abs().max().item():.2e}, max|dlse| "
+              f"{(got[1] - ref[1]).abs().max().item():.2e}")
 
     n_pages = SERVE_SLOTS * (SERVE_MAX_SEQ // BLOCK_N) + SERVE_SLOTS  # the serve pool
     for bits in (2, 4, 8):
@@ -853,20 +1021,67 @@ def main() -> int:
     bound("residual_flush", n_res * 2 + n_res * BITS // 8 + 2 * 2 * b * h * (d + bn) + 8 * b,
           8 * n_res, F32_OPS_PER_S)
 
-    pb_main, rl_main = [14, 15, 16, 16], [108, 80, 2, 52]  # the prompts' split into blocks
-    q = randn(b, h, g, d)
-    bd = lambda impl: bd_ops.bitdecode_attention(  # noqa: E731
-        q, *packed, *res, ints(pb_main), ints(rl_main), bits=BITS, block_n=bn,
-        k_gran="channel", impl=impl)
-    stats["bitdecode"].update(ms=time_ms(lambda: bd("cuda")), plain_ms=time_ms(lambda: bd("torch")))
-    splits = bd_ops.resolve_num_splits("auto", b, h, nb, dev)
-    blocks = sum(pb_main) * h
-    tokens = h * (sum(pb_main) * bn + sum(rl_main))
-    bd_bytes = (blocks * (2 * npr * d * 4 + 2 * 2 * (d + bn))   # words + params
-                + 2 * b * h * bn * d * 2 + q.numel() * 2        # residual + q
-                + splits * b * h * g * (d + 1) * 4)             # partials
-    bound("bitdecode", bd_bytes, 2 * 2 * g * d * tokens, BF16_OPS_PER_S)
-    stats["bitdecode"]["num_splits"] = splits
+    def time_decode(key, paged, b, h, g, d, pb, rl, cache, table=None):
+        """One whole call of K3 / K4 (wrapper, kernel, merge) and its plain
+        version at these lengths; the lengths are on the card before the
+        timed calls, as the model's are."""
+        q_, res_ = randn(b, h, g, d), [randn(b, h, bn, d), randn(b, h, bn, d)]
+        pbt, rlt = ints(pb), ints(rl)
+        name, kw = ("paged_bitdecode" if paged else "bitdecode"), dict(
+            bits=BITS, block_n=bn, k_gran="channel")
+        if paged:
+            call = lambda impl: pg_ops.paged_bitdecode_attention(  # noqa: E731
+                q_, *cache, *res_, table, pbt, rlt, impl=impl, **kw)
+        else:
+            call = lambda impl: bd_ops.bitdecode_attention(  # noqa: E731
+                q_, *cache, *res_, pbt, rlt, impl=impl, **kw)
+        st = stats[name]
+        st[key + "ms"] = time_ms(lambda: call("cuda"))
+        st[key + "plain_ms"] = time_ms(lambda: call("torch"), iters=3)
+        nb_ = table.shape[1] if paged else cache[0].shape[2]
+        st[key + "num_splits"] = splits_of("auto", b, h, g, d, nb_, bn, BITS)
+        npr_ = bn * BITS // 32
+        nbytes = (sum(pb) * h * (2 * npr_ * d * 4 + 2 * 2 * (d + bn))  # valid words + params
+                  + sum(rl) * h * 2 * d * 2 + q_.numel() * 2           # valid residual + q
+                  + 8 * b + (4 * sum(pb) if paged else 0)              # lengths, table entries
+                  + b * h * g * (d + 1) * 4)                           # out + lse
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * 2 * g * d * h * (sum(pb) * bn + sum(rl)) / BF16_OPS_PER_S * 1e3
+        st[key + "bound_ms"] = max(t_bytes, t_ops)
+        st[key + "bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        st[key + "shape"] = dict(B=b, H_kv=h, g=g, d=d, nb=nb_, pack_blocks=pb, res_len=rl)
+        st[key + "share_of_bound"] = st[key + "bound_ms"] / st[key + "ms"]
+        log(f"  time {name} {key or 'llama3_'}{st[key + 'shape']}: call {st[key + 'ms'] * 1e3:.1f} us "
+            f"({st[key + 'num_splits']} splits, {st[key + 'share_of_bound']:.1%} of the bound), "
+            f"plain {st[key + 'plain_ms'] * 1e3:.1f} us, bound {st[key + 'bound_ms'] * 1e3:.2f} us "
+            f"({st[key + 'bound_by']})")
+
+    def decode_cache(paged, b, h, d, nb):
+        rows, n = (1, n_pages * bn) if paged else (b, nb * bn)
+        cache = [*kq_ops.quantize_kv(randn(rows, h, n, d), BITS, "channel", block_n=bn),
+                 *kq_ops.quantize_kv(randn(rows, h, n, d), BITS, "tensor", block_n=bn)]
+        return [x[0].movedim(1, 0).contiguous() for x in cache] if paged else cache
+
+    # the dense loop's cache after its prompts (pack_blocks 14/15/16/16 of
+    # nb 18), for llama3-8b and, cut at their prompts, gemma-7b and
+    # starcoder2-3b
+    pb_main, rl_main = [14, 15, 16, 16], [108, 80, 2, 52]
+    pb_fam, rl_fam = [8, 8, 9, 9], [104, 56, 126, 48]
+    time_decode("", False, b, h, g, d, pb_main, rl_main, packed)
+    for key, (b_, h_, g_, d_) in (("gemma_", (4, 16, 1, 256)), ("starcoder2_", (4, 2, 12, 128))):
+        nb_fam = -(-(max(FAMILY_PROMPT_LENS) + FAMILY_STEPS) // bn)
+        time_decode(key, False, b_, h_, g_, d_, pb_fam, rl_fam, decode_cache(False, b_, h_, d_, nb_fam))
+    # the merge alone at the llama3-8b call's split count
+    s_ = stats["bitdecode"]["num_splits"]
+    o_p = torch.randn((s_, b, h, g, d), generator=gen, device=dev)
+    l_p = 4.0 * torch.randn((s_, b, h, g), generator=gen, device=dev)
+    st = stats["bitdecode_merge"]
+    st["ms"] = time_ms(lambda: bd_ops.merge_cuda(o_p, l_p))
+    st["plain_ms"] = time_ms(lambda: bd_ref.merge_partials(o_p, l_p))
+    bound("bitdecode_merge", (s_ + 1) * b * h * g * (d + 1) * 4, 3 * s_ * b * h * g * d,
+          F32_OPS_PER_S)
+    st["shape"] = dict(S=s_, B=b, H_kv=h, g=g, d_v=d)
+    st["share_of_bound"] = st["bound_ms"] / st["ms"]
 
     # the paged kernels at the serve phase's shapes: its pool, a scrambled
     # table, the block counts of a mid-run decode step
@@ -885,21 +1100,11 @@ def main() -> int:
                                                     block_n=bn, k_gran="channel", impl=impl))
     bound("paged_residual_flush", n_res * 2 + n_res * BITS // 8 + 2 * 2 * b * h * (d + bn)
           + 8 * b, 8 * n_res, F32_OPS_PER_S)
-    pb_serve, rl_serve = [10, 20, 7, 13], [100, 60, 30, 90]
-    pgd = lambda impl: pg_ops.paged_bitdecode_attention(  # noqa: E731
-        q, *pool, *res, table, ints(pb_serve), ints(rl_serve), bits=BITS, block_n=bn,
-        k_gran="channel", impl=impl)
-    stats["paged_bitdecode"].update(ms=time_ms(lambda: pgd("cuda")),
-                                    plain_ms=time_ms(lambda: pgd("torch")))
-    splits = bd_ops.resolve_num_splits("auto", b, h, nb_max, dev)
-    blocks = sum(pb_serve) * h
-    tokens = h * (sum(pb_serve) * bn + sum(rl_serve))
-    pg_bytes = (blocks * (2 * npr * d * 4 + 2 * 2 * (d + bn))   # words + params
-                + sum(pb_serve) * 4 + 8 * b                     # table entries, lengths
-                + 2 * b * h * bn * d * 2 + q.numel() * 2        # residual + q
-                + splits * b * h * g * (d + 1) * 4)             # partials
-    bound("paged_bitdecode", pg_bytes, 2 * 2 * g * d * tokens, BF16_OPS_PER_S)
-    stats["paged_bitdecode"]["num_splits"] = splits
+    pb_serve, rl_serve = [10, 20, 7, 13], [100, 60, 30, 90]  # a mid-run decode step
+    time_decode("", True, b, h, g, d, pb_serve, rl_serve, pool, table)
+    for key, (b_, h_, g_, d_) in (("gemma_", (4, 16, 1, 256)), ("starcoder2_", (4, 2, 12, 128))):
+        time_decode(key, True, b_, h_, g_, d_, pb_serve, rl_serve,
+                    decode_cache(True, b_, h_, d_, nb_max), table)
     # flash_prefill at the dense prefills' shapes (llama3-8b in phase 3,
     # gemma-7b in phase 5) and at long context (llama3-8b, one 8,192-token
     # prompt), in the model's [B, S, H, d] layout, beside PyTorch's
@@ -1003,7 +1208,7 @@ def main() -> int:
             "library_us": None if "library_ms" not in st else st["library_ms"] * 1e3,
             **{k: v for k, v in st.items() if k in ("ms_no_flush", "plain_ms_no_flush",
                                                     "num_splits", "shape")
-               or k.startswith(("gemma_", "long_"))
+               or k.startswith(("gemma_", "long_", "starcoder2_"))
                or k in ("tflops", "share_of_bound", "vs_library")},
         })
     total_s = time.perf_counter() - t_start

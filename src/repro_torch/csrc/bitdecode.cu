@@ -1,62 +1,129 @@
 // Fused low-bit flash-decode attention with split-KV over the dense cache
-// (the paper's Packing Kernel): unpack + dequantize the packed K/V blocks,
-// QK^T and PV with bf16 operands and f32 accumulation, online softmax; the
-// last split also takes the bf16 residual masked by res_len[b].  Each split
-// writes its normalised partial (o, lse); the wrapper merges splits by
-// logsumexp.  The body is bitdecode_body.cuh, shared with the paged kernel.
+// (the paper's Packing Kernel), and the logsumexp merge of its splits.
 //
 // Replaces: src/repro/kernels/bitdecode/kernel.py `bitdecode_attention_pallas`
-//           (`_body`, `make_flash_update`, `dequant_tile`, `finalize`).
+//           (`_body`, `make_flash_update`, `dequant_tile`, `finalize`) and its
+//           XLA epilogue `merge_partials`.
 // Bound on the H100: bytes.  A decode step reads every valid packed word
-// once; at g = 4 query rows per KV head the work is about 4 multiply-adds per
-// dequantized element, far below the card's operations-per-byte balance.
-// Design: one CTA of 128 threads per (b, h_kv, split), looping over the
-// split's blocks (the TPU grid's sequential axis becomes this loop).  Words
-// are read coalesced along channels, unpacked (shift, mask), dequantized with
-// an f32 FMA rounded to bf16 exactly as `dequant_tile` does, and stored in
-// shared memory: K row-major with a 2-element row pad (conflict-free
-// per-token dot products), V row-major (one thread per value channel).
-// Scores and PV run on the CUDA cores; P is rounded to bf16 before PV as on
-// the MXU.  The split axis supplies parallelism when B * H_kv underfills the
-// 132 SMs.  No cp.async / TMA pipelining and no tensor cores yet.
+// once; at g <= 16 query rows per KV head the work is at most 2 * g
+// multiply-adds per dequantized element, far below the card's
+// operations-per-byte balance.  What stands between the kernel and that
+// bound is latency (dependent loads, few warps) and the dequantization's
+// instructions, not the products.
+// Design (bitdecode_body.cuh): the row's packed blocks and residual are cut
+// into units of a few KB and spread over num_splits CTAs of 4 warps; each
+// warp keeps its next unit's words, scales and zeros in flight with cp.async
+// into a two-stage ring while it dequantizes the current one on the CUDA
+// cores straight into mma.sync fragments (QK^T and PV on the tensor cores,
+// one token permutation shared by both).  The split count is a function of
+// the shapes alone, so a launch can be captured in a CUDA graph; which units
+// a warp takes is read from the row's own pack_blocks and res_len on the
+// device.  The warps of a CTA merge in shared memory; the splits merge in
+// bitdecode_merge_kernel, the call's only other launch.
 #include "bitdecode_body.cuh"
 
-__global__ void __launch_bounds__(BD_THREADS) bitdecode_kernel(
-    const bf16* __restrict__ q, const int32_t* __restrict__ kw,
-    const bf16* __restrict__ ks, const bf16* __restrict__ kz,
-    const int32_t* __restrict__ vw, const bf16* __restrict__ vs,
-    const bf16* __restrict__ vz, const bf16* __restrict__ k_res,
-    const bf16* __restrict__ v_res, const int32_t* __restrict__ pack_blocks,
-    const int32_t* __restrict__ res_len, float* __restrict__ o_part,
-    float* __restrict__ lse_part, int B, int H, int g, int dk, int dv, int nb,
-    int block_n, int res_n, int bits, int k_channel, int num_splits, int bps,
-    float sm_scale) {
+template <int BITS, int W, int DK, int DV, int NT, bool KCH>
+__global__ void __launch_bounds__(BD_THREADS) bitdecode_kernel(const BdArgs a) {
   // block j of row (b, h) is cell (b * H + h) * nb + j of [B, H, nb, ...]
-  const long long row = (long long)blockIdx.x * nb;
-  bitdecode_body(q, kw, ks, kz, vw, vs, vz, k_res, v_res, pack_blocks, res_len,
-                 o_part, lse_part, B, H, g, dk, dv, nb, block_n, res_n, bits,
-                 k_channel, num_splits, bps, sm_scale,
-                 [row](int j) { return row + j; });
+  const long long row = (long long)blockIdx.x * a.nb;
+  bitdecode_body<BITS, W, DK, DV, NT, KCH>(a, [row](int j) { return row + j; });
+}
+
+// Merge of the splits' partials o [S, rows, dv], lse [S, rows] (rows =
+// B * H * g) into out [rows, dv], lse [rows], as ref.merge_partials: splits
+// with lse ~ -1e37 (no valid token) get weight 0.  A CTA per row; the S
+// weights go through shared memory once.
+__global__ void __launch_bounds__(128) bitdecode_merge_kernel(
+    const float* __restrict__ o_part, const float* __restrict__ lse_part,
+    float* __restrict__ out, float* __restrict__ lse, int S, int rows, int dv) {
+  extern __shared__ float w_s[];  // [S]
+  const int row = blockIdx.x, tid = threadIdx.x;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the partials are written
+  for (int s = tid; s < S; s += blockDim.x) w_s[s] = lse_part[(size_t)s * rows + row];
+  __syncthreads();
+  float m = w_s[0];
+  for (int s = 1; s < S; ++s) m = fmaxf(m, w_s[s]);
+  __syncthreads();
+  for (int s = tid; s < S; s += blockDim.x) w_s[s] = expf(w_s[s] - m);
+  __syncthreads();
+  float den = 0.f;
+  for (int s = 0; s < S; ++s) den += w_s[s];
+  den = fmaxf(den, 1e-30f);
+  for (int c = tid; c < dv; c += blockDim.x) {
+    float acc = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < S; ++s) acc += w_s[s] * o_part[((size_t)s * rows + row) * dv + c];
+    out[(size_t)row * dv + c] = acc / den;
+  }
+  if (tid == 0) lse[row] = m + logf(den);
 }
 
 extern "C" int bitdecode_launch(
-    const void* q, const void* kw, const void* ks, const void* kz,
-    const void* vw, const void* vs, const void* vz, const void* k_res,
-    const void* v_res, const void* pack_blocks, const void* res_len,
-    void* o_part, void* lse_part, int B, int H, int g, int dk, int dv, int nb,
-    int block_n, int res_n, int bits, int k_channel, int num_splits, int bps,
+    const void* q, const void* kw, const void* ks, const void* kz, const void* vw,
+    const void* vs, const void* vz, const void* k_res, const void* v_res,
+    const void* pack_blocks, const void* res_len, void* out, void* lse, int B, int H, int g,
+    int dk, int dv, int nb, int block_n, int res_n, int bits, int k_channel, int num_splits,
     float sm_scale, void* stream) {
   if (B * H == 0) return 0;
-  const size_t smem = bitdecode_smem_bytes(g, dk, dv, block_n, res_n);
-  static size_t configured = 48 * 1024;
-  cudaError_t err = allow_smem(bitdecode_kernel, smem, &configured);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * H, num_splits);
-  bitdecode_kernel<<<grid, BD_THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const int32_t*)kw, (const bf16*)ks, (const bf16*)kz,
-      (const int32_t*)vw, (const bf16*)vs, (const bf16*)vz, (const bf16*)k_res,
-      (const bf16*)v_res, (const int32_t*)pack_blocks, (const int32_t*)res_len,
-      (float*)o_part, (float*)lse_part, B, H, g, dk, dv, nb, block_n, res_n,
-      bits, k_channel, num_splits, bps, sm_scale);
-  return (int)cudaGetLastError();
+  if (dv != dk) return (int)cudaErrorInvalidValue;
+  const BdArgs a{(const bf16*)q, (const int32_t*)kw, (const bf16*)ks, (const bf16*)kz,
+                 (const int32_t*)vw, (const bf16*)vs, (const bf16*)vz, (const bf16*)k_res,
+                 (const bf16*)v_res, (const int32_t*)pack_blocks, (const int32_t*)res_len,
+                 (float*)out, (float*)lse, B, H, g, nb, block_n, res_n, num_splits, sm_scale};
+  const dim3 grid(B * H, num_splits);
+  return (int)bd_dispatch(
+      bits, bd_unit_rows(block_n, bits), dk, g > 8 ? 2 : 1, k_channel,
+      [&](auto bi, auto w, auto d, auto nt, auto kch) {
+        constexpr int BI = decltype(bi)::value, WW = decltype(w)::value;
+        constexpr int D = decltype(d)::value, NT = decltype(nt)::value;
+        constexpr bool KCH = decltype(kch)::value;
+        constexpr int SMEM = BdShape<BI, WW, D, D, NT>::SMEM;
+        static bool done = false;
+        cudaError_t err = bd_allow_smem(bitdecode_kernel<BI, WW, D, D, NT, KCH>, SMEM, &done);
+        if (err != cudaSuccess) return err;
+        bitdecode_kernel<BI, WW, D, D, NT, KCH>
+            <<<grid, BD_THREADS, SMEM, (cudaStream_t)stream>>>(a);
+        return cudaGetLastError();
+      });
+}
+
+// CTAs of the instance for (g, d, block_n, bits, k_channel) resident on one SM (what
+// the wrapper's "auto" split count fills), or minus a CUDA error.
+extern "C" int bitdecode_ctas_per_sm(int g, int d, int block_n, int bits, int k_channel) {
+  int n = 0;
+  const cudaError_t err = bd_dispatch(
+      bits, bd_unit_rows(block_n, bits), d, g > 8 ? 2 : 1, k_channel,
+      [&](auto bi, auto w, auto dd, auto nt, auto kch) {
+        constexpr int BI = decltype(bi)::value, WW = decltype(w)::value;
+        constexpr int D = decltype(dd)::value, NT = decltype(nt)::value;
+        constexpr bool KCH = decltype(kch)::value;
+        constexpr int SMEM = BdShape<BI, WW, D, D, NT>::SMEM;
+        static bool done = false;
+        cudaError_t e = bd_allow_smem(bitdecode_kernel<BI, WW, D, D, NT, KCH>, SMEM, &done);
+        if (e != cudaSuccess) return e;
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, bitdecode_kernel<BI, WW, D, D, NT, KCH>, BD_THREADS, SMEM);
+      });
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+extern "C" int bitdecode_merge_launch(const void* o_part, const void* lse_part, void* out,
+                                      void* lse, int S, int rows, int dv, void* stream) {
+  if (rows == 0) return 0;
+  // a programmatic dependent launch: its CTAs start as the decode kernel's
+  // last ones do and wait on the device, not behind a launch on the host
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(rows);
+  cfg.blockDim = dim3(128);
+  cfg.dynamicSmemBytes = S * sizeof(float);
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, bitdecode_merge_kernel, (const float*)o_part,
+                                             (const float*)lse_part, (float*)out, (float*)lse, S,
+                                             rows, dv);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -41,9 +41,10 @@ _SIGNATURES = {
     "kv_quant": ("kv_quant_launch", [_P, _L, _L, _L, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _P]),
     "residual_flush": ("residual_flush_launch", [_P] * 10 + [_I] * 8 + [_P]),
-    "bitdecode": ("bitdecode_launch", [_P] * 13 + [_I] * 12 + [_F, _P]),
+    "bitdecode": ("bitdecode_launch", [_P] * 13 + [_I] * 11 + [_F, _P]),
+    "bitdecode_merge": ("bitdecode_merge_launch", [_P] * 4 + [_I] * 3 + [_P]),
     "paged_residual_flush": ("paged_residual_flush_launch", [_P] * 10 + [_I] * 8 + [_P]),
-    "paged_bitdecode": ("paged_bitdecode_launch", [_P] * 14 + [_I] * 13 + [_F, _P]),
+    "paged_bitdecode": ("paged_bitdecode_launch", [_P] * 14 + [_I] * 12 + [_F, _P]),
     "flash_prefill": ("flash_prefill_launch", [_P] * 5 + [_I] * 5 + [_L] * 12
                       + [_I, _F, _I, _P]),
 }
@@ -92,6 +93,8 @@ def build() -> ctypes.CDLL:
     lib.repro_error_string.restype = ctypes.c_char_p
     lib.flash_prefill_smem_bytes.argtypes = [ctypes.c_int]
     lib.flash_prefill_smem_bytes.restype = ctypes.c_int
+    lib.bitdecode_ctas_per_sm.argtypes = [ctypes.c_int] * 5
+    lib.bitdecode_ctas_per_sm.restype = ctypes.c_int
     _lib = lib
     build_seconds = time.perf_counter() - t0
     return lib

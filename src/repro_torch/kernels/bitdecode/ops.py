@@ -1,19 +1,34 @@
 """Entry point of the fused low-bit decode attention: the split-KV CUDA kernel
-(``csrc/bitdecode.cu``) followed by the logsumexp merge, or the plain PyTorch
-version (``ref.py``).
+(``csrc/bitdecode.cu``) and, with more than one split, its merge kernel, or
+the plain PyTorch version (``ref.py``).
 
-``num_splits="auto"`` splits the packed-block axis only when ``B x H_kv``
-underfills the card's streaming multiprocessors and every split still owns at
-least 2 packed blocks: the long-context, small-batch regime of the paper.
+A call on the card is at most two launches: the kernel writes the result
+when it runs as one split, else per-split partials that
+``bitdecode_merge`` combines by logsumexp.  The kernel cuts each row's
+packed blocks and residual into units (:func:`work_units`) and spreads them
+over ``num_splits`` CTAs of :data:`WARPS` warps; ``num_splits="auto"``
+sizes the splits from the cache's capacity and the CTAs the card holds at
+once (:func:`auto_num_splits`).
+The split count depends on the shapes alone, never on the lengths, so a
+row's result depends only on its own data and the launch shape.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitdecode import ref as _ref
 
-_MAX_SPLITS = 16
+_MAX_SPLITS = 64
+WARPS = 4              # warps a CTA (BD_WARPS in csrc/bitdecode_body.cuh)
+RES_TOKENS = 8         # bf16 tokens a residual unit (BD_RES_TOKENS)
+UNITS_PER_WARP = 2     # "auto": the units a warp takes from a full row
+WAVES = 2              # "auto": at most this many waves of resident CTAs
+HEAD_DIMS = (32, 64, 128, 256)
+BLOCK_NS = (32, 64, 128)
+MAX_G = 16
 
 
 def sm_count(device) -> int:
@@ -24,57 +39,135 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def auto_num_splits(b: int, h_kv: int, nb: int, *, cores: int) -> int:
-    """1 unless B * H_kv underfills ``cores`` and the packed sequence is long
-    enough for every split to own >= 2 blocks."""
-    if b * h_kv >= cores or nb < 4:
-        return 1
-    want = -(-cores // (b * h_kv))
-    return max(1, min(want, nb // 2, _MAX_SPLITS))
+def unit_rows(block_n: int, bits: int) -> int:
+    """Word rows of a packed unit (bd_unit_rows in the kernel)."""
+    return min(block_n * bits // 32, 4)
 
 
-def resolve_num_splits(num_splits, b: int, h_kv: int, nb: int, device) -> int:
+def work_units(nb: int, block_n: int, bits: int, res_n: int) -> int:
+    """The most units a row can hold: every packed block's and a full
+    residual's."""
+    return nb * (block_n * bits // 32 // unit_rows(block_n, bits)) + -(-res_n // RES_TOKENS)
+
+
+def auto_num_splits(b: int, h_kv: int, units: int, *, ctas: int) -> int:
+    """Splits that give each warp of a full row about UNITS_PER_WARP of its
+    ``units``, within WAVES waves of the card's ``ctas`` resident CTAs.  A
+    CTA whose share of a shorter row is empty writes its empty partial and
+    leaves at once, so rows of unequal length balance over the card."""
+    want = -(-units // (WARPS * UNITS_PER_WARP))
+    return max(1, min(want, WAVES * ctas // (b * h_kv), _MAX_SPLITS))
+
+
+def check_kernel_shapes(*, g: int, d_k: int, d_v: int, block_n: int, bits: int, npr: int,
+                        res_n: int) -> None:
+    """Raise ValueError for what the kernel has no instance for."""
+    if npr * 32 != block_n * bits:
+        raise ValueError(f"{npr} packed word rows do not match bits={bits}, block_n={block_n}")
+    if bits not in (2, 4, 8) or block_n not in BLOCK_NS:
+        raise ValueError(f"the CUDA decode kernel takes bits 2, 4 or 8 and block_n in "
+                         f"{BLOCK_NS}, got bits={bits}, block_n={block_n}")
+    if d_k not in HEAD_DIMS or d_v != d_k:
+        raise ValueError(f"the CUDA decode kernel takes d_k = d_v in {HEAD_DIMS}, got "
+                         f"d_k={d_k}, d_v={d_v}")
+    if not 1 <= g <= MAX_G:
+        raise ValueError(f"the CUDA decode kernel takes 1 to {MAX_G} query rows per KV head, "
+                         f"got g={g}")
+    if res_n % RES_TOKENS:
+        raise ValueError(f"the residual's length {res_n} is not a multiple of {RES_TOKENS}")
+
+
+@functools.lru_cache(maxsize=None)
+def ctas_per_sm(g: int, d: int, block_n: int, bits: int, k_channel: bool) -> int:
+    """CTAs of the kernel's instance that one SM holds at once."""
+    n = _build.build().bitdecode_ctas_per_sm(g, d, block_n, bits, int(k_channel))
+    if n <= 0:
+        raise RuntimeError(f"bitdecode occupancy query failed (cudaError {-n})")
+    return n
+
+
+def resolve_num_splits(num_splits, b: int, h_kv: int, units: int, device, *, g: int = 1,
+                       d: int = 128, block_n: int = 128, bits: int = 4,
+                       k_channel: bool = True) -> int:
+    """The kernel's split count: an explicit integer as given, ``"auto"``
+    from the card's SMs and the instance's occupancy (1 off the card)."""
     if num_splits in (None, "auto"):
-        return auto_num_splits(b, h_kv, nb, cores=sm_count(device))
+        if torch.device(device).type != "cuda":
+            return 1
+        ctas = sm_count(device) * ctas_per_sm(g, d, block_n, bits, k_channel)
+        return auto_num_splits(b, h_kv, units, ctas=ctas)
     s = int(num_splits)
     if s < 1:
         raise ValueError(f"num_splits must be >= 1, got {num_splits}")
-    return max(1, min(s, nb)) if nb else 1
+    return s
 
 
-def bitdecode_partials_cuda(q, kw, k_scale, k_zero, vw, v_scale, v_zero,
-                            k_res, v_res, pack_blocks, res_len, *, bits: int,
-                            block_n: int, sm_scale: float, k_gran: str,
-                            num_splits: int):
-    """Launch the kernel: per-split partials (o [S, B, H, g, d_v] f32,
-    lse [S, B, H, g] f32)."""
+def kernel_operand(t, what: str):
+    """``t`` as the kernel reads it: contiguous and 16-byte aligned."""
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"the CUDA decode kernel takes contiguous, 16-byte aligned {what}")
+    return t
+
+
+def launch_decode(name: str, q, arrays, ints, *, d_v: int, num_splits: int, sm_scale: float):
+    """Launch kernel ``name`` (its C entry point takes q, ``arrays``, out,
+    lse, B, H, g, ``ints``, num_splits, sm_scale, stream) and, with more than
+    one split, the merge.  Returns (out [B, H, g, d_v] f32, lse [B, H, g] f32)."""
+    b, h, g, _ = q.shape
+    dev = q.device
+    out = torch.empty((b, h, g, d_v), dtype=torch.float32, device=dev)
+    lse = torch.empty((b, h, g), dtype=torch.float32, device=dev)
+    if num_splits == 1:
+        o_part, l_part = out, lse
+    else:
+        o_part = torch.empty((num_splits, b, h, g, d_v), dtype=torch.float32, device=dev)
+        l_part = torch.empty((num_splits, b, h, g), dtype=torch.float32, device=dev)
+    stream = _build.stream_of(q)
+    _build.launch(name, q.data_ptr(), *(t.data_ptr() for t in arrays), o_part.data_ptr(),
+                  l_part.data_ptr(), b, h, g, *ints, num_splits, float(sm_scale), stream)
+    if num_splits > 1:
+        merge_cuda(o_part, l_part, out, lse)
+    return out, lse
+
+
+def merge_cuda(o_parts, lse_parts, out=None, lse=None):
+    """The merge kernel on CUDA partials o [S, ..., d_v], lse [S, ...] (f32,
+    contiguous): what ``ref.merge_partials`` computes, in one launch."""
+    if out is None:
+        out = torch.empty(o_parts.shape[1:], dtype=torch.float32, device=o_parts.device)
+        lse = torch.empty(lse_parts.shape[1:], dtype=torch.float32, device=o_parts.device)
+    _build.launch("bitdecode_merge", o_parts.data_ptr(), lse_parts.data_ptr(), out.data_ptr(),
+                  lse.data_ptr(), o_parts.shape[0], lse_parts[0].numel(), o_parts.shape[-1],
+                  _build.stream_of(o_parts))
+    return out, lse
+
+
+def query_operand(q):
+    """q as bf16, contiguous and 16-byte aligned (copied only if it is not)."""
+    q = q.to(torch.bfloat16).contiguous()
+    return q if q.data_ptr() % 16 == 0 else q.clone()
+
+
+def bitdecode_cuda(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, pack_blocks,
+                   res_len, *, bits: int, block_n: int, sm_scale: float, k_gran: str,
+                   num_splits):
+    """The kernel (and merge) on CUDA tensors: (out, lse)."""
     b, h, g, d_k = q.shape
     nb, npr = kw.shape[2], kw.shape[3]
-    d_v = vw.shape[-1]
-    res_n = k_res.shape[2]
-    if npr * 32 != block_n * bits:
-        raise ValueError(f"packed words {kw.shape} do not match bits={bits}, block_n={block_n}")
-    if d_k % 2:
-        raise ValueError(f"d_k={d_k} must be even")
-    arrays = [q.to(torch.bfloat16).contiguous(), kw, k_scale, k_zero, vw,
-              v_scale, v_zero, k_res, v_res]
-    if any(not t.is_contiguous() for t in arrays):
-        raise ValueError("the CUDA decode kernel takes contiguous cache arrays")
+    d_v, res_n = vw.shape[-1], k_res.shape[2]
+    check_kernel_shapes(g=g, d_k=d_k, d_v=d_v, block_n=block_n, bits=bits, npr=npr,
+                        res_n=res_n)
     if any(t.dtype != torch.bfloat16 for t in (k_scale, v_scale, k_res, v_res)):
         raise ValueError("the CUDA decode kernel takes bf16 params and residuals")
-    pb = pack_blocks.to(torch.int32).contiguous()
-    rl = res_len.to(torch.int32).contiguous()
-    num_splits = max(1, min(num_splits, nb))
-    bps = -(-nb // num_splits)
-    o = torch.empty((num_splits, b, h, g, d_v), dtype=torch.float32, device=q.device)
-    lse = torch.empty((num_splits, b, h, g), dtype=torch.float32, device=q.device)
-    _build.launch(
-        "bitdecode", *(t.data_ptr() for t in arrays), pb.data_ptr(), rl.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), b, h, g, d_k, d_v, nb, block_n, res_n,
-        bits, int(k_gran == "channel"), num_splits, bps, float(sm_scale),
-        _build.stream_of(q),
-    )
-    return o, lse
+    arrays = [kernel_operand(t, "cache arrays") for t in (kw, k_scale, k_zero, vw, v_scale,
+                                                         v_zero, k_res, v_res)]
+    arrays += [pack_blocks.to(torch.int32).contiguous(), res_len.to(torch.int32).contiguous()]
+    splits = resolve_num_splits(num_splits, b, h, work_units(nb, block_n, bits, res_n),
+                                q.device, g=g, d=d_k, block_n=block_n, bits=bits,
+                                k_channel=k_gran == "channel")
+    return launch_decode("bitdecode", query_operand(q), arrays,
+                         (d_k, d_v, nb, block_n, res_n, bits, int(k_gran == "channel")),
+                         d_v=d_v, num_splits=splits, sm_scale=sm_scale)
 
 
 def bitdecode_attention(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res,
@@ -94,8 +187,7 @@ def bitdecode_attention(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res,
     ``num_splits="auto"`` to 1 (splitting multiplies its work); explicit
     integers are honoured.
     """
-    b, h, g, d_k = q.shape
-    nb = kw.shape[2]
+    d_k = q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / (d_k**0.5)
     if draft_bits is not None and draft_bits >= bits:
@@ -105,26 +197,18 @@ def bitdecode_attention(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res,
     if impl == "cuda" and (shared_kv or draft_bits is not None):
         raise ValueError("shared_kv and draft_bits have no CUDA kernel; pass impl='torch' "
                          "for the plain version")
-    if num_splits in (None, "auto") and impl == "torch":
-        num_splits = 1
-    else:
-        num_splits = resolve_num_splits(num_splits, b, h, nb, q.device)
-
     if impl == "torch":
         out, lse = _ref.bitdecode_attention_ref(
             q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res,
             pack_blocks, res_len, bits=bits, block_n=block_n, sm_scale=sm_scale,
-            k_gran=k_gran, shared_kv=shared_kv, d_v=d_v, num_splits=num_splits,
+            k_gran=k_gran, shared_kv=shared_kv, d_v=d_v,
+            num_splits=resolve_num_splits(num_splits, 1, 1, 1, "cpu"),  # "auto": 1
             draft_bits=draft_bits,
         )
     else:
-        o_parts, lse_parts = bitdecode_partials_cuda(
+        out, lse = bitdecode_cuda(
             q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res,
             pack_blocks, res_len, bits=bits, block_n=block_n, sm_scale=sm_scale,
             k_gran=k_gran, num_splits=num_splits,
         )
-        if o_parts.shape[0] == 1:
-            out, lse = o_parts[0], lse_parts[0]
-        else:
-            out, lse = _ref.merge_partials(o_parts, lse_parts)
     return (out, lse) if return_lse else out

@@ -1,10 +1,12 @@
 """Entry point of the paged low-bit decode attention (the paper's Page
-setting): the split-KV CUDA kernel (``csrc/paged_bitdecode.cu``) followed by
-the logsumexp merge, or the plain PyTorch version (``ref.py``).
+setting): the split-KV CUDA kernel (``csrc/paged_bitdecode.cu``) and, with
+more than one split, the dense kernel's merge (``bitdecode_merge``), or the
+plain PyTorch version (``ref.py``).
 
 The split count resolves as the dense wrapper's does, over the page table's
-width (``page_table.shape[1]``): a step's work and its split boundaries then
-depend on the table's shape alone, not on how full any row is.
+width (``page_table.shape[1]``): a step's launch shape depends on the
+table's shape alone, not on how full any row is; the kernel cuts each row's
+work by that row's own lengths on the device.
 """
 from __future__ import annotations
 
@@ -12,47 +14,33 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitdecode import ops as bd_ops
-from repro_torch.kernels.bitdecode import ref as bd_ref
 from repro_torch.kernels.paged_bitdecode import ref as _ref
 
 
-def paged_bitdecode_partials_cuda(q, kw_pool, k_scale_pool, k_zero_pool,
-                                  vw_pool, v_scale_pool, v_zero_pool, k_res,
-                                  v_res, page_table, pack_blocks, res_len, *,
-                                  bits: int, block_n: int, sm_scale: float,
-                                  k_gran: str, num_splits: int):
-    """Launch the kernel: per-split partials (o [S, B, H, g, d_v] f32,
-    lse [S, B, H, g] f32)."""
+def paged_bitdecode_cuda(q, kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool,
+                         v_zero_pool, k_res, v_res, page_table, pack_blocks, res_len, *,
+                         bits: int, block_n: int, sm_scale: float, k_gran: str, num_splits):
+    """The kernel (and merge) on CUDA tensors: (out, lse)."""
     b, h, g, d_k = q.shape
     n_pages, _, npr, _ = kw_pool.shape
     nb_max = page_table.shape[1]
-    d_v = vw_pool.shape[-1]
-    res_n = k_res.shape[2]
-    if npr * 32 != block_n * bits:
-        raise ValueError(f"packed words {kw_pool.shape} do not match bits={bits}, "
-                         f"block_n={block_n}")
-    if d_k % 2:
-        raise ValueError(f"d_k={d_k} must be even")
-    arrays = [q.to(torch.bfloat16).contiguous(), kw_pool, k_scale_pool, k_zero_pool,
-              vw_pool, v_scale_pool, v_zero_pool, k_res, v_res]
-    if any(not t.is_contiguous() for t in arrays):
-        raise ValueError("the CUDA decode kernel takes contiguous pools and residuals")
+    d_v, res_n = vw_pool.shape[-1], k_res.shape[2]
+    bd_ops.check_kernel_shapes(g=g, d_k=d_k, d_v=d_v, block_n=block_n, bits=bits, npr=npr,
+                               res_n=res_n)
     if any(t.dtype != torch.bfloat16 for t in (k_scale_pool, v_scale_pool, k_res, v_res)):
         raise ValueError("the CUDA decode kernel takes bf16 params and residuals")
-    table = page_table.to(torch.int32).contiguous()
-    pb = pack_blocks.to(torch.int32).contiguous()
-    rl = res_len.to(torch.int32).contiguous()
-    num_splits = max(1, min(num_splits, nb_max))
-    bps = -(-nb_max // num_splits)
-    o = torch.empty((num_splits, b, h, g, d_v), dtype=torch.float32, device=q.device)
-    lse = torch.empty((num_splits, b, h, g), dtype=torch.float32, device=q.device)
-    _build.launch(
-        "paged_bitdecode", *(t.data_ptr() for t in arrays), table.data_ptr(),
-        pb.data_ptr(), rl.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, g, d_k,
-        d_v, nb_max, n_pages, block_n, res_n, bits, int(k_gran == "channel"),
-        num_splits, bps, float(sm_scale), _build.stream_of(q),
-    )
-    return o, lse
+    arrays = [bd_ops.kernel_operand(t, "pools and residuals") for t in (
+        kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool, k_res, v_res)]
+    arrays += [page_table.to(torch.int32).contiguous(), pack_blocks.to(torch.int32).contiguous(),
+               res_len.to(torch.int32).contiguous()]
+    units = bd_ops.work_units(nb_max, block_n, bits, res_n)
+    splits = bd_ops.resolve_num_splits(num_splits, b, h, units, q.device, g=g, d=d_k,
+                                       block_n=block_n, bits=bits,
+                                       k_channel=k_gran == "channel")
+    return bd_ops.launch_decode(
+        "paged_bitdecode", bd_ops.query_operand(q), arrays,
+        (d_k, d_v, nb_max, n_pages, block_n, res_n, bits, int(k_gran == "channel")),
+        d_v=d_v, num_splits=splits, sm_scale=sm_scale)
 
 
 def paged_bitdecode_attention(q, kw_pool, k_scale_pool, k_zero_pool, vw_pool,
@@ -73,8 +61,7 @@ def paged_bitdecode_attention(q, kw_pool, k_scale_pool, k_zero_pool, vw_pool,
     the caller asks for ``impl='torch'``.  The plain version resolves
     ``num_splits="auto"`` to 1; explicit integers are honoured.
     """
-    b, h, g, d_k = q.shape
-    nb_max = page_table.shape[1]
+    d_k = q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / (d_k**0.5)
     if draft_bits is not None and draft_bits >= bits:
@@ -85,26 +72,18 @@ def paged_bitdecode_attention(q, kw_pool, k_scale_pool, k_zero_pool, vw_pool,
     if impl == "cuda" and (shared_kv or draft_bits is not None):
         raise ValueError("shared_kv and draft_bits have no CUDA kernel; pass impl='torch' "
                          "for the plain version")
-    if num_splits in (None, "auto") and impl == "torch":
-        num_splits = 1
-    else:
-        num_splits = bd_ops.resolve_num_splits(num_splits, b, h, nb_max, q.device)
-
     if impl == "torch":
         out, lse = _ref.paged_bitdecode_attention_ref(
             q, kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool,
             k_res, v_res, page_table, pack_blocks, res_len, bits=bits, block_n=block_n,
             sm_scale=sm_scale, k_gran=k_gran, shared_kv=shared_kv, d_v=d_v,
-            num_splits=num_splits, draft_bits=draft_bits,
+            num_splits=bd_ops.resolve_num_splits(num_splits, 1, 1, 1, "cpu"),  # "auto": 1
+            draft_bits=draft_bits,
         )
     else:
-        o_parts, lse_parts = paged_bitdecode_partials_cuda(
+        out, lse = paged_bitdecode_cuda(
             q, kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool,
             k_res, v_res, page_table, pack_blocks, res_len, bits=bits, block_n=block_n,
             sm_scale=sm_scale, k_gran=k_gran, num_splits=num_splits,
         )
-        if o_parts.shape[0] == 1:
-            out, lse = o_parts[0], lse_parts[0]
-        else:
-            out, lse = bd_ref.merge_partials(o_parts, lse_parts)
     return (out, lse) if return_lse else out

@@ -92,7 +92,30 @@ DECODE_CASES = [  # (g, d, block_n, bits, k_gran, pack_blocks, res_len, q_scale)
     (4, 128, 128, 4, "channel", [4, 3], [0, 100], 1.0),
     (4, 128, 128, 8, "tensor", [2, 4], [1, 127], 1.0),
     (4, 128, 128, 4, "channel", [4, 3], [9, 100], 256.0),  # scores in the hundreds
+    (8, 128, 128, 4, "channel", [3, 4], [60, 16], 1.0),  # command-r-35b's g
+    (12, 128, 128, 4, "tensor", [4, 2], [127, 33], 1.0),  # starcoder2-3b's g
+    (1, 256, 128, 4, "channel", [4, 3], [100, 7], 1.0),  # gemma-7b's head
+    (2, 64, 64, 2, "channel", [4, 2], [20, 64], 1.0),  # 4 word rows a block
+    (4, 64, 64, 8, "tensor", [3, 4], [64, 1], 1.0),
+    (4, 128, 128, 4, "channel", [1, 4], [0, 50], 1.0),  # a row with fewer blocks than splits
+    (4, 128, 128, 4, "tensor", [0, 3], [0, 40], 1.0),  # pack_blocks 0 with res_len 0
+    (2, 128, 128, 2, "channel", [2, 4], [128, 128], 1.0),  # full residuals
 ]
+
+
+def _live(pb, rl):
+    """Rows with at least one valid token.  A row with none has no defined
+    attention: the kernel gives it o = 0 and lse ~ -1e37, as it gives an
+    empty split; the plain version a uniform softmax over masked slots."""
+    return torch.tensor([p > 0 or r > 0 for p, r in zip(pb, rl)])
+
+
+def _assert_decode_close(out_k, lse_k, out_r, lse_r, pb, rl):
+    live = _live(pb, rl)
+    assert out_r[live].abs().amax() > 0.5  # the tolerance is small beside the output
+    torch.testing.assert_close(out_k[live], out_r[live], rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse_k[live], lse_r[live], rtol=1e-3, atol=1e-3)
+    assert not out_k[~live].any() and (lse_k[~live] < -1e36).all()
 
 
 def _decode_args(gen, device, g, d, block_n, bits, k_gran, pb, rl, q_scale):
@@ -120,9 +143,7 @@ def test_bitdecode_kernel_matches_plain(cuda, case, num_splits):
     )
     out_k, lse_k = fn(impl="cuda", num_splits=num_splits)
     out_r, lse_r = fn(impl="torch", num_splits=1)
-    assert out_r.abs().amax() > 0.5  # the tolerance is small beside the output
-    torch.testing.assert_close(out_k, out_r, rtol=2e-2, atol=2e-2)
-    torch.testing.assert_close(lse_k, lse_r, rtol=1e-3, atol=1e-3)
+    _assert_decode_close(out_k, lse_k, out_r, lse_r, case[5], case[6])
 
 
 def test_plain_only_options_raise_on_the_card(cuda):
@@ -292,6 +313,11 @@ PAGED_CASES = [  # (g, d, block_n, bits, k_gran, pack_blocks, res_len)
     (4, 128, 128, 2, "tensor", [0, 6], [128, 1]),  # a row with no packed block
     (4, 128, 128, 8, "channel", [6, 6], [0, 127]),
     (2, 32, 64, 4, "tensor", [2, 6], [5, 64]),
+    (8, 128, 128, 4, "channel", [6, 1], [0, 128]),  # fewer blocks than splits, full residual
+    (12, 128, 128, 8, "tensor", [3, 5], [90, 16]),
+    (1, 256, 128, 4, "channel", [2, 6], [128, 33]),
+    (2, 64, 64, 2, "channel", [6, 2], [33, 0]),
+    (4, 32, 64, 8, "tensor", [5, 0], [64, 0]),  # pack_blocks 0 with res_len 0
 ]
 
 
@@ -312,9 +338,7 @@ def test_paged_bitdecode_kernel_matches_plain(cuda, case, num_splits):
                            bits=bits, block_n=block_n, k_gran=k_gran, return_lse=True)
     out_k, lse_k = fn(impl="cuda", num_splits=num_splits)
     out_r, lse_r = fn(impl="torch", num_splits=1)
-    assert out_r.abs().amax() > 0.5
-    torch.testing.assert_close(out_k, out_r, rtol=2e-2, atol=2e-2)
-    torch.testing.assert_close(lse_k, lse_r, rtol=1e-3, atol=1e-3)
+    _assert_decode_close(out_k, lse_k, out_r, lse_r, pb, rl)
 
 
 @pytest.mark.parametrize("case", DECODE_CASES)
@@ -333,6 +357,49 @@ def test_paged_bitdecode_equals_bitdecode_on_identity_table(cuda, case, num_spli
     out_p, lse_p = pg_ops.paged_bitdecode_attention(q, *_pools(packed), k_res, v_res,
                                                     table, pb, rl, **kw)
     assert torch.equal(out_p, out_d) and torch.equal(lse_p, lse_d)
+
+
+@pytest.mark.parametrize("num_splits", [1, 3, "auto"])
+def test_decode_call_is_at_most_two_launches(cuda, num_splits):
+    """One kernel launch, and the merge's when there is more than one
+    split: nothing else on the card (pack_blocks and res_len already int32)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, *packed, k_res, v_res, pb, rl = _decode_args(gen, cuda, *DECODE_CASES[2])
+    b, nb = q.shape[0], packed[0].shape[2]
+    table = torch.arange(b * nb, dtype=torch.int32, device=cuda).reshape(b, nb)
+    kw = dict(bits=4, block_n=128, k_gran="channel", num_splits=num_splits)
+    for name, call in (("bitdecode", lambda: bd_ops.bitdecode_attention(
+            q, *packed, k_res, v_res, pb, rl, **kw)),
+                       ("paged_bitdecode", lambda: pg_ops.paged_bitdecode_attention(
+            q, *_pools(packed), k_res, v_res, table, pb, rl, **kw))):
+        call()  # the occupancy query and the build happen once, before
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        call()
+        launched = dict(_build.launches)
+        assert launched.get(name) == 1 and sum(launched.values()) <= 2, launched
+        if num_splits == 1:
+            assert launched == {name: 1}
+        if num_splits == 3:
+            assert launched == {name: 1, "bitdecode_merge": 1}
+
+
+@pytest.mark.parametrize("change", [dict(g=17), dict(d=48), dict(d=96)])
+def test_decode_kernel_refuses_shapes_it_has_no_instance_for(cuda, change):
+    """g above one tile's 16 rows, or a head dim outside 32, 64, 128, 256:
+    ValueError from the wrapper, before any launch."""
+    g, d = change.get("g", 4), change.get("d", 128)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    args = _decode_args(gen, cuda, g, d, 64, 4, "channel", [2, 1], [3, 4], 1.0)
+    q, packed, res, lens = args[0], args[1:7], args[7:9], args[9:]
+    table = torch.arange(8, dtype=torch.int32, device=cuda).reshape(2, 4)
+    _build.launches.clear()
+    with pytest.raises(ValueError, match="the CUDA decode kernel takes"):
+        bd_ops.bitdecode_attention(*args, bits=4, block_n=64, impl="cuda")
+    with pytest.raises(ValueError, match="the CUDA decode kernel takes"):
+        pg_ops.paged_bitdecode_attention(q, *_pools(packed), *res, table, *lens, bits=4,
+                                         block_n=64, impl="cuda")
+    assert not _build.launches
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])

@@ -140,10 +140,49 @@ def test_bitdecode_plain_matches_jax(case, num_splits):
 
 def test_auto_splits_resolve_to_one_on_cpu():
     assert bd_ops.resolve_num_splits("auto", 1, 8, 256, "cpu") == 1
-    # on a card with 132 SMs: B=1, H_kv=8 at 32K context splits 16 ways
-    assert bd_ops.auto_num_splits(1, 8, 256, cores=132) == 16
-    assert bd_ops.auto_num_splits(4, 8, 18, cores=132) == 5
-    assert bd_ops.auto_num_splits(64, 8, 256, cores=132) == 1
+    assert bd_ops.resolve_num_splits(3, 1, 8, 256, "cpu") == 3
+    with pytest.raises(ValueError, match="num_splits"):
+        bd_ops.resolve_num_splits(0, 1, 8, 256, "cpu")
+    # a full row of units gets UNITS_PER_WARP units a warp, within WAVES
+    # waves of the card's resident CTAs (here 528: 132 SMs, four each)
+    assert (bd_ops.WARPS, bd_ops.UNITS_PER_WARP, bd_ops.WAVES) == (4, 2, 2)
+    units_32k = bd_ops.work_units(256, 128, 4, 128)  # B=1, H_kv=8 at 32K context
+    assert units_32k == 256 * 4 + 16
+    assert bd_ops.auto_num_splits(1, 8, units_32k, ctas=528) == 64  # the cap
+    # the dense loop's shape: 18 blocks of 4 units and 16 residual units
+    units_dense = bd_ops.work_units(18, 128, 4, 128)
+    assert bd_ops.auto_num_splits(4, 8, units_dense, ctas=528) == 11
+    # large batch: two waves of CTAs at most
+    assert bd_ops.auto_num_splits(64, 8, units_32k, ctas=528) == 2
+    assert bd_ops.auto_num_splits(128, 8, units_32k, ctas=528) == 1
+    assert bd_ops.auto_num_splits(1, 1, 9, ctas=528) == 2
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("block_n", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_decode_kernel_units_cover_every_block(bits, block_n, d):
+    """A packed unit is 2 or 4 word rows of one block: every block splits
+    into whole units of whole 16-token tiles, and the residual into units of
+    8 tokens."""
+    npr = block_n * bits // 32
+    rows = bd_ops.unit_rows(block_n, bits)
+    assert rows in (2, 4) and npr % rows == 0 and rows * (32 // bits) % 16 == 0
+    assert rows == min(npr, 4)
+    assert bd_ops.work_units(3, block_n, bits, block_n) == 3 * npr // rows + block_n // 8
+    bd_ops.check_kernel_shapes(g=12, d_k=d, d_v=d, block_n=block_n, bits=bits, npr=npr,
+                               res_n=block_n)
+
+
+@pytest.mark.parametrize("change, match", [
+    (dict(g=17), "query rows"), (dict(g=0), "query rows"), (dict(d_k=96, d_v=96), "d_k = d_v"),
+    (dict(d_v=64), "d_k = d_v"), (dict(bits=3, npr=12), "bits 2, 4 or 8"),
+    (dict(block_n=256, npr=32), "block_n"), (dict(block_n=16, npr=2), "block_n"), (dict(npr=8), "packed word rows"),
+    (dict(res_n=68), "multiple of 8")])
+def test_decode_kernel_shape_check_raises(change, match):
+    shape = dict(g=4, d_k=128, d_v=128, block_n=128, bits=4, npr=16, res_n=128) | change
+    with pytest.raises(ValueError, match=match):
+        bd_ops.check_kernel_shapes(**shape)
 
 
 # --------------------------------------------------------- no silent fallback
