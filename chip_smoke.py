@@ -15,7 +15,11 @@ Phases:
      (cuobjdump; the checks fail if any is 0);
   2. every CUDA kernel against its plain PyTorch version on the card
      (kv_quant, residual_flush and paged_residual_flush bit for bit, with
-     the pages a paged flush must not touch unchanged; bitdecode and
+     the pages a paged flush must not touch unchanged; the flush kernel's
+     append mode, the decode step's whole cache update, dense and paged,
+     over 384 consecutive steps at d 128 and 256, bits 2, 4, 8 and both K
+     granularities, rows filling on different steps, one masked every
+     fourth step, every array compared after every step; bitdecode and
      paged_bitdecode within out 2e-2 / lse 1e-3, over scrambled and
      identity page tables, at the decode shapes of llama3-8b, gemma-7b,
      starcoder2-3b and command-r-35b, bits 2, 4, 8, block_n 32-128, rows
@@ -27,7 +31,11 @@ Phases:
      row to 2,100 across every edge of its 64-row warpgroups and 128-row KV
      tiles, causal and full, both layouts and head slices of a fused QKV
      buffer), then timed with CUDA events at the main paths' shapes beside
-     its bound (bytes / 3.35 TB/s vs operations / peak rate): bitdecode and
+     its bound (bytes / 3.35 TB/s vs operations / peak rate): the flush
+     kernel in both modes on a step that flushes every row and on one that
+     flushes none, beside its plain version, the unfused step it replaced
+     and an empty kernel (the launch floor), at llama3-8b's and gemma-7b's
+     decode caches; bitdecode and
      paged_bitdecode as whole calls (merge included) at the three decode
      shapes, flash_prefill also at long context (one 8,192-token prompt)
      and beside PyTorch's ``scaled_dot_product_attention`` (the yardstick;
@@ -39,14 +47,16 @@ Phases:
      once with the plain versions split three ways along the cache (a
      different summation order: the fidelity floor of two correct
      implementations), all fed the plain run's token stream; then the
-     device time of three decode steps by kernel (torch.profiler);
+     device time and the count of device kernels of three decode steps
+     (torch.profiler), with the fused append and with the unfused one;
   4. the serving path end to end: the same model behind ``ServeEngine``
      (4 slots, max_seq 4096), ten staggered requests with a shared prefix
      and a copy-on-write pair, all on the kernels: (a) worst-case
      reservations with prefix sharing, (b) an oversubscribed pool that
      preempts, bit for bit equal to (a), (c) no prefix sharing, (d) the
      dense kernel path fed (c)'s token streams, within the decode tolerance
-     of (c)'s logits; every run audited every cycle;
+     of (c)'s logits; every run audited every cycle; then three engine
+     cycles of four decoding slots under the profiler, as in phase 3;
   5. gemma-7b at full width and depth (28 layers, head_dim 256, 16/16
      heads, GeGLU, (1 + w) RMSNorm, tied scaled embeddings): the dense loop
      as in phase 3 (plain vs kernels, every row flushing), then runs (a) and
@@ -71,7 +81,9 @@ check fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import gc
 import itertools
 import json
@@ -91,6 +103,7 @@ BLOCK_N, BITS = 128, 4
 PROMPT_LENS = (1900, 2000, 2050, 2100)
 DECODE_STEPS = 160
 WITNESS_STEPS = 32
+APPEND_STEPS = 384  # phase 2's append-mode runs: every row flushes at least twice
 
 KERNELS = {
     "kv_quant": dict(source="src/repro_torch/csrc/kv_quant.cu",
@@ -355,13 +368,13 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
             f"greedy agreement {f['greedy_agreement']:.3f}; max |dlogit| "
             f"{f['max_abs_dlogit']:.3f}")
     prof = device_profile(model, params, tokens, lengths)
-    log(f"  {name} device time a decode step (torch.profiler, 3 steps): all kernels "
-        f"{prof['all_ms_per_step']:.3f} ms, decode attention + merge "
-        f"{prof['decode_attention_ms_per_step']:.3f} ms, flush {prof['flush_ms_per_step']:.3f} "
-        f"ms, of {prof['wall_ms_per_step_profiled']:.2f} ms a step under the profiler")
+    log_profile(f"{name} decode step", prof)
     if prof["all_ms_per_step"] > 0:  # else the profiler saw no device time: not measured
         check(prof["decode_attention_ms_per_step"] > 0,
               f"{name}: the profiler saw the decode attention's kernels on the card")
+        check(prof["kernels_per_step"] < prof["unfused"]["kernels_per_step"],
+              f"{name}: the fused append takes fewer device kernels a decode step "
+              f"({prof['kernels_per_step']:.0f} vs {prof['unfused']['kernels_per_step']:.0f})")
     report = {"prefill_s": {"plain": pre_p, "kernels": pre_k}, "device_profile": prof,
               "decode_ms_per_step": {"plain": step_p * 1e3, "kernels": step_k * 1e3},
               "tokens_per_s": {"plain": b / step_p, "kernels": b / step_k},
@@ -372,42 +385,127 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
     return report
 
 
-def device_profile(model, params, tokens, lengths, steps=3) -> dict:
-    """Device time of ``steps`` decode steps on the kernels, from a fresh
-    prefill of the same prompts: torch.profiler, each kernel's own time
-    summed by name.  Returns ms a step for all kernels,
-    for the decode attention (bitdecode / paged_bitdecode and the merge) and
-    the flush, beside the steps' wall time under the profiler."""
+@contextlib.contextmanager
+def unfused_appends():
+    """Route the caches' decode appends through the parent's unfused step:
+    the kernel's mode "flush" with the torch ops around it (the plain append
+    with the kernel as its flush), to count and time what the fused append
+    replaced."""
+    from repro_torch.kernels.residual_flush import ops, ref
+
+    saved = ops.append_flush, ops.paged_append_flush
+
+    def unfused(plain, flush):
+        return lambda *a, impl="auto", **kw: plain(*a, flush=functools.partial(flush, impl=impl),
+                                                   **kw)
+
+    ops.append_flush = unfused(ref.append_flush_ref, ops.residual_flush)
+    ops.paged_append_flush = unfused(ref.paged_append_flush_ref, ops.paged_residual_flush)
+    try:
+        yield
+    finally:
+        ops.append_flush, ops.paged_append_flush = saved
+
+
+def profile_steps(step, steps) -> dict:
+    """torch.profiler over ``steps`` calls of ``step()``: each kernel's own
+    time summed by name.  Returns ms a step for all kernels, for the decode
+    attention (bitdecode / paged_bitdecode and the merge) and the flush (the
+    whole fused append; in the unfused step only its flush), the device
+    kernels a step (the profiler's count of device events), beside the
+    steps' wall time under the profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
-        logits, state = model.prefill(params, {"tokens": tokens}, tokens.shape[1] + steps + 1,
-                                      lengths=lengths)
-        logits, state = model.decode_step(params, state, logits[:, -1].argmax(-1)[:, None])
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                logits, state = model.decode_step(params, state, logits[:, -1].argmax(-1)[:, None])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     by_kind = {"all": 0.0, "decode_attention": 0.0, "flush": 0.0}
+    kernels = 0
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:  # the kernels' own rows, not the ops'
             continue
         us = getattr(ev, "self_device_time_total", None)
         us = getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
         by_kind["all"] += us
+        kernels += ev.count
         if "bitdecode" in ev.key:
             by_kind["decode_attention"] += us
         elif "residual_flush" in ev.key:
             by_kind["flush"] += us
     out = {f"{k}_ms_per_step": v / steps / 1e3 for k, v in by_kind.items()}
+    out["kernels_per_step"] = kernels / steps
     out["wall_ms_per_step_profiled"] = wall / steps * 1e3
     out["device_busy_share"] = by_kind["all"] / 1e3 / (wall * 1e3) if wall else None
     return out
+
+
+def device_profile(model, params, tokens, lengths, steps=3) -> dict:
+    """:func:`profile_steps` over ``steps`` decode steps on the kernels, from
+    a fresh prefill of the same prompts; with the fused append and (key
+    ``unfused``) with the parent's unfused append."""
+    import torch
+
+    def run():
+        with torch.no_grad():
+            logits, state = model.prefill(params, {"tokens": tokens},
+                                          tokens.shape[1] + steps + 1, lengths=lengths)
+            state = {"state": state, "tok": logits[:, -1].argmax(-1)[:, None]}
+
+            def step():
+                logits, state["state"] = model.decode_step(params, state["state"], state["tok"])
+                state["tok"] = logits[:, -1].argmax(-1)[:, None]
+            step()
+            torch.cuda.synchronize()
+            return profile_steps(step, steps)
+
+    out = run()
+    with unfused_appends():
+        out["unfused"] = run()
+    return out
+
+
+def serve_profile(model, params, cfg, dev, steps=3) -> dict:
+    """:func:`profile_steps` over ``steps`` engine cycles in steady decode:
+    four of the serve workload's unrelated prompts on the four slots, all
+    prefilled before the window; with the fused append and (key
+    ``unfused``) with the parent's unfused append."""
+    from repro_torch.serve import Request, ServeEngine
+
+    work = serve_workload(cfg.vocab)
+
+    def run():
+        engine = ServeEngine(model, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                             device=dev)
+        for uid in (1, 2, 3, 9):
+            engine.submit(Request(uid=uid, prompt=work[uid][1], max_new_tokens=work[uid][2]))
+        for _ in range(8):  # admission and prefill, then one decode cycle
+            engine.step()
+            if len(engine.sched.active) == SERVE_SLOTS:
+                break
+        engine.step()
+        if len(engine.sched.active) != SERVE_SLOTS:
+            raise RuntimeError(f"serve_profile: {len(engine.sched.active)} slots decoding")
+        return profile_steps(engine.step, steps)
+
+    out = run()
+    with unfused_appends():
+        out["unfused"] = run()
+    return out
+
+
+def log_profile(what, prof) -> None:
+    for p, how in ((prof, "fused append"), (prof["unfused"], "the parent's unfused append")):
+        log(f"  {what}, {how} (torch.profiler, 3 steps): {p['kernels_per_step']:.0f} device "
+            f"kernels a step; all kernels {p['all_ms_per_step']:.3f} ms, decode attention + "
+            f"merge {p['decode_attention_ms_per_step']:.3f} ms, flush "
+            f"{p['flush_ms_per_step']:.3f} ms, of {p['wall_ms_per_step_profiled']:.2f} ms a step "
+            "under the profiler")
 
 
 def bitwise(a, b):
@@ -638,6 +736,7 @@ def main() -> int:
     from repro_torch.kernels.kv_quant import ops as kq_ops
     from repro_torch.kernels.paged_bitdecode import ops as pg_ops
     from repro_torch.kernels.residual_flush import ops as rf_ops
+    from repro_torch.kernels.residual_flush import ref as rf_ref
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: full f32
@@ -933,6 +1032,64 @@ def main() -> int:
                   f"paged_residual_flush bitwise P={n_pages} bits={bits} {gran}, mixed full, "
                   "dest past P-1; every other page unchanged")
 
+    # residual_flush's append mode (the decode step's cache update) against
+    # its plain version over APPEND_STEPS consecutive steps, dense and
+    # paged (a scrambled table), every array and length compared after
+    # every step: rows start at different res_len so they fill on different
+    # steps, row 3 is masked every fourth step, every row flushes twice or
+    # more; then every block or page the run did not flush into is unchanged
+    def append_run(paged, h, d, bits, gran):
+        b, bn, nb = 4, BLOCK_N, 6
+        name = "paged_residual_flush" if paged else "residual_flush"
+        arrays = [*kq_ops.quantize_kv(randn(b, h, nb * bn, d), bits, gran, block_n=bn),
+                  *kq_ops.quantize_kv(randn(b, h, nb * bn, d), bits, "tensor", block_n=bn)]
+        lens = [ints([0, 1, 0, 2]), ints([5, 60, 127, 90]), ints([0] * b)]
+        if paged:  # pools of 8 pages a row, pages [0, b) the scratch pages
+            arrays = [x.movedim(2, 1).reshape(-1, *x.shape[1:2], *x.shape[3:]) for x in arrays]
+            arrays = [torch.cat([x, x[:2 * b]]).contiguous() for x in arrays]
+            table = (b + torch.randperm(8 * b - b, generator=gen, device=dev)[:6 * b]
+                     ).reshape(b, 6).to(torch.int32)
+            lens = [table, *lens]
+        arrays += [randn(b, h, bn, d), randn(b, h, bn, d)]
+        twin = [x.clone() for x in arrays + lens]
+        start = [x.clone() for x in arrays + lens]
+        fn = rf_ops.paged_append_flush if paged else rf_ops.append_flush
+        kw = dict(bits=bits, block_n=bn, k_gran=gran)
+        bad_step = None
+        for step in range(APPEND_STEPS):
+            k_new = randn(b, 1, h, d).transpose(1, 2)  # the model's strided views
+            v_new = randn(b, 1, 2 * h, d)[:, :, h:].transpose(1, 2)
+            mask = torch.tensor([True, True, True, step % 4 != 3], device=dev)
+            fn(*arrays, k_new, v_new, *lens, mask=mask, impl="cuda", **kw)
+            fn(*twin[:8], k_new, v_new, *twin[8:], mask=mask, impl="torch", **kw)
+            if bad_step is None and not all(bitwise(x, y) for x, y in zip(arrays + lens, twin)):
+                bad_step = step
+        for o, r in zip(arrays + lens, twin):
+            note_err(name, o, r)
+        pb_s, pb_e = start[-3].tolist(), lens[-3].tolist()
+        flushed = [e - s_ for s_, e in zip(pb_s, pb_e)]
+        kept = []  # packed fields: every block / page no flush wrote
+        for i in range(6):
+            x, x0 = arrays[i], start[i]
+            if paged:
+                written = {int(table[r, min(j, 5)]) for r in range(b) for j in range(pb_s[r], pb_e[r])}
+                keep = [p for p in range(x.shape[0]) if p not in written]
+                kept.append(bitwise(x[keep], x0[keep]))
+            else:
+                kept += [bitwise(x[r, :, :pb_s[r]], x0[r, :, :pb_s[r]])
+                         and bitwise(x[r, :, pb_e[r]:], x0[r, :, pb_e[r]:]) for r in range(b)]
+        check(bad_step is None and min(flushed) >= 2 and all(kept) and not lens[-1].any(),
+              f"{name} append mode bitwise over {APPEND_STEPS} steps B={b} H={h} d={d} "
+              f"bits={bits} {gran}{', scrambled table' if paged else ''}, row 3 masked every "
+              f"fourth step: flushes {flushed}, first differing step {bad_step}, untouched "
+              f"{'pages' if paged else 'blocks'} unchanged {all(kept)}, counter back at 0")
+
+    for paged in (False, True):
+        for h, d in ((8, 128), (16, 256)):
+            for bits in (2, 4, 8):
+                for gran in ("channel", "tensor"):
+                    append_run(paged, h, d, bits, gran)
+
     # flash_prefill over head dims x query heads per KV head x causal, S
     # cycling through shorter than a tile, ragged and aligned, both layouts;
     # per-channel V offsets keep the output O(1) beside the tolerance
@@ -980,13 +1137,17 @@ def main() -> int:
     # the events bracket device work only, not Python launch gaps
     scrub = torch.empty(64 * 2**20, dtype=torch.int8, device=dev)  # > the 50 MB L2
 
-    def time_ms(fn, iters=10):
+    def time_ms(fn, iters=10, prep=lambda: None):
+        """``prep`` runs before each call, outside the timed pair (the
+        append's lengths reset to the state timed)."""
+        prep()
         fn()
         torch.cuda.synchronize()
         torch.cuda._sleep(200_000_000)  # ~0.1 s: enough for the host to queue all
         pairs = []
         for _ in range(iters):
             scrub.zero_()
+            prep()
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
             fn()
@@ -1012,14 +1173,6 @@ def main() -> int:
     packed = [*kq_ops.quantize_kv(randn(b, h, nb * bn, d), BITS, "channel", block_n=bn),
               *kq_ops.quantize_kv(randn(b, h, nb * bn, d), BITS, "tensor", block_n=bn)]
     res = [randn(b, h, bn, d), randn(b, h, bn, d)]
-    dest = ints([14, 15, 16, 16])
-    for full, key in ((ints([1] * b), ""), (ints([0] * b), "_no_flush")):
-        for impl, field in (("cuda", "ms"), ("torch", "plain_ms")):
-            stats["residual_flush"][field + key] = time_ms(lambda: rf_ops.residual_flush(
-                *packed, *res, full, dest, bits=BITS, block_n=bn, k_gran="channel", impl=impl))
-    n_res = 2 * b * h * bn * d
-    bound("residual_flush", n_res * 2 + n_res * BITS // 8 + 2 * 2 * b * h * (d + bn) + 8 * b,
-          8 * n_res, F32_OPS_PER_S)
 
     def time_decode(key, paged, b, h, g, d, pb, rl, cache, table=None):
         """One whole call of K3 / K4 (wrapper, kernel, merge) and its plain
@@ -1091,20 +1244,73 @@ def main() -> int:
     pool = [x[0].movedim(1, 0).contiguous() for x in pool]
     table = (b + torch.randperm(n_pages - b, generator=gen, device=dev)[:b * nb_max]
              ).reshape(b, nb_max).to(torch.int32)
-    flush_dest = table[:, 12].contiguous()
-    for full, key in ((ints([1] * b), ""), (ints([0] * b), "_no_flush")):
-        dest_ = flush_dest if key == "" else ints(list(range(b)))
-        for impl, field in (("cuda", "ms"), ("torch", "plain_ms")):
-            stats["paged_residual_flush"][field + key] = time_ms(
-                lambda: rf_ops.paged_residual_flush(*pool, *res, full, dest_, bits=BITS,
-                                                    block_n=bn, k_gran="channel", impl=impl))
-    bound("paged_residual_flush", n_res * 2 + n_res * BITS // 8 + 2 * 2 * b * h * (d + bn)
-          + 8 * b, 8 * n_res, F32_OPS_PER_S)
     pb_serve, rl_serve = [10, 20, 7, 13], [100, 60, 30, 90]  # a mid-run decode step
     time_decode("", True, b, h, g, d, pb_serve, rl_serve, pool, table)
     for key, (b_, h_, g_, d_) in (("gemma_", (4, 16, 1, 256)), ("starcoder2_", (4, 2, 12, 128))):
         time_decode(key, True, b_, h_, g_, d_, pb_serve, rl_serve,
                     decode_cache(True, b_, h_, d_, nb_max), table)
+
+    def time_flush(paged, h, d, key):
+        """K2 / K5 at one model's decode cache (B 4, 4-bit, channel K, the
+        phase-3 cache or the serve pool and a scrambled table): mode
+        "append" (the decode step's whole cache update), its plain version,
+        the parent's unfused step (mode "flush" plus the torch ops around
+        it) and mode "flush" alone, on a step where every row flushes and on
+        one where none does, beside the bound.  The lengths are reset before
+        each timed call."""
+        name = "paged_residual_flush" if paged else "residual_flush"
+        st, bn = stats[name], BLOCK_N
+        arrays = decode_cache(paged, b, h, d, nb) + [randn(b, h, bn, d), randn(b, h, bn, d)]
+        pb0 = ints(pb_serve if paged else pb_main)
+        lens = [pb0.clone(), ints([0] * b), ints([0] * b)]
+        lens = [table, *lens] if paged else lens
+        k_new = randn(b, 1, h, d).transpose(1, 2)  # the model's strided views
+        v_new = randn(b, 1, 2 * h, d)[:, :, h:].transpose(1, 2)
+        kw = dict(bits=BITS, block_n=bn, k_gran="channel")
+        fused = rf_ops.paged_append_flush if paged else rf_ops.append_flush
+        flush_mode = rf_ops.paged_residual_flush if paged else rf_ops.residual_flush
+        unfused = functools.partial(rf_ref.paged_append_flush_ref if paged else
+                                    rf_ref.append_flush_ref,
+                                    flush=functools.partial(flush_mode, impl="cuda"))
+        for rl, sfx in ((bn - 1, ""), (5, "_no_flush")):
+            def prep(rl=rl):
+                lens[-3].copy_(pb0)
+                lens[-2].fill_(rl)
+            for field, call in (("ms", functools.partial(fused, impl="cuda")),
+                                ("plain_ms", functools.partial(fused, impl="torch")),
+                                ("unfused_ms", unfused)):
+                st[key + field + sfx] = time_ms(
+                    lambda: call(*arrays, k_new, v_new, *lens, **kw), prep=prep)
+            full = ints([int(rl == bn - 1)] * b)
+            dest = (table[:, 12].contiguous() if sfx == "" else ints(list(range(b)))
+                    ) if paged else pb0
+            st[key + "flush_mode_ms" + sfx] = time_ms(
+                lambda: flush_mode(*arrays[:8], full, dest, impl="cuda", **kw))
+        n_res, tok = 2 * b * h * bn * d, 2 * 2 * b * h * d * 2  # new tokens in, rows out
+        t_bytes = (n_res * 2 + n_res * BITS // 8 + 2 * 2 * b * h * (d + bn) + tok + 16 * b
+                   + (4 * b if paged else 0)) / HBM_BYTES_PER_S * 1e3
+        t_ops = 8 * n_res / F32_OPS_PER_S * 1e3
+        st[key + "bound_ms"] = max(t_bytes, t_ops)
+        st[key + "bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        st[key + "bound_ms_no_flush"] = (tok + 16 * b) / HBM_BYTES_PER_S * 1e3
+        st[key + "launch_floor_ms"] = floor_ms
+        st[key + "shape"] = dict(B=b, H_kv=h, d=d, bits=BITS, block_n=bn, k_gran="channel",
+                                 **({"P": arrays[0].shape[0], "nb_max": table.shape[1]} if paged
+                                    else {"nb": nb}), pack_blocks=pb0.tolist())
+        log(f"  time {name} {key or 'llama3_'}{st[key + 'shape']}: append mode "
+            f"{st[key + 'ms'] * 1e3:.1f} us a flush step / {st[key + 'ms_no_flush'] * 1e3:.1f} "
+            f"without (plain {st[key + 'plain_ms'] * 1e3:.1f} / "
+            f"{st[key + 'plain_ms_no_flush'] * 1e3:.1f}; the parent's unfused step "
+            f"{st[key + 'unfused_ms'] * 1e3:.1f} / {st[key + 'unfused_ms_no_flush'] * 1e3:.1f}); "
+            f"mode flush {st[key + 'flush_mode_ms'] * 1e3:.1f} / "
+            f"{st[key + 'flush_mode_ms_no_flush'] * 1e3:.1f}; bound "
+            f"{st[key + 'bound_ms'] * 1e3:.2f} ({st[key + 'bound_by']}) / "
+            f"{st[key + 'bound_ms_no_flush'] * 1e3:.3f} us; launch floor {floor_ms * 1e3:.1f} us")
+
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0))  # an empty kernel: the launch floor
+    for paged in (False, True):
+        for key, (h_, d_) in (("", (h, d)), ("gemma_", (16, 256))):
+            time_flush(paged, h_, d_, key)
     # flash_prefill at the dense prefills' shapes (llama3-8b in phase 3,
     # gemma-7b in phase 5) and at long context (llama3-8b, one 8,192-token
     # prompt), in the model's [B, S, H, d] layout, beside PyTorch's
@@ -1143,10 +1349,6 @@ def main() -> int:
         if name != "flash_prefill":  # its shapes are printed above
             log(f"  time {name}: kernel {st['ms'] * 1e3:.1f} us, plain {st['plain_ms'] * 1e3:.1f} "
                 f"us, bound {st['bound_ms'] * 1e3:.2f} us ({st['bound_by']})")
-    for name in ("residual_flush", "paged_residual_flush"):
-        log(f"  {name} on a step without a flush: kernel "
-            f"{stats[name]['ms_no_flush'] * 1e3:.1f} us, plain "
-            f"{stats[name]['plain_ms_no_flush'] * 1e3:.1f} us")
     del scrub, packed, res, x, pool
 
     # ------------------------------------------------------------ 3. end to end
@@ -1158,6 +1360,8 @@ def main() -> int:
     # ------------------------------------------------------------ 4. serve
     log("== 4. serve: llama3-8b behind the paged engine, full width and depth")
     serve = serve_phase(model, params, cfg, check, dev)
+    serve["report"]["device_profile"] = serve_profile(model, params, cfg, dev)
+    log_profile("serve engine cycle, 4 slots decoding", serve["report"]["device_profile"])
     launches.update({k: v for k, v in serve["launches"].items() if k not in DENSE_PATH})
     for name in SERVE_PATH:
         n = serve["launches"].get(name, 0)
@@ -1208,7 +1412,8 @@ def main() -> int:
             "library_us": None if "library_ms" not in st else st["library_ms"] * 1e3,
             **{k: v for k, v in st.items() if k in ("ms_no_flush", "plain_ms_no_flush",
                                                     "num_splits", "shape")
-               or k.startswith(("gemma_", "long_", "starcoder2_"))
+               or k.startswith(("gemma_", "long_", "starcoder2_", "unfused_", "flush_mode_",
+                                "bound_ms_no_flush", "launch_floor"))
                or k in ("tflops", "share_of_bound", "vs_library")},
         })
     total_s = time.perf_counter() - t_start

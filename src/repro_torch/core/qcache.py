@@ -8,17 +8,20 @@ packs and commits the block and the residual restarts.
 
 Unlike the JAX reference, whose arrays are immutable, :func:`prefill` and
 :func:`append_decode` update the cache's tensors **in place** and return the
-same object.  The flush is launched on every decode step: the JAX reference
-skips it with ``lax.cond(any(full))``, but on the card a host-side check of
-``full`` would synchronise every token, so instead each flush program returns
-at once for a row that is not full.
+same object.  A decode step's whole cache update (token write, flush of the
+rows it fills, lengths) is one launch of the residual-flush kernel in its
+"append" mode: the JAX reference jits the same step into one program and
+skips the flush with ``lax.cond(any(full))``, but on the card a host-side
+check of ``full`` would synchronise every token, so instead the kernel's
+programs return at once for a row that is not full.  The kernel's per-row
+arrival counter (``arrive``, zero between launches) is allocated with the
+cache.
 
 The paged layout (:class:`PagedQuantKVCache`) keeps the packed blocks of all
 sequences in shared page pools and walks them through a page table; the
 serving engine (``repro_torch.serve``) decides which page holds which block.
 Its append (:func:`paged_append_decode`) follows the same conventions: in
-place, and the paged flush launched every step with its destinations
-computed on the device.
+place, one launch, the flush destinations computed on the device.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from repro_torch.kernels.kv_quant import ops as kvq_ops
 from repro_torch.kernels.residual_flush import ops as rf_ops
 
 _FIELDS = ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero",
-           "k_res", "v_res", "pack_blocks", "res_len")
+           "k_res", "v_res", "pack_blocks", "res_len", "arrive")
 
 
 @dataclasses.dataclass
@@ -47,6 +50,7 @@ class QuantKVCache:
     v_res: torch.Tensor     # bf16 [B, H, block_n, d_v]
     pack_blocks: torch.Tensor  # int32 [B]
     res_len: torch.Tensor      # int32 [B]
+    arrive: torch.Tensor       # int32 [B]: the append kernel's counter, zero between launches
     bits: int
     block_n: int
     k_gran: str
@@ -94,45 +98,26 @@ def init_cache(batch: int, h_kv: int, d: int, max_seq: int, *, bits: int = 4,
         v_res=z((batch, h_kv, block_n, d), bf16),
         pack_blocks=z((batch,), torch.int32),
         res_len=z((batch,), torch.int32),
+        arrive=z((batch,), torch.int32),
         bits=bits, block_n=block_n, k_gran=k_gran,
     )
-
-
-def _append_residual(cache: QuantKVCache, k_new, v_new, mask=None):
-    """Write one new token per sequence into the residual rows ``res_len[b]``
-    (in place).  Returns ``(res_len_after, full)``.
-
-    ``mask`` ([B] bool, optional) freezes sequences: a ``False`` row keeps
-    its residual and ``res_len`` unchanged."""
-    rows = torch.arange(k_new.shape[0], device=k_new.device)
-    at = torch.clamp(cache.res_len.long(), max=cache.block_n - 1)
-    for res, new in ((cache.k_res, k_new), (cache.v_res, v_new)):
-        new = new[:, :, 0].to(res.dtype)  # [B, H, d]
-        if mask is not None:
-            new = torch.where(mask[:, None, None], new, res[rows, :, at])
-        res[rows, :, at] = new
-    step = 1 if mask is None else mask.to(torch.int32)
-    rl = cache.res_len + step
-    return rl, rl == cache.block_n
 
 
 def append_decode(cache: QuantKVCache, k_new, v_new, *, quant_impl: str = "auto",
                   mask=None) -> QuantKVCache:
     """Append one decoded token per sequence (k_new/v_new: [B, H, 1, d]) and
-    commit the residual block of every row it fills, in place.
+    commit the residual block of every row it fills, in place: one launch
+    of the flush kernel's append mode on the card.
 
-    quant_impl: 'auto' | 'cuda' | 'torch', forwarded to the flush.
-    ``mask`` ([B] bool, optional): rows with ``False`` keep the cache
-    unchanged."""
-    rl, full = _append_residual(cache, k_new, v_new, mask)
-    rf_ops.residual_flush(
-        cache.kw, cache.k_scale, cache.k_zero, cache.vw, cache.v_scale,
-        cache.v_zero, cache.k_res, cache.v_res, full.to(torch.int32),
-        cache.pack_blocks, bits=cache.bits, block_n=cache.block_n,
+    quant_impl: 'auto' | 'cuda' | 'torch', forwarded to
+    ``residual_flush.ops.append_flush``.  ``mask`` ([B] bool, optional):
+    rows with ``False`` keep the cache unchanged."""
+    rf_ops.append_flush(
+        cache.kw, cache.k_scale, cache.k_zero, cache.vw, cache.v_scale, cache.v_zero,
+        cache.k_res, cache.v_res, k_new, v_new, cache.pack_blocks, cache.res_len,
+        cache.arrive, mask=mask, bits=cache.bits, block_n=cache.block_n,
         k_gran=cache.k_gran, impl=quant_impl,
     )
-    cache.pack_blocks.copy_(torch.where(full, cache.pack_blocks + 1, cache.pack_blocks))
-    cache.res_len.copy_(torch.where(full, torch.zeros_like(rl), rl))
     return cache
 
 
@@ -196,7 +181,7 @@ def prefill(cache: QuantKVCache, k, v, *, lengths=None,
 # --------------------------------------------------------------------------
 
 _PAGED_FIELDS = ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero",
-                 "k_res", "v_res", "page_table", "pack_blocks", "res_len")
+                 "k_res", "v_res", "page_table", "pack_blocks", "res_len", "arrive")
 
 
 @dataclasses.dataclass
@@ -234,6 +219,7 @@ class PagedQuantKVCache:
     page_table: torch.Tensor   # int32 [B, nb_max]
     pack_blocks: torch.Tensor  # int32 [B]
     res_len: torch.Tensor      # int32 [B]
+    arrive: torch.Tensor       # int32 [B]: the append kernel's counter, zero between launches
     bits: int
     block_n: int
     k_gran: str
@@ -289,6 +275,7 @@ def init_paged_cache(n_pages: int, batch: int, h_kv: int, d_k: int, nb_max: int,
         page_table=table.expand(*lead, batch, nb_max),
         pack_blocks=z((batch,), torch.int32),
         res_len=z((batch,), torch.int32),
+        arrive=z((batch,), torch.int32),
         bits=bits, block_n=block_n, k_gran=k_gran,
     )
 
@@ -297,28 +284,20 @@ def paged_append_decode(cache: PagedQuantKVCache, k_new, v_new, *,
                         quant_impl: str = "auto", mask=None) -> PagedQuantKVCache:
     """Append one decoded token per sequence (k_new/v_new: [B, H, 1, d]) to
     the residual and commit every residual it fills through the page table
-    into the pools, in place.
+    into the pools, in place: one launch of the paged flush kernel's append
+    mode on the card.
 
     The flush destination of row ``b`` is ``page_table[b, pack_blocks[b]]``
     when its residual filled, else its scratch page ``b``, clamped to
-    ``P - 1``: computed on the device, and the flush launched every step, so
-    nothing here reads ``full`` on the host.  ``mask`` ([B] bool, optional):
-    rows with ``False`` keep residual, occupancy and pool pages unchanged."""
-    b = cache.k_res.shape[0]
-    nb_max = cache.page_table.shape[1]
-    rl, full = _append_residual(cache, k_new, v_new, mask)
-    rows = torch.arange(b, device=rl.device)
-    blk = torch.clamp(cache.pack_blocks.long(), 0, nb_max - 1)
-    dest = torch.where(full, cache.page_table[rows, blk], rows.to(torch.int32))
-    dest = torch.clamp(dest, 0, cache.n_pages - 1)
-    rf_ops.paged_residual_flush(
-        cache.kw, cache.k_scale, cache.k_zero, cache.vw, cache.v_scale,
-        cache.v_zero, cache.k_res, cache.v_res, full.to(torch.int32), dest,
-        bits=cache.bits, block_n=cache.block_n, k_gran=cache.k_gran,
-        impl=quant_impl,
+    ``P - 1``: computed on the device, so nothing here reads ``full`` on the
+    host.  ``mask`` ([B] bool, optional): rows with ``False`` keep residual,
+    occupancy and pool pages unchanged."""
+    rf_ops.paged_append_flush(
+        cache.kw, cache.k_scale, cache.k_zero, cache.vw, cache.v_scale, cache.v_zero,
+        cache.k_res, cache.v_res, k_new, v_new, cache.page_table, cache.pack_blocks,
+        cache.res_len, cache.arrive, mask=mask, bits=cache.bits, block_n=cache.block_n,
+        k_gran=cache.k_gran, impl=quant_impl,
     )
-    cache.pack_blocks.copy_(torch.where(full, cache.pack_blocks + 1, cache.pack_blocks))
-    cache.res_len.copy_(torch.where(full, torch.zeros_like(rl), rl))
     return cache
 
 

@@ -1,8 +1,8 @@
-// Quantize + strided-pack one (block_n, d) bf16 tile: the tile math shared by
-// the prefill kernel (kv_quant.cu) and the decode-time flush
-// (residual_flush.cu), so both commit bitwise-identical packed blocks.  It is
-// the CUDA counterpart of the JAX package's kv_quant/kernel.py
-// `quant_block_tile`.
+// Quantize + strided-pack one (block_n, d) bf16 tile: the tile math of the
+// prefill kernel (kv_quant.cu), the CUDA counterpart of the JAX package's
+// kv_quant/kernel.py `quant_block_tile`.  The decode-time flush
+// (residual_flush.cu) keeps the same contract in its own body, so both
+// commit bitwise-identical packed blocks.
 //
 // Bitwise contract with the plain PyTorch version (core/quantizer.py):
 //   scale = bf16_rn(max((max - min) / qmax, 1e-6)), zero = bf16_rn(min);
@@ -16,7 +16,7 @@
 // Runs on the whole thread block (blockDim.x a multiple of 32).  `src` row t
 // starts at src + t * ld.  `sm` is shared scratch of 2 * max(d, block_n)
 // floats.  Ends with __syncthreads(), so a second call may reuse `sm`.
-// Static: both kernels' sources define it, and they link into one library.
+// Static: it is defined in each source that includes it.
 static __device__ void quant_block_tile(const bf16* __restrict__ src, long long ld,
                                  int block_n, int d, int bits, bool channel,
                                  int32_t* __restrict__ words,

@@ -40,10 +40,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "kv_quant": ("kv_quant_launch", [_P, _L, _L, _L, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _P]),
-    "residual_flush": ("residual_flush_launch", [_P] * 10 + [_I] * 8 + [_P]),
+    # both modes of both caches: one entry point, counted as dense or paged
+    "residual_flush": ("residual_flush_launch", [_P] * 17 + [_L] * 4 + [_I] * 12 + [_P]),
     "bitdecode": ("bitdecode_launch", [_P] * 13 + [_I] * 11 + [_F, _P]),
     "bitdecode_merge": ("bitdecode_merge_launch", [_P] * 4 + [_I] * 3 + [_P]),
-    "paged_residual_flush": ("paged_residual_flush_launch", [_P] * 10 + [_I] * 8 + [_P]),
+    "paged_residual_flush": ("residual_flush_launch", [_P] * 17 + [_L] * 4 + [_I] * 12 + [_P]),
     "paged_bitdecode": ("paged_bitdecode_launch", [_P] * 14 + [_I] * 12 + [_F, _P]),
     "flash_prefill": ("flash_prefill_launch", [_P] * 5 + [_I] * 5 + [_L] * 12
                       + [_I, _F, _I, _P]),

@@ -1,12 +1,24 @@
-"""Entry points of the fused residual flush (quantize + pack + commit), dense
-and paged: the CUDA kernels (``csrc/residual_flush.cu``) or their plain
-PyTorch versions."""
+"""Entry points of the residual flush (quantize + pack + commit) and of the
+decode append around it, dense and paged: one CUDA kernel with two modes
+(``csrc/residual_flush.cu``) or their plain PyTorch versions (``ref.py``).
+
+* mode "flush" (:func:`residual_flush`, :func:`paged_residual_flush`): the
+  direct counterparts of the JAX package's two flush kernels;
+* mode "append" (:func:`append_flush`, :func:`paged_append_flush`): a
+  layer's whole cache update in a decode step (token write, flush of the
+  rows it fills, lengths), one launch, nothing read on the host.
+
+Both modes count their launches under ``residual_flush`` (dense) and
+``paged_residual_flush`` (paged).
+"""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.residual_flush import ref as _ref
+
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the kernel's 8-channel chunks: d / 8 divides a warp
 
 
 def _check_flush_args(arrays, b, h, npr, bits, block_n):
@@ -21,23 +33,76 @@ def _check_flush_args(arrays, b, h, npr, bits, block_n):
         raise ValueError("the CUDA flush writes the cache in place: arrays must be contiguous")
     if tuple(arrays[i].dtype for i in (1, 4, 6, 7)) != (torch.bfloat16,) * 4:
         raise ValueError("the CUDA flush takes bf16 params and bf16 residuals")
+    if kw.shape[-1] not in HEAD_DIMS or vw.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"the CUDA flush takes head dims {HEAD_DIMS}, got "
+                         f"{kw.shape[-1]} / {vw.shape[-1]}; use impl='torch'")
+    if any(t.data_ptr() % 16 for t in (k_res, v_res)):
+        raise ValueError("the CUDA flush reads the residuals in 16-byte chunks: align them")
+
+
+def _ints(*tensors):
+    """Per-row int32 vectors the kernel reads or writes in place."""
+    for t in tensors:
+        if t.dtype != torch.int32 or t.ndim != 1 or not t.is_contiguous():
+            raise ValueError("lengths and counters must be contiguous int32 [B]")
+
+
+def _new_token(x, b, h, d):
+    """The new token [B, H, 1, d] as bf16 with a contiguous last axis; its
+    batch and head strides."""
+    if tuple(x.shape) != (b, h, 1, d):
+        raise ValueError(f"new token must be [B, H, 1, d] = {(b, h, 1, d)}, got {tuple(x.shape)}")
+    x = x.to(torch.bfloat16)
+    if x.stride(-1) != 1:
+        x = x.contiguous()
+    return x, x.stride(0), x.stride(1)
+
+
+def _launch(name, arrays, *, b, h, n_cells, block_n, bits, k_gran, k_new=None, v_new=None,
+            mask=None, full=None, dest=None, table=None, lengths=(None, None, None)):
+    """One launch of the kernel: mode "append" when ``k_new`` is given,
+    else mode "flush" (``full``/``dest``)."""
+    d_k, d_v = arrays[0].shape[-1], arrays[3].shape[-1]
+    strides = (0, 0, 0, 0)
+    if k_new is not None:
+        k_new, k_sb, k_sh = _new_token(k_new, b, h, d_k)
+        v_new, v_sb, v_sh = _new_token(v_new, b, h, d_v)
+        strides = (k_sb, k_sh, v_sb, v_sh)
+        if mask is not None:
+            mask = mask.to(torch.bool).contiguous()
+        _ints(*lengths)
+    else:
+        full = full.to(torch.int32).contiguous()
+        dest = dest.to(torch.int32).contiguous()
+    nb_max, table_ld = 0, 0
+    if table is not None:
+        if table.dtype != torch.int32 or table.shape[0] != b or table.stride(1) != 1:
+            raise ValueError("page_table must be int32 [B, nb_max] with contiguous rows")
+        nb_max, table_ld = table.shape[1], table.stride(0)
+
+    def ptr(t):  # None: a null pointer
+        return None if t is None else t.data_ptr()
+
+    _build.launch(
+        name, *(t.data_ptr() for t in arrays), ptr(k_new), ptr(v_new), ptr(mask), ptr(full),
+        ptr(dest), ptr(table), *map(ptr, lengths), *strides, b, h, n_cells, block_n, d_k, d_v,
+        bits, int(k_gran == "channel"), nb_max, table_ld, int(k_new is not None),
+        int(name == "paged_residual_flush"), _build.stream_of(arrays[0]),
+    )
+
+
+# ------------------------------------------------------------- mode "flush"
 
 
 def residual_flush_cuda(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res,
                         full, dest_block, *, bits: int, block_n: int, k_gran: str):
-    """Launch the kernel: one program per (b, h); programs of rows with
-    ``full[b] == 0`` return at once.  Updates the packed arrays in place."""
-    b, h, nb, npr, d_k = kw.shape
-    d_v = vw.shape[-1]
+    """Launch mode "flush": programs of rows with ``full[b] == 0`` return at
+    once.  Updates the packed arrays in place."""
+    b, h, nb, npr, _ = kw.shape
     arrays = (kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res)
     _check_flush_args(arrays, b, h, npr, bits, block_n)
-    full = full.to(torch.int32).contiguous()
-    dest = dest_block.to(torch.int32).contiguous()
-    _build.launch(
-        "residual_flush", *(t.data_ptr() for t in arrays), full.data_ptr(),
-        dest.data_ptr(), b, h, nb, block_n, d_k, d_v, bits,
-        int(k_gran == "channel"), _build.stream_of(kw),
-    )
+    _launch("residual_flush", arrays, b=b, h=h, n_cells=nb, block_n=block_n, bits=bits,
+            k_gran=k_gran, full=full, dest=dest_block)
     return kw, k_scale, k_zero, vw, v_scale, v_zero
 
 
@@ -47,8 +112,8 @@ def residual_flush(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res,
     """Commit the bf16 residual of every sequence with ``full[b] != 0`` into
     packed block ``dest_block[b]`` (clamped to ``nb - 1``), in place.
 
-    Callers run it on every decode step: neither path reads ``full`` on the
-    host.  impl: 'cuda' | 'torch' | 'auto' (the kernel for CUDA tensors).
+    Neither path reads ``full`` on the host.  impl: 'cuda' | 'torch' |
+    'auto' (the kernel for CUDA tensors).
     """
     args = (kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, full, dest_block)
     fn = residual_flush_cuda if _build.resolve_impl(impl, *args) == "cuda" else _ref.residual_flush_ref
@@ -58,20 +123,15 @@ def residual_flush(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res,
 def paged_residual_flush_cuda(kw_pool, k_scale_pool, k_zero_pool, vw_pool,
                               v_scale_pool, v_zero_pool, k_res, v_res, full,
                               dest_page, *, bits: int, block_n: int, k_gran: str):
-    """Launch the paged kernel: one program per (b, h); programs of rows with
+    """Launch mode "flush" on the pools: programs of rows with
     ``full[b] == 0`` return at once.  Updates the pools in place."""
-    n_pages, h, npr, d_k = kw_pool.shape
-    b, d_v = k_res.shape[0], vw_pool.shape[-1]
+    n_pages, h, npr, _ = kw_pool.shape
+    b = k_res.shape[0]
     arrays = (kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool,
               v_zero_pool, k_res, v_res)
     _check_flush_args(arrays, b, h, npr, bits, block_n)
-    full = full.to(torch.int32).contiguous()
-    dest = dest_page.to(torch.int32).contiguous()
-    _build.launch(
-        "paged_residual_flush", *(t.data_ptr() for t in arrays), full.data_ptr(),
-        dest.data_ptr(), b, h, n_pages, block_n, d_k, d_v, bits,
-        int(k_gran == "channel"), _build.stream_of(kw_pool),
-    )
+    _launch("paged_residual_flush", arrays, b=b, h=h, n_cells=n_pages, block_n=block_n,
+            bits=bits, k_gran=k_gran, full=full, dest=dest_page)
     return kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool
 
 
@@ -83,11 +143,76 @@ def paged_residual_flush(kw_pool, k_scale_pool, k_zero_pool, vw_pool,
     ``full[b] != 0`` into pool page ``min(dest_page[b], P - 1)`` of the shared
     ``[P, H, ...]`` pools, in place.  ``dest_page`` entries must be pairwise
     distinct: callers point rows that do not flush at their own scratch page
-    (pool pages ``[0, B)``).  Launched every decode step, like the dense
-    flush: neither path reads ``full`` on the host.
+    (pool pages ``[0, B)``).  Neither path reads ``full`` on the host.
     impl: 'cuda' | 'torch' | 'auto' (the kernel for CUDA tensors)."""
     args = (kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool,
             v_zero_pool, k_res, v_res, full, dest_page)
     fn = (paged_residual_flush_cuda if _build.resolve_impl(impl, *args) == "cuda"
           else _ref.paged_residual_flush_ref)
     return fn(*args, bits=bits, block_n=block_n, k_gran=k_gran)
+
+
+# ------------------------------------------------------------ mode "append"
+
+
+def append_flush_cuda(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, k_new,
+                      v_new, pack_blocks, res_len, arrive, *, mask=None, bits: int,
+                      block_n: int, k_gran: str):
+    """Launch mode "append" on a dense cache: one launch updates residual,
+    packed blocks and lengths in place; ``arrive`` ([B] int32, zero) is the
+    kernel's counter and comes back zero."""
+    b, h, nb, npr, _ = kw.shape
+    arrays = (kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res)
+    _check_flush_args(arrays, b, h, npr, bits, block_n)
+    _launch("residual_flush", arrays, b=b, h=h, n_cells=nb, block_n=block_n, bits=bits,
+            k_gran=k_gran, k_new=k_new, v_new=v_new, mask=mask,
+            lengths=(pack_blocks, res_len, arrive))
+    return kw, k_scale, k_zero, vw, v_scale, v_zero
+
+
+def append_flush(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, k_new, v_new,
+                 pack_blocks, res_len, arrive, *, mask=None, bits: int, block_n: int,
+                 k_gran: str, impl: str = "auto"):
+    """A dense cache's decode append, in place: write one token per sequence
+    (k_new/v_new [B, H, 1, d]) into residual row ``min(res_len[b],
+    block_n - 1)``, commit the residual of every row it fills into packed
+    block ``min(pack_blocks[b], nb - 1)``, then ``pack_blocks += full`` and
+    ``res_len = full ? 0 : res_len + step``.  ``mask`` ([B] bool, optional):
+    rows with ``False`` keep everything unchanged.
+    impl: 'cuda' | 'torch' | 'auto' (the kernel for CUDA tensors)."""
+    args = (kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, k_new, v_new,
+            pack_blocks, res_len, arrive)
+    fn = (append_flush_cuda if _build.resolve_impl(impl, *args, mask) == "cuda"
+          else _ref.append_flush_ref)
+    return fn(*args, mask=mask, bits=bits, block_n=block_n, k_gran=k_gran)
+
+
+def paged_append_flush_cuda(kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool,
+                            v_zero_pool, k_res, v_res, k_new, v_new, page_table,
+                            pack_blocks, res_len, arrive, *, mask=None, bits: int,
+                            block_n: int, k_gran: str):
+    """Launch mode "append" on the pools, through the page table."""
+    n_pages, h, npr, _ = kw_pool.shape
+    b = k_res.shape[0]
+    arrays = (kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool,
+              k_res, v_res)
+    _check_flush_args(arrays, b, h, npr, bits, block_n)
+    _launch("paged_residual_flush", arrays, b=b, h=h, n_cells=n_pages, block_n=block_n,
+            bits=bits, k_gran=k_gran, k_new=k_new, v_new=v_new, mask=mask, table=page_table,
+            lengths=(pack_blocks, res_len, arrive))
+    return kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool
+
+
+def paged_append_flush(kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool,
+                       v_zero_pool, k_res, v_res, k_new, v_new, page_table, pack_blocks,
+                       res_len, arrive, *, mask=None, bits: int, block_n: int, k_gran: str,
+                       impl: str = "auto"):
+    """A paged cache's decode append, in place: as :func:`append_flush`, the
+    rows it fills committed into pool page ``page_table[b,
+    clamp(pack_blocks[b], 0, nb_max - 1)]`` (clamped to ``P - 1``).
+    impl: 'cuda' | 'torch' | 'auto' (the kernel for CUDA tensors)."""
+    args = (kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool,
+            k_res, v_res, k_new, v_new, page_table, pack_blocks, res_len, arrive)
+    fn = (paged_append_flush_cuda if _build.resolve_impl(impl, *args, mask) == "cuda"
+          else _ref.paged_append_flush_ref)
+    return fn(*args, mask=mask, bits=bits, block_n=block_n, k_gran=k_gran)

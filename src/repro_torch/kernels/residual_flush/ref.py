@@ -1,9 +1,14 @@
-"""Plain PyTorch version of the fused residual flush: quantize every
-sequence's residual block and select-commit it, at block granularity, into
-packed block ``min(dest_block[b], nb - 1)`` of the sequences with
-``full[b] != 0`` (dense cache), or into pool page ``min(dest_page[b], P - 1)``
-(paged cache).  Unlike the JAX oracle it updates the packed arrays in
-place.  It never reads ``full`` on the host, so it runs without a device
+"""Plain PyTorch versions of the residual flush and of the decode append
+around it.
+
+The flush quantizes every sequence's residual block and select-commits it,
+at block granularity, into packed block ``min(dest_block[b], nb - 1)`` of
+the sequences with ``full[b] != 0`` (dense cache), or into pool page
+``min(dest_page[b], P - 1)`` (paged cache).  The append writes one decoded
+token per sequence into its residual, flushes the rows it fills and updates
+the lengths: the op sequence that the CUDA kernel's append mode does in one
+launch.  Unlike the JAX oracle, everything here updates the cache's tensors
+in place.  Nothing reads ``full`` on the host, so these run without a device
 synchronisation on the card as well.
 """
 from __future__ import annotations
@@ -70,4 +75,66 @@ def paged_residual_flush_ref(kw_pool, k_scale_pool, k_zero_pool, vw_pool,
         commit(w_dst, w)
         commit(s_dst, s)
         commit(z_dst, z)
+    return kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool
+
+
+def append_residual(k_res, v_res, res_len, k_new, v_new, mask=None):
+    """Write one new token per sequence into the residual rows
+    ``min(res_len[b], block_n - 1)`` (in place).  Returns
+    ``(res_len_after, full)``.
+
+    ``mask`` ([B] bool, optional) freezes sequences: a ``False`` row keeps
+    its residual and ``res_len`` unchanged."""
+    block_n = k_res.shape[2]
+    rows = torch.arange(k_new.shape[0], device=k_new.device)
+    at = torch.clamp(res_len.long(), max=block_n - 1)
+    for res, new in ((k_res, k_new), (v_res, v_new)):
+        new = new[:, :, 0].to(res.dtype)  # [B, H, d]
+        if mask is not None:
+            new = torch.where(mask[:, None, None], new, res[rows, :, at])
+        res[rows, :, at] = new
+    step = 1 if mask is None else mask.to(torch.int32)
+    rl = res_len + step
+    return rl, rl == block_n
+
+
+def _commit_lengths(pack_blocks, res_len, rl, full):
+    pack_blocks.copy_(torch.where(full, pack_blocks + 1, pack_blocks))
+    res_len.copy_(torch.where(full, torch.zeros_like(rl), rl))
+
+
+def append_flush_ref(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, k_new,
+                     v_new, pack_blocks, res_len, arrive=None, *, mask=None, bits: int,
+                     block_n: int, k_gran: str, flush=residual_flush_ref):
+    """A dense cache's decode append, in place: the new token (k_new/v_new
+    [B, H, 1, d]) into the residual, the rows it fills flushed into block
+    ``pack_blocks[b]`` by ``flush``, then ``pack_blocks += full`` and
+    ``res_len = full ? 0 : res_len + step``.  ``arrive`` (the kernel's
+    counter) is not used.  ``flush`` takes :func:`residual_flush_ref`'s
+    arguments; passing the kernel's flush mode gives the unfused op sequence
+    the fused kernel replaces."""
+    rl, full = append_residual(k_res, v_res, res_len, k_new, v_new, mask)
+    flush(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, full.to(torch.int32),
+          pack_blocks, bits=bits, block_n=block_n, k_gran=k_gran)
+    _commit_lengths(pack_blocks, res_len, rl, full)
+    return kw, k_scale, k_zero, vw, v_scale, v_zero
+
+
+def paged_append_flush_ref(kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool,
+                           v_zero_pool, k_res, v_res, k_new, v_new, page_table,
+                           pack_blocks, res_len, arrive=None, *, mask=None, bits: int,
+                           block_n: int, k_gran: str, flush=paged_residual_flush_ref):
+    """A paged cache's decode append, in place: as :func:`append_flush_ref`,
+    the destination of row ``b`` being ``page_table[b, clamp(pack_blocks[b],
+    0, nb_max - 1)]`` when its residual filled, else its scratch page ``b``,
+    clamped to ``[0, P - 1]``."""
+    b, nb_max = page_table.shape
+    rl, full = append_residual(k_res, v_res, res_len, k_new, v_new, mask)
+    rows = torch.arange(b, device=rl.device)
+    blk = torch.clamp(pack_blocks.long(), 0, nb_max - 1)
+    dest = torch.where(full, page_table[rows, blk], rows.to(torch.int32))
+    dest = torch.clamp(dest, 0, kw_pool.shape[0] - 1)
+    flush(kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool, k_res,
+          v_res, full.to(torch.int32), dest, bits=bits, block_n=block_n, k_gran=k_gran)
+    _commit_lengths(pack_blocks, res_len, rl, full)
     return kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool

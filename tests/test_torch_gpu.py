@@ -5,7 +5,8 @@ imports only torch and the port, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-kv_quant and residual_flush (dense and paged) must match bit for bit;
+kv_quant and residual_flush (dense and paged, both modes: "flush" and the
+decode step's "append") must match bit for bit;
 bitdecode and paged_bitdecode within the reference's tolerances (out 2e-2,
 lse 1e-3), and paged_bitdecode over an identity page table bit for bit
 equal to bitdecode; flash_prefill within its kernel's tolerance (out 3e-2,
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.configs import smoke_config
 from repro_torch.core import attention as catt
+from repro_torch.core import qcache
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitdecode import ops as bd_ops
 from repro_torch.kernels.flash_prefill import ops as fp_ops
@@ -70,7 +72,7 @@ def _packed(gen, device, *, b, h, nb, block_n, d, bits, k_gran, v_off=0.0):
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("k_gran", ["channel", "tensor"])
-@pytest.mark.parametrize("shape", [(64, 32), (128, 128)])
+@pytest.mark.parametrize("shape", [(64, 32), (128, 128), (128, 256)])
 def test_residual_flush_kernel_matches_plain_bitwise(cuda, bits, k_gran, shape):
     block_n, d = shape
     gen = torch.Generator(device=cuda).manual_seed(bits)
@@ -474,3 +476,136 @@ def test_small_engine_kernels_match_plain(cuda):
     assert kern.sched.stats["prefix_hit_blocks"] > 0 and kern.stats["cow_copies"] > 0
     for (_, lk), (_, lp) in zip(rec, plain_rec):
         torch.testing.assert_close(lk, lp, rtol=2e-2, atol=3e-1)
+
+
+# ------------------------------------------- residual_flush, mode "append"
+
+
+def _append_state(gen, device, *, paged, b, h, d, block_n, bits, k_gran):
+    """A cache mid-run: random packed blocks (or pools behind a scrambled
+    table of 4 columns), random residuals, res_len in [0, block_n),
+    pack_blocks in {0, 1}.  Returns (arrays, lengths) in the order the
+    append entry points take them around k_new / v_new."""
+    nb = 6
+    packed = _packed(gen, device, b=b, h=h, nb=nb, block_n=block_n, d=d, bits=bits,
+                     k_gran=k_gran)
+    res = [randn(gen, (b, h, block_n, d), device) for _ in range(2)]
+    ints = functools.partial(torch.randint, generator=gen, device=device, dtype=torch.int32)
+    lens = [ints(0, 2, (b,)), ints(0, block_n, (b,)), torch.zeros(b, dtype=torch.int32,
+                                                                  device=device)]
+    if not paged:
+        return packed + res, lens
+    n_pages = b * nb
+    table = (b + torch.randperm(n_pages - b, generator=gen, device=device)[: b * 4]
+             ).reshape(b, 4).to(torch.int32)
+    return _pools(packed) + res, [table, *lens]
+
+
+def _new_tokens(gen, device, b, h, d):
+    """k_new / v_new [B, H, 1, d] as the model passes them: strided views
+    (a transposed [B, 1, H, d], the second half of a wider buffer)."""
+    k = randn(gen, (b, 1, h, d), device).transpose(1, 2)
+    v = randn(gen, (b, 1, 2 * h, d), device)[:, :, h:].transpose(1, 2)
+    return k, v
+
+
+@pytest.mark.parametrize("k_gran", ["channel", "tensor"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("block_n", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_append_kernel_matches_plain_bitwise(cuda, paged, d, block_n, bits, k_gran):
+    """Mode "append" against its plain version over 3 * block_n - 10
+    consecutive steps, every array and length compared after every step:
+    row 0 appends every step (2-3 flushes, so the counter works again and
+    again), row 1 is masked every third step, row 2 is frozen throughout;
+    B * H = 9 rows is not a multiple of the group count."""
+    b, h = 3, 3
+    gen = torch.Generator(device=cuda).manual_seed(d + block_n + bits)
+    arrays, lens = _append_state(gen, cuda, paged=paged, b=b, h=h, d=d, block_n=block_n,
+                                 bits=bits, k_gran=k_gran)
+    twin_a, twin_l = [x.clone() for x in arrays], [x.clone() for x in lens]
+    start_a, start_l = [x.clone() for x in arrays], [x.clone() for x in lens]
+    fn = rf_ops.paged_append_flush if paged else rf_ops.append_flush
+    kw = dict(bits=bits, block_n=block_n, k_gran=k_gran)
+    for step in range(3 * block_n - 10):
+        k_new, v_new = _new_tokens(gen, cuda, b, h, d)
+        mask = torch.tensor([True, step % 3 != 1, False], device=cuda)
+        fn(*arrays, k_new, v_new, *lens, mask=mask, impl="cuda", **kw)
+        fn(*twin_a, k_new, v_new, *twin_l, mask=mask, impl="torch", **kw)
+        for i, (x, y) in enumerate(zip(arrays + lens, twin_a + twin_l)):
+            assert torch.equal(x, y), f"field {i} differs after step {step}"
+    flushes = (lens[-3] - start_l[-3]).tolist()
+    assert flushes[0] >= 2 and flushes[1] >= 1 and flushes[2] == 0, flushes
+    assert not lens[-1].any()  # the counter is back at zero
+    for x, x0 in zip(arrays[-2:] + lens[-3:-1], start_a[-2:] + start_l[-3:-1]):
+        assert torch.equal(x[2], x0[2])  # the frozen row's residual and lengths
+    if not paged:  # and its packed blocks
+        assert all(torch.equal(x[2], x0[2]) for x, x0 in zip(arrays[:6], start_a[:6]))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_append_decode_is_one_launch(cuda, paged, with_mask):
+    """A layer's cache update in a decode step is one kernel on the card
+    (the profiler's count of device kernels), counted under the flush's
+    name, with no host read."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    b, h, d = 4, 8, 128
+    if paged:
+        cache = qcache.init_paged_cache(40, b, h, d, 8, device=cuda)
+        append, name = qcache.paged_append_decode, "paged_residual_flush"
+    else:
+        cache = qcache.init_cache(b, h, d, 512, device=cuda)
+        append, name = qcache.append_decode, "residual_flush"
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    mask = torch.tensor([True, False, True, True], device=cuda) if with_mask else None
+    append(cache, *_new_tokens(gen, cuda, b, h, d), mask=mask)  # warm-up
+    k_new, v_new = _new_tokens(gen, cuda, b, h, d)
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        append(cache, k_new, v_new, mask=mask)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    assert dict(_build.launches) == {name: 1}
+    assert sum(kernels.values()) == 1 and "residual_flush" in next(iter(kernels)), kernels
+    assert cache.res_len.tolist() == ([2, 0, 2, 2] if with_mask else [2] * b)
+
+
+@pytest.mark.parametrize("k_gran", ["channel", "tensor"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("d", [128, 256])
+def test_appended_block_equals_kv_quant_block(cuda, d, bits, k_gran):
+    """Two blocks appended token by token through the kernel's append mode
+    are bitwise the blocks K1 packs from the same tokens."""
+    b, h, block_n = 2, 4, 128
+    gen = torch.Generator(device=cuda).manual_seed(bits)
+    k, v = (randn(gen, (b, h, 2 * block_n, d), cuda) for _ in range(2))
+    cache = qcache.init_cache(b, h, d, 3 * block_n, bits=bits, block_n=block_n, k_gran=k_gran,
+                              device=cuda)
+    for t in range(2 * block_n):
+        qcache.append_decode(cache, k[:, :, t:t + 1], v[:, :, t:t + 1], quant_impl="cuda")
+    assert cache.pack_blocks.tolist() == [2] * b and cache.res_len.tolist() == [0] * b
+    kq = kq_ops.quantize_kv(k, bits, k_gran, block_n=block_n, impl="cuda")
+    vq = kq_ops.quantize_kv(v, bits, "tensor", block_n=block_n, impl="cuda")
+    for got, want in zip((cache.kw, cache.k_scale, cache.k_zero, cache.vw, cache.v_scale,
+                          cache.v_zero), (*kq, *vq)):
+        np.testing.assert_array_equal(bits_of(got[:, :, :2]), bits_of(want))
+
+
+def test_append_kernel_refuses_what_it_cannot_take(cuda):
+    """A head dim outside its 8-channel chunks, and CPU lengths beside CUDA
+    arrays, raise: no fallback to the plain version."""
+    cache = qcache.init_cache(2, 2, 48, 256, device=cuda)
+    k_new = torch.zeros((2, 2, 1, 48), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        qcache.append_decode(cache, k_new, k_new)
+    qcache.append_decode(cache, k_new, k_new, quant_impl="torch")
+    cache = qcache.init_cache(2, 2, 64, 256, device=cuda)
+    cache.res_len = cache.res_len.cpu()
+    k_new = torch.zeros((2, 2, 1, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        qcache.append_decode(cache, k_new, k_new)
