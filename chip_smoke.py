@@ -14,7 +14,10 @@ Phases:
      bitdecode / paged_bitdecode instance's HMMA / LDGSTS counts
      (cuobjdump; the checks fail if any is 0);
   2. every CUDA kernel against its plain PyTorch version on the card
-     (kv_quant, residual_flush and paged_residual_flush bit for bit, with
+     (kv_quant bit for bit at every cache width of the configs, head dims
+     32-576, alone and as the K + V pair written into a cache's first
+     blocks with the blocks past them unchanged; residual_flush and
+     paged_residual_flush bit for bit, with
      the pages a paged flush must not touch unchanged; the flush kernel's
      append mode, the decode step's whole cache update, dense and paged,
      over 384 consecutive steps at d 128 and 256, bits 2, 4, 8 and both K
@@ -31,7 +34,9 @@ Phases:
      row to 2,100 across every edge of its 64-row warpgroups and 128-row KV
      tiles, causal and full, both layouts and head slices of a fused QKV
      buffer), then timed with CUDA events at the main paths' shapes beside
-     its bound (bytes / 3.35 TB/s vs operations / peak rate): the flush
+     its bound (bytes / 3.35 TB/s vs operations / peak rate): kv_quant at
+     llama3-8b's and gemma-7b's prefill (K alone, V alone, the pair into the
+     cache, and the parent's fill: two launches and six slice copies); the flush
      kernel in both modes on a step that flushes every row and on one that
      flushes none, beside its plain version, the unfused step it replaced
      and an empty kernel (the launch floor), at llama3-8b's and gemma-7b's
@@ -48,7 +53,8 @@ Phases:
      different summation order: the fidelity floor of two correct
      implementations), all fed the plain run's token stream; then the
      device time and the count of device kernels of three decode steps
-     (torch.profiler), with the fused append and with the unfused one;
+     (torch.profiler), with the fused append and with the unfused one, and
+     of one prefill, with the pair fill and with the parent's fill;
   4. the serving path end to end: the same model behind ``ServeEngine``
      (4 slots, max_seq 4096), ten staggered requests with a shared prefix
      and a copy-on-write pair, all on the kernels: (a) worst-case
@@ -126,6 +132,11 @@ KERNELS = {
 # channel or token (bd_dispatch in csrc/bitdecode_body.cuh)
 DECODE_INSTANCES = 2 * 4 * 4 * 2 * 2
 BITWISE = ("kv_quant", "residual_flush", "paged_residual_flush")
+# phase 2's kv_quant cases (B, H, S, d, block_n): the head dims of every
+# config's cache (zamba2-7b 112, the MLA latents 160 and 576)
+KV_QUANT_CASES = ((4, 8, 16 * 128, 128, 128), (2, 2, 3 * 64, 32, 64), (2, 3, 4 * 32, 64, 32),
+                  (2, 3, 2 * 128, 112, 128), (2, 2, 3 * 64, 160, 64), (2, 4, 2 * 128, 256, 128),
+                  (1, 2, 2 * 128, 576, 128))
 TOLERANCE = {"bitdecode": "out 2e-2, lse 1e-3", "paged_bitdecode": "out 2e-2, lse 1e-3",
              "flash_prefill": "out 3e-2, lse 1e-3", "bitdecode_merge": "out 1e-5, lse 1e-5"}
 # phases 3, 5, 6; at B = 4 every configuration's decode resolves to > 1 split
@@ -338,6 +349,9 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
     for k in DENSE_PATH:
         check(launches.get(k, 0) > 0, f"{name}: {k} launched on the dense path "
                                       f"({launches.get(k, 0)})")
+    check(launches.get("kv_quant", 0) == cfg.n_layers,
+          f"{name}: kv_quant once a layer for K and V in the prefill "
+          f"({launches.get('kv_quant', 0)} launches, {cfg.n_layers} layers)")
     check(bool(torch.isfinite(lg_k).all()) and lg_k.shape == (steps + 1, b, cfg.vocab),
           f"{name}: logits finite, shaped")
     c_p, c_k = st_p["caches"][0], st_k["caches"][0]
@@ -369,6 +383,16 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
             f"{f['max_abs_dlogit']:.3f}")
     prof = device_profile(model, params, tokens, lengths)
     log_profile(f"{name} decode step", prof)
+    pre = prefill_profile(model, params, tokens, lengths)
+    for p, how in ((pre, "the pair fill"), (pre["parent_fill"], "the parent's fill")):
+        log(f"  {name} prefill, {how} (torch.profiler): {p['kernels']} device kernels, "
+            f"{p['all_ms']:.3f} ms of kernels; kv_quant {p['kv_quant_kernels']} kernels, "
+            f"{p['kv_quant_ms']:.3f} ms")
+    if pre["all_ms"] > 0:  # else the profiler saw no device time: not measured
+        check(pre["kv_quant_kernels"] == cfg.n_layers
+              and pre["kernels"] < pre["parent_fill"]["kernels"],
+              f"{name}: the prefill runs kv_quant once a layer and fewer device kernels than "
+              f"the parent's fill ({pre['kernels']} vs {pre['parent_fill']['kernels']})")
     if prof["all_ms_per_step"] > 0:  # else the profiler saw no device time: not measured
         check(prof["decode_attention_ms_per_step"] > 0,
               f"{name}: the profiler saw the decode attention's kernels on the card")
@@ -376,6 +400,7 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
               f"{name}: the fused append takes fewer device kernels a decode step "
               f"({prof['kernels_per_step']:.0f} vs {prof['unfused']['kernels_per_step']:.0f})")
     report = {"prefill_s": {"plain": pre_p, "kernels": pre_k}, "device_profile": prof,
+              "prefill_profile": pre,
               "decode_ms_per_step": {"plain": step_p * 1e3, "kernels": step_k * 1e3},
               "tokens_per_s": {"plain": b / step_p, "kernels": b / step_k},
               "peak_gib": {"plain": peak_plain / 2**30, "kernels": peak_kernel / 2**30},
@@ -405,6 +430,70 @@ def unfused_appends():
         yield
     finally:
         ops.append_flush, ops.paged_append_flush = saved
+
+
+def parent_fill(cache, k, v, n_full: int, quant_impl: str) -> None:
+    """The parent's prefill fill of a layer's cache: K and V each through
+    kv_quant into fresh outputs, then six slice copies into the cache."""
+    from repro_torch.kernels.kv_quant import ops as kq_ops
+
+    if not n_full:
+        return
+    n = n_full * cache.block_n
+    for dst, x, gran in (((cache.kw, cache.k_scale, cache.k_zero), k, cache.k_gran),
+                         ((cache.vw, cache.v_scale, cache.v_zero), v, "tensor")):
+        out = kq_ops.quantize_kv(x[:, :, :n], cache.bits, gran, block_n=cache.block_n,
+                                 param_dtype=dst[1].dtype, impl=quant_impl)
+        for to, o in zip(dst, out):
+            to[:, :, :n_full] = o
+
+
+@contextlib.contextmanager
+def parent_fills():
+    """Route the prefill's cache fill through :func:`parent_fill`, to count
+    and time what the pair launch replaced."""
+    from repro_torch.core import qcache
+
+    saved = qcache._quantize_full_region
+    qcache._quantize_full_region = parent_fill
+    try:
+        yield
+    finally:
+        qcache._quantize_full_region = saved
+
+
+def prefill_profile(model, params, tokens, lengths) -> dict:
+    """torch.profiler over one prefill of the prompts on the kernels: the
+    device kernels and their ms, and kv_quant's share; with the pair fill
+    and (key ``parent_fill``) with the parent's fill."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        with torch.no_grad():
+            model.prefill(params, {"tokens": tokens}, tokens.shape[1] + 1, lengths=lengths)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                model.prefill(params, {"tokens": tokens}, tokens.shape[1] + 1, lengths=lengths)
+                torch.cuda.synchronize()
+        out = {"kernels": 0, "all_ms": 0.0, "kv_quant_ms": 0.0, "kv_quant_kernels": 0}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            us = getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
+            out["kernels"] += ev.count
+            out["all_ms"] += us / 1e3
+            if "kv_quant" in ev.key:
+                out["kv_quant_ms"] += us / 1e3
+                out["kv_quant_kernels"] += ev.count
+        return out
+
+    out = run()
+    with parent_fills():
+        out["parent_fill"] = run()
+    return out
 
 
 def profile_steps(step, steps) -> dict:
@@ -592,6 +681,10 @@ def serve_phase(model, params, cfg, check, dev, names="abc") -> dict:
         torch.cuda.synchronize()
         if name == "a":
             launches = dict(_build.launches)
+            n_kq, calls = launches.get("kv_quant", 0), summ["prefill_calls"]
+            check(n_kq % cfg.n_layers == 0 and 0 < n_kq <= cfg.n_layers * calls,
+                  f"run (a): kv_quant once a layer in each prefill that packs a block "
+                  f"({n_kq} launches, {cfg.n_layers} layers, {calls} prefill calls)")
         peak = torch.cuda.max_memory_allocated() / 2**30
         pool = engine.pool
         log(f"  run ({name}) {kw}: {summ['steps']} cycles, {summ['decoded_tokens']} tokens, "
@@ -729,6 +822,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
 
+    from repro_torch.core import qcache
     from repro_torch.kernels import _build
     from repro_torch.kernels.bitdecode import ops as bd_ops
     from repro_torch.kernels.bitdecode import ref as bd_ref
@@ -816,17 +910,48 @@ def main() -> int:
 
     # --------------------------------------------- 2. kernels vs plain versions
     log("== 2. kernels vs plain versions")
-    # (B, H, S, d, block_n): the main path's K/V at prefill, and the smoke model's
-    for b, h, s, d, bn in ((4, 8, 16 * 128, 128, 128), (2, 2, 3 * 64, 32, 64)):
+    # (B, H, S, d, block_n): the main path's K/V at prefill, the smoke model's,
+    # and every other cache width of the configs (zamba2-7b's 112, the MLA
+    # latents 160 and 576, gemma-7b's 256), as the model's strided views
+    for b, h, s, d, bn in KV_QUANT_CASES:
         for bits in (2, 4, 8):
             for gran in ("channel", "tensor"):
-                x = randn(b, s, h, d).transpose(1, 2)  # the model's strided view
+                x = randn(b, s, h, d).transpose(1, 2)
                 out = kq_ops.quantize_kv(x, bits, gran, block_n=bn, impl="cuda")
                 ref = kq_ops.quantize_kv(x, bits, gran, block_n=bn, impl="torch")
                 for o, r in zip(out, ref):
                     note_err("kv_quant", o, r)
                 check(all(bitwise(o, r) for o, r in zip(out, ref)),
                       f"kv_quant bitwise B={b} H={h} S={s} d={d} block_n={bn} bits={bits} {gran}")
+        # the pair (K and V in one launch) into the first blocks of a cache,
+        # against the plain pair; the guard blocks past them unchanged
+        fails = []
+        for bits in (2, 4, 8):
+            for gran in ("channel", "tensor"):
+                k = randn(b, s, h, d).transpose(1, 2)
+                v = randn(b, s, 2 * h, d)[:, :, h:].transpose(1, 2)
+                cache = qcache.init_cache(b, h, d, s + 2 * bn, bits=bits, block_n=bn,
+                                          k_gran=gran, device=dev)
+                fields = [getattr(cache, f) for f in ("kw", "k_scale", "k_zero", "vw",
+                                                      "v_scale", "v_zero")]
+                for x in fields:  # guard contents: anything but zeros
+                    x.copy_(torch.randint(-2**30, 2**30, x.shape, generator=gen, device=dev)
+                            if x.dtype == torch.int32 else randn(*x.shape))
+                twin, before = [x.clone() for x in fields], [x.clone() for x in fields]
+                n_full = s // bn
+                for arrays, impl in ((fields, "cuda"), (twin, "torch")):
+                    heads = [x[:, :, :n_full] for x in arrays]
+                    kq_ops.quantize_kv_pair(k, v, bits, gran, block_n=bn, out_k=heads[:3],
+                                            out_v=heads[3:], impl=impl)
+                for o, r in zip(fields, twin):
+                    note_err("kv_quant", o, r)
+                if not (all(bitwise(o, r) for o, r in zip(fields, twin)) and all(
+                        bitwise(o[:, :, n_full:], b0[:, :, n_full:])
+                        for o, b0 in zip(fields, before))):
+                    fails.append((bits, gran))
+        check(not fails, f"kv_quant pair into a cache bitwise B={b} H={h} S={s} d={d} "
+                         f"block_n={bn}, bits 2/4/8 x both K granularities, guard blocks "
+                         f"unchanged (failed: {fails})")
 
     for b, h, nb, d, bn in ((4, 8, 18, 128, 128), (4, 2, 3, 32, 64)):
         for bits in (2, 4, 8):
@@ -1169,6 +1294,47 @@ def main() -> int:
     n_el = x.numel()
     bound("kv_quant", n_el * 2 + n_el * BITS // 8 + 2 * 2 * b * h * 16 * d, 8 * n_el, F32_OPS_PER_S)
 
+    def time_fill(key, b, h, prompt, d):
+        """K1 at one model's prefill (prompt-long K and V as the model's
+        strided views, their full blocks quantized): K alone (params per
+        channel, fresh outputs; the row's own time is llama3-8b's, timed
+        above), V alone (per token), the pair into a cache's first blocks
+        (what the prefill runs), and the parent's fill (the two launches
+        into fresh outputs and six slice copies), each beside its bound."""
+        st, n_full = stats["kv_quant"], prompt // bn
+        n = n_full * bn
+        k, v = randn(b, prompt, h, d).transpose(1, 2), randn(b, prompt, h, d).transpose(1, 2)
+        cache = qcache.init_cache(b, h, d, prompt + bn, device=dev)
+        heads = [getattr(cache, f)[:, :, :n_full] for f in ("kw", "k_scale", "k_zero", "vw",
+                                                              "v_scale", "v_zero")]
+        calls = {
+            "": lambda: kq_ops.quantize_kv(k[:, :, :n], BITS, "channel", block_n=bn),
+            "v_": lambda: kq_ops.quantize_kv(v[:, :, :n], BITS, "tensor", block_n=bn),
+            "pair_": lambda: kq_ops.quantize_kv_pair(k[:, :, :n], v[:, :, :n], BITS, "channel",
+                                                     block_n=bn, out_k=heads[:3], out_v=heads[3:]),
+            "fill_parent_": lambda: parent_fill(cache, k, v, n_full, "cuda"),
+        }
+        el = b * h * n * d
+        k_bytes = el * 2 + el * BITS // 8 + 2 * 2 * b * h * n_full * d
+        v_bytes = el * 2 + el * BITS // 8 + 2 * 2 * b * h * n_full * bn
+        for part, call in calls.items():
+            if key or part:  # llama3-8b's K alone is the row's own time
+                st[key + part + "ms"] = time_ms(call)
+            nbytes = {"": k_bytes, "v_": v_bytes}.get(part, k_bytes + v_bytes)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = 8 * el * (1 if part in ("", "v_") else 2) / F32_OPS_PER_S * 1e3
+            st[key + part + "bound_ms"] = max(t_bytes, t_ops)
+        st[key + "shape"] = dict(B=b, H_kv=h, tokens=n, d=d, bits=BITS, block_n=bn)
+        log(f"  time kv_quant {key or 'llama3_'}{st[key + 'shape']}: K alone "
+            f"{st[key + 'ms'] * 1e3:.1f} us, V alone {st[key + 'v_ms'] * 1e3:.1f} us, the pair "
+            f"into the cache {st[key + 'pair_ms'] * 1e3:.1f} us, the parent's fill (2 launches, "
+            f"6 copies) {st[key + 'fill_parent_ms'] * 1e3:.1f} us; bounds "
+            f"{st[key + 'bound_ms'] * 1e3:.2f} / {st[key + 'v_bound_ms'] * 1e3:.2f} / "
+            f"{st[key + 'pair_bound_ms'] * 1e3:.2f} us (bytes)")
+
+    time_fill("", b, h, max(PROMPT_LENS), d)
+    time_fill("gemma_", 4, 16, max(FAMILY_PROMPT_LENS), 256)
+
     nb = -(-(max(PROMPT_LENS) + DECODE_STEPS) // bn)
     packed = [*kq_ops.quantize_kv(randn(b, h, nb * bn, d), BITS, "channel", block_n=bn),
               *kq_ops.quantize_kv(randn(b, h, nb * bn, d), BITS, "tensor", block_n=bn)]
@@ -1413,7 +1579,8 @@ def main() -> int:
             **{k: v for k, v in st.items() if k in ("ms_no_flush", "plain_ms_no_flush",
                                                     "num_splits", "shape")
                or k.startswith(("gemma_", "long_", "starcoder2_", "unfused_", "flush_mode_",
-                                "bound_ms_no_flush", "launch_floor"))
+                                "bound_ms_no_flush", "launch_floor", "v_", "pair_",
+                                "fill_parent_"))
                or k in ("tflops", "share_of_bound", "vs_library")},
         })
     total_s = time.perf_counter() - t_start

@@ -122,22 +122,20 @@ def append_decode(cache: QuantKVCache, k_new, v_new, *, quant_impl: str = "auto"
 
 
 def _quantize_full_region(cache: QuantKVCache, k, v, n_full: int, quant_impl: str):
-    """Quantize + pack the first ``n_full`` blocks of a prefill into the
-    packed fields (in place)."""
+    """Quantize + pack the first ``n_full`` blocks of a prefill straight into
+    the packed fields (in place): one launch for K and V on the card."""
     if not n_full:
         return
     n = n_full * cache.block_n
-    for (w_dst, s_dst, z_dst), x, gran in (
-        ((cache.kw, cache.k_scale, cache.k_zero), k, cache.k_gran),
-        ((cache.vw, cache.v_scale, cache.v_zero), v, "tensor"),
-    ):
-        w, s, z = kvq_ops.quantize_kv(
-            x[:, :, :n], cache.bits, gran, block_n=cache.block_n,
-            param_dtype=s_dst.dtype, impl=quant_impl,
-        )
-        w_dst[:, :, :n_full] = w
-        s_dst[:, :, :n_full] = s
-        z_dst[:, :, :n_full] = z
+
+    def head(*fields):
+        return tuple(getattr(cache, f)[:, :, :n_full] for f in fields)
+
+    kvq_ops.quantize_kv_pair(
+        k[:, :, :n], v[:, :, :n], cache.bits, cache.k_gran, block_n=cache.block_n,
+        out_k=head("kw", "k_scale", "k_zero"), out_v=head("vw", "v_scale", "v_zero"),
+        impl=quant_impl,
+    )
 
 
 def prefill(cache: QuantKVCache, k, v, *, lengths=None,

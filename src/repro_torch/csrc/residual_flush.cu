@@ -30,10 +30,11 @@
 //    shuffles within the lanes of one token (per token).  Then every thread
 //    packs words from shared memory.
 //  * Bitwise contract with the plain version (core/quantizer.py), as K1's
-//    quant_tile.cuh: scale = bf16(max(__fdiv_rn(max - min, qmax), 1e-6)),
-//    zero = bf16(min), q = clip(rintf(__fdiv_rn(x - zero, scale)), 0, qmax)
-//    with the params rounded to bf16 first; no reciprocal, no fast math.  A
-//    flushed block equals the block K1 packs from the same tokens.
+//    (kv_quant.cu; the params from common.cuh's commit_params): scale =
+//    bf16(max(__fdiv_rn(max - min, qmax), 1e-6)), zero = bf16(min), q =
+//    clip(rintf(__fdiv_rn(x - zero, scale)), 0, qmax) with the params rounded
+//    to bf16 first; no reciprocal, no fast math.  A flushed block equals the
+//    block K1 packs from the same tokens.
 //  * Append, the new token: every CTA loads its chunk of it before the
 //    lengths are known; the CTA of group 0 writes it into the residual, and
 //    every CTA that flushes stages it from that chunk, never from the residual
@@ -74,24 +75,6 @@ struct FlushArgs {
   int32_t* arrive;      // append: [B] counter, zero between launches
   int H, n_cells, block_n, d[2], k_channel, groups, nb_max, table_ld, paged;
 };
-
-__device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
-  const uint32_t v[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    f[2 * e] = __uint_as_float(v[e] << 16);
-    f[2 * e + 1] = __uint_as_float(v[e] & 0xffff0000u);
-  }
-}
-
-// the params of one channel or token, kept in shared memory as the floats
-// the quantize divides by (bf16 values: stored later from there, exactly)
-__device__ __forceinline__ void commit_params(float mn, float mx, int qmax, float* s_sm,
-                                              float* z_sm) {
-  const float s = fmaxf(__fdiv_rn(__fsub_rn(mx, mn), (float)qmax), 1e-6f);
-  *s_sm = bf2f(__float2bfloat16_rn(s));
-  *z_sm = bf2f(__float2bfloat16_rn(mn));
-}
 
 // arrive on a row's counter: release-ordered after this thread's reads of
 // the lengths; the count before it is only waited for where it is used

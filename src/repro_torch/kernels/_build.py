@@ -38,8 +38,8 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # kernel name -> C entry point and its signature (see csrc/*.cu)
 _SIGNATURES = {
-    "kv_quant": ("kv_quant_launch", [_P, _L, _L, _L, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _I, _I, _P]),
+    # K alone or K and V: the tensors, then a host array of their strides
+    "kv_quant": ("kv_quant_launch", [_P] * 9 + [_I] * 9 + [_P]),
     # both modes of both caches: one entry point, counted as dense or paged
     "residual_flush": ("residual_flush_launch", [_P] * 17 + [_L] * 4 + [_I] * 12 + [_P]),
     "bitdecode": ("bitdecode_launch", [_P] * 13 + [_I] * 11 + [_F, _P]),

@@ -50,9 +50,16 @@ def randn(gen, shape, device, dtype=torch.bfloat16):
     return torch.randn(shape, generator=gen, device=device).to(dtype)
 
 
+# (B, H, S, d, block_n): every cache width of the configs (zamba2-7b's 112,
+# the MLA latents 160 and 576) and block sizes 32-128
+KV_QUANT_SHAPES = [(2, 2, 3 * 64, 32, 64), (2, 3, 4 * 32, 64, 32), (2, 3, 2 * 128, 112, 128),
+                   (2, 8, 4 * 128, 128, 128), (2, 2, 3 * 64, 160, 64), (2, 4, 2 * 128, 256, 128),
+                   (1, 2, 2 * 128, 576, 128)]
+
+
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("gran", ["channel", "tensor"])
-@pytest.mark.parametrize("shape", [(2, 2, 3 * 64, 32, 64), (2, 8, 4 * 128, 128, 128)])
+@pytest.mark.parametrize("shape", KV_QUANT_SHAPES)
 def test_kv_quant_kernel_matches_plain_bitwise(cuda, bits, gran, shape):
     b, h, s, d, block_n = shape
     gen = torch.Generator(device=cuda).manual_seed(bits)
@@ -61,6 +68,65 @@ def test_kv_quant_kernel_matches_plain_bitwise(cuda, bits, gran, shape):
     ref = kq_ops.quantize_kv(x, bits, gran, block_n=block_n, impl="torch")
     for o, r in zip(out, ref):
         np.testing.assert_array_equal(bits_of(o), bits_of(r))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("k_gran", ["channel", "tensor"])
+@pytest.mark.parametrize("d", [64, 128, 256, 576])
+def test_kv_quant_pair_kernel_writes_the_cache_like_the_plain_pair(cuda, d, bits, k_gran):
+    """One launch of the pair into the first n_full blocks of an init_cache
+    cache equals the plain pair bit for bit; the guard blocks past n_full
+    keep what they held."""
+    b, h, block_n, n_full = 2, 3, 128, 3
+    gen = torch.Generator(device=cuda).manual_seed(bits + d)
+    k = randn(gen, (b, n_full * block_n, h, d), cuda).transpose(1, 2)
+    v = randn(gen, (b, n_full * block_n, 2 * h, d), cuda)[:, :, h:].transpose(1, 2)
+    cache = qcache.init_cache(b, h, d, (n_full + 2) * block_n, bits=bits, block_n=block_n,
+                              k_gran=k_gran, device=cuda)
+    fields = ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero")
+    for f in fields:  # guard contents: anything but zeros
+        x = getattr(cache, f)
+        x.copy_(torch.randint(-2**30, 2**30, x.shape, generator=gen, device=cuda)
+                if x.dtype == torch.int32 else randn(gen, x.shape, cuda))
+    twin = [getattr(cache, f).clone() for f in fields]
+    before = [x.clone() for x in twin]
+    heads = [getattr(cache, f)[:, :, :n_full] for f in fields]
+    _build.launches.clear()
+    kq_ops.quantize_kv_pair(k, v, bits, k_gran, block_n=block_n, out_k=heads[:3],
+                            out_v=heads[3:], impl="cuda")
+    assert dict(_build.launches) == {"kv_quant": 1}
+    heads = [x[:, :, :n_full] for x in twin]
+    kq_ops.quantize_kv_pair(k, v, bits, k_gran, block_n=block_n, out_k=heads[:3],
+                            out_v=heads[3:], impl="torch")
+    for f, want, b0 in zip(fields, twin, before):
+        got = getattr(cache, f)
+        np.testing.assert_array_equal(bits_of(got), bits_of(want))
+        np.testing.assert_array_equal(bits_of(got[:, :, n_full:]), bits_of(b0[:, :, n_full:]))
+
+
+def test_kv_quant_kernel_refuses_what_it_cannot_take_on_the_card(cuda):
+    """A head dim it has no instance for, a non-bf16 input, out views with a
+    channel stride other than 1 and out views off the card raise before a
+    launch; a CPU tensor under impl='cuda' raises: no fallback."""
+    x = torch.zeros((1, 2, 128, 128), dtype=torch.bfloat16, device=cuda)
+    out = kq_ops.quantize_kv(x, 4, "channel", block_n=64, impl="cuda")
+    _build.launches.clear()
+    for bad in (torch.zeros((1, 2, 128, 100), dtype=torch.bfloat16, device=cuda),
+                torch.zeros((1, 2, 128, 584), dtype=torch.bfloat16, device=cuda), x.float()):
+        with pytest.raises(ValueError):
+            kq_ops.quantize_kv(bad, 4, "channel", block_n=64)
+    wide = kq_ops.quantize_kv(torch.zeros((1, 2, 128, 256), dtype=torch.bfloat16, device=cuda),
+                              4, "channel", block_n=64)
+    _build.launches.clear()
+    with pytest.raises(ValueError, match="unit channel stride"):
+        kq_ops.quantize_kv(x, 4, "channel", block_n=64, out=tuple(t[..., ::2] for t in wide))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kq_ops.quantize_kv(x, 4, "channel", block_n=64, out=tuple(t.cpu() for t in out))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kq_ops.quantize_kv_pair(x, x.cpu(), 4, "channel", block_n=64, out_k=out, out_v=out)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kq_ops.quantize_kv(x.cpu(), 4, "channel", block_n=64, impl="cuda")
+    assert not _build.launches
 
 
 def _packed(gen, device, *, b, h, nb, block_n, d, bits, k_gran, v_off=0.0):
@@ -198,6 +264,7 @@ def test_smoke_model_kernels_match_plain(cuda, arch):
         out_k, s_k = run("auto", [o[:, -1].argmax(-1)[:, None] for o in out_t])
     assert min(_build.launches[k] for k in ("kv_quant", "residual_flush", "bitdecode",
                                             "flash_prefill")) > 0
+    assert _build.launches["kv_quant"] == cfg.n_layers  # K and V: one launch a layer
     for a, b in zip(out_k, out_t):
         torch.testing.assert_close(a, b, rtol=2e-2, atol=3e-1)
     ct, ck = s_t["caches"][0], s_k["caches"][0]
@@ -573,6 +640,34 @@ def test_append_decode_is_one_launch(cuda, paged, with_mask):
     assert dict(_build.launches) == {name: 1}
     assert sum(kernels.values()) == 1 and "residual_flush" in next(iter(kernels)), kernels
     assert cache.res_len.tolist() == ([2, 0, 2, 2] if with_mask else [2] * b)
+
+
+def test_prefill_layer_quantizes_k_and_v_in_one_launch(cuda):
+    """A layer's prefill fills the packed cache with one device kernel: the
+    pair's launch, no copy around it.  (Profiled with CPU and CUDA
+    activities, after the append tests' CUDA-only profiles: with torch 2.11,
+    a CUDA-only profile followed by much other work leaves the later
+    CUDA-only profiles of the process without device events.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    b, h, d, block_n, n_full = 4, 8, 128, 128, 3
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    k = randn(gen, (b, n_full * block_n + 5, h, d), cuda).transpose(1, 2)
+    v = randn(gen, (b, n_full * block_n + 5, h, d), cuda).transpose(1, 2)
+    cache = qcache.init_cache(b, h, d, 4 * block_n, device=cuda)
+    qcache._quantize_full_region(cache, k, v, n_full, "auto")  # warm-up: the build
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        qcache._quantize_full_region(cache, k, v, n_full, "auto")
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    assert dict(_build.launches) == {"kv_quant": 1}
+    assert sum(kernels.values()) == 1 and "kv_quant" in next(iter(kernels)), kernels
+    _build.launches.clear()
+    qcache.prefill(cache, k, v)
+    assert _build.launches["kv_quant"] == 1
 
 
 @pytest.mark.parametrize("k_gran", ["channel", "tensor"])

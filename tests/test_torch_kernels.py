@@ -40,14 +40,66 @@ def bf16_pair(a: np.ndarray):
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("gran", ["channel", "tensor"])
-def test_kv_quant_plain_matches_jax_bitwise(bits, gran):
+@pytest.mark.parametrize("d", [32, 112, 160])  # 112: zamba2-7b's head; 160: the MLA smoke latent
+def test_kv_quant_plain_matches_jax_bitwise(bits, gran, d):
     rng = np.random.default_rng(bits)
-    x = rng.standard_normal((2, 2, 3 * 64, 32)).astype(np.float32)
+    x = rng.standard_normal((2, 2, 3 * 64, d)).astype(np.float32)
     xj, xt = bf16_pair(x)
     ref = jkq_ref.quantize_kv_ref(xj, bits, gran, block_n=64)
     out = kq_ops.quantize_kv(xt, bits, gran, block_n=64)
     for o, r in zip(out, ref):
         np.testing.assert_array_equal(bits_of(o), bits_of(from_jax(r)))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("k_gran", ["channel", "tensor"])
+def test_kv_quant_pair_plain_writes_the_cache_like_two_jax_calls(bits, k_gran):
+    """The pair's plain version, writing the first n_full blocks of a larger
+    cache buffer through its views, equals two JAX quantize_kv_ref calls bit
+    for bit; the blocks past n_full keep what they held."""
+    rng = np.random.default_rng(200 + bits)
+    b, h, d, block_n, n_full, nb = 2, 3, 64, 64, 2, 4
+    k, v = (rng.standard_normal((b, h, n_full * block_n, d)).astype(np.float32) for _ in range(2))
+    npr = block_n * bits // 32
+    n_k = d if k_gran == "channel" else block_n
+    cache = [torch.from_numpy(rng.integers(-2**31, 2**31, (b, h, nb, npr, d), dtype=np.int64)
+                              .astype(np.int32)),
+             torch.from_numpy(rng.standard_normal((b, h, nb, n_k))).to(torch.bfloat16),
+             torch.from_numpy(rng.standard_normal((b, h, nb, n_k))).to(torch.bfloat16),
+             torch.from_numpy(rng.integers(-2**31, 2**31, (b, h, nb, npr, d), dtype=np.int64)
+                              .astype(np.int32)),
+             torch.from_numpy(rng.standard_normal((b, h, nb, block_n))).to(torch.bfloat16),
+             torch.from_numpy(rng.standard_normal((b, h, nb, block_n))).to(torch.bfloat16)]
+    before = [c.clone() for c in cache]
+    heads = [c[:, :, :n_full] for c in cache]
+    (kj, kt), (vj, vt) = bf16_pair(k), bf16_pair(v)
+    kq_ops.quantize_kv_pair(kt, vt, bits, k_gran, block_n=block_n, out_k=heads[:3],
+                            out_v=heads[3:])
+    want = [*jkq_ref.quantize_kv_ref(kj, bits, k_gran, block_n=block_n),
+            *jkq_ref.quantize_kv_ref(vj, bits, "tensor", block_n=block_n)]
+    for got, w, b0 in zip(cache, want, before):
+        np.testing.assert_array_equal(bits_of(got[:, :, :n_full]), bits_of(from_jax(w)))
+        np.testing.assert_array_equal(bits_of(got[:, :, n_full:]), bits_of(b0[:, :, n_full:]))
+
+
+@pytest.mark.parametrize("change, match", [
+    (dict(d=100), "head dims"), (dict(d=584), "head dims"),
+    (dict(dtype=torch.float32), "bf16 inputs"), (dict(out_stride=2), "unit channel stride"),
+    (dict(param_dtype=torch.float32), "bf16"), (dict(block_n=512), "block_n")])
+def test_kv_quant_kernel_refuses_what_it_cannot_take(change, match):
+    """The CUDA path's checks run before any build or launch: a head dim that
+    is not a multiple of 8 or above 576, a non-bf16 input or params, out
+    views with a channel stride other than 1, a block past 256 tokens."""
+    d, block_n = change.get("d", 64), change.get("block_n", 64)
+    x = torch.zeros((1, 2, 2 * block_n, d), dtype=change.get("dtype", torch.bfloat16))
+    out = None
+    if "out_stride" in change:
+        wide = kq_ops.quantize_kv(torch.zeros((1, 2, 2 * block_n, 2 * d), dtype=torch.bfloat16),
+                                  4, "channel", block_n=block_n, impl="torch")
+        out = tuple(t[..., ::2] for t in wide)
+    with pytest.raises(ValueError, match=match):
+        kq_ops.quantize_kv_cuda(x, 4, "channel", block_n=block_n, out=out,
+                                param_dtype=change.get("param_dtype", torch.bfloat16))
 
 
 # ------------------------------------------------------------ residual_flush
