@@ -54,24 +54,38 @@ Phases:
      implementations), all fed the plain run's token stream; then the
      device time and the count of device kernels of three decode steps
      (torch.profiler), with the fused append and with the unfused one, and
-     of one prefill, with the pair fill and with the parent's fill;
+     of one prefill, with the pair fill and with the parent's fill; then
+     the kernel run's 160 steps again, each one replay of the decode step
+     captured as a CUDA graph (``serve.async_runtime.CapturedDecodeStep``),
+     its argmax and final caches bit for bit equal to the eager kernel
+     run's, ms/step beside the eager step's, and one replay's device
+     kernels against one eager step's under the profiler;
   4. the serving path end to end: the same model behind ``ServeEngine``
      (4 slots, max_seq 4096), ten staggered requests with a shared prefix
      and a copy-on-write pair, all on the kernels: (a) worst-case
      reservations with prefix sharing, (b) an oversubscribed pool that
      preempts, bit for bit equal to (a), (c) no prefix sharing, (d) the
      dense kernel path fed (c)'s token streams, within the decode tolerance
-     of (c)'s logits; every run audited every cycle; then three engine
-     cycles of four decoding slots under the profiler, as in phase 3;
+     of (c)'s logits; (e) and (f): (a) and (b) on the async runtime (two
+     decode steps in flight, each one graph replay), token streams and
+     terminal phases bit for bit equal to (a)'s, (f) preempting, every
+     completion recorded once, tokens/s, TTFT, TPOT and the overlap-aware
+     host_stall_fraction beside (a)'s; every run audited every cycle; then
+     three engine cycles of four decoding slots under the profiler, as in
+     phase 3.  Launches of a captured step are counted at the capture: a
+     path's count is the capture's count times the replays;
   5. gemma-7b at full width and depth (28 layers, head_dim 256, 16/16
      heads, GeGLU, (1 + w) RMSNorm, tied scaled embeddings): the dense loop
-     as in phase 3 (plain vs kernels, every row flushing), then runs (a) and
-     (b) of the serve workload, (b) bit for bit equal to (a);
+     as in phase 3 (plain vs kernels, every row flushing), then runs (a),
+     (b) and (e) of the serve workload, (b) and (e) bit for bit equal to
+     (a) (d = 256 instances of paged_bitdecode and the append under
+     capture);
   6. the dense loop, plain vs kernels, at full width: starcoder2-3b at full
      depth (30 layers; LayerNorm, GELU, biases, 12 query heads per KV head)
      and command-r-35b cut to 8 of its 40 layers (parallel residual, tied
      embeddings; its ~61 GB of bf16 weights leave too little room on one
      80 GB card for the plain comparison);
+  then ``repro_torch.launch.serve --async-runtime`` once at the smoke width;
   7. a JSON line per kernel, the card's name and power limit, and the
      result line.
 
@@ -154,6 +168,7 @@ FAMILY = (("gemma-7b", {}), ("starcoder2-3b", {}), ("command-r-35b", {"n_layers"
 SERVE_SLOTS, SERVE_MAX_SEQ = 4, 4096
 SERVE_STAGGER = 8  # cycles between submissions after the first SERVE_SLOTS
 SHARED_PREFIX = 1024  # 8 blocks shared by the four prefix sharers
+ASYNC_WINDOW = 2  # runs (e), (f): decode steps in flight
 
 
 def serve_workload(vocab: int, seed: int = 7) -> list:
@@ -181,11 +196,12 @@ def serve_workload(vocab: int, seed: int = 7) -> list:
 
 
 def serve_runs(work) -> dict:
-    """Engine options of runs (a)-(c): (a) worst-case reservations with
-    prefix sharing, audited every cycle; (b) the same in a pool of the
+    """Engine options of runs (a)-(c), (e), (f): (a) worst-case reservations
+    with prefix sharing, audited every cycle; (b) the same in a pool of the
     scratch pages plus half the worst case, expected-case reservations at
     quantile 0 (every decode-time page must be won, so it preempts); (c) no
-    prefix sharing."""
+    prefix sharing; (e) and (f): (a) and (b) on the async runtime, two steps
+    in flight, each decode step one replay of the captured step."""
     worst = SERVE_SLOTS * max((len(p) + n) // BLOCK_N for _, p, n in work)
     base = dict(audit_every=1)
     return {
@@ -193,6 +209,10 @@ def serve_runs(work) -> dict:
         "b": dict(base, share_prefix=True, n_pages=SERVE_SLOTS + -(-worst // 2),
                   reserve_policy="expected", expected_quantile=0.0),
         "c": dict(base, share_prefix=False),
+        "e": dict(base, share_prefix=True, async_runtime=True, async_window=ASYNC_WINDOW),
+        "f": dict(base, share_prefix=True, n_pages=SERVE_SLOTS + -(-worst // 2),
+                  reserve_policy="expected", expected_quantile=0.0, async_runtime=True,
+                  async_window=ASYNC_WINDOW),
     }
 
 
@@ -213,9 +233,12 @@ def drive_engine(engine, work):
         cycle += 1
         if pending and cycle % SERVE_STAGGER == 0:
             engine.submit(pending.pop(0))
+    if engine._completions is not None:
+        engine._completions.drain()  # every completion recorded
+    wall = _time.perf_counter() - t0
     if engine.audit_every:
         engine.audit().raise_if_violations()
-    return reqs, engine.summary(wall_s=_time.perf_counter() - t0)
+    return reqs, engine.summary(wall_s=wall)
 
 
 def log(msg: str) -> None:
@@ -303,15 +326,17 @@ def build_random(name: str, dev, **change):
     return cfg, model, params, n
 
 
-def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=False) -> dict:
+def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=False,
+                captured=False) -> dict:
     """The dense loop end to end: the ragged prompts prefilled into the
     4-bit cache and ``steps`` greedy decode steps, once on the plain
     versions and once on the kernels fed the plain run's tokens (and, with
     ``split3``, once more on the plain versions split three ways).  Checks
     that every kernel of the path was launched, the logits at prefill and
     around the first flush within rtol 2e-2 / atol 3e-1, every row flushed,
-    and layer 0's cache bit for bit.  Returns the report and the kernels'
-    launches in the kernel run."""
+    and layer 0's cache bit for bit.  With ``captured``, the kernel run's
+    steps once more as replays of the captured step (:func:`captured_loop`).
+    Returns the report and the kernels' launches in the kernel run."""
     import torch
 
     from repro_torch.kernels import _build
@@ -407,7 +432,79 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
               "mean_kl": fid["kernels"]["mean_kl"], "fidelity_vs_plain": fid, "batch": b,
               "prompt_lens": list(prompt_lens), "decode_steps": steps,
               "layers": cfg.n_layers, "launches": launches}
+    if captured:
+        report["captured"] = captured_loop(model, params, cfg, check, tokens, lengths, steps,
+                                           feed, lg_k, st_k, step_k)
     return report
+
+
+def captured_loop(model, params, cfg, check, tokens, lengths, steps, feed, lg_k, st_k,
+                  step_k) -> dict:
+    """The dense loop's decode steps once more, each one replay of the
+    captured step (``serve.async_runtime.CapturedDecodeStep``) over a fresh
+    prefill on the kernels, fed the eager kernel run's tokens: its argmax
+    at every step and its whole final state must equal the eager kernel
+    run's bit for bit.  Launches are counted at the capture: the capture's
+    count of each kernel times the replays.  Then one replay and one eager
+    run of the captured body under the profiler: the same device kernels."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.serve.async_runtime import CapturedDecodeStep
+
+    name = cfg.name
+    with torch.no_grad():
+        _, state = model.prefill(params, {"tokens": tokens}, tokens.shape[1] + steps,
+                                 lengths=lengths)
+        t0 = time.perf_counter()
+        step = CapturedDecodeStep(model, params, state)
+        t_capture = time.perf_counter() - t0
+        _build.launches.clear()
+        nxt = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step.tokens.copy_(feed[i])
+            step.replay()
+            nxt.append(step.nxt.clone())
+        torch.cuda.synchronize()
+        step_g = (time.perf_counter() - t0) / steps
+        eager_counted = dict(_build.launches)
+    got, want = torch.stack(nxt), lg_k[1:].argmax(-1).to(torch.int32)
+    check(torch.equal(got, want), f"{name} captured: the argmax of all {steps} replays equals "
+                                  "the eager kernel run's bit for bit")
+    same = [bitwise(getattr(a, f), getattr(b, f)) for a, b in zip(state["caches"], st_k["caches"])
+            for f in ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero", "k_res", "v_res",
+                      "pack_blocks", "res_len", "arrive")]
+    check(all(same) and torch.equal(state["pos"], st_k["pos"]),
+          f"{name} captured: every layer's cache and pos after {steps} replays bitwise equal "
+          "to the eager kernel run's")
+    launches = step.launches
+    check(all(step.capture_launches.get(k, 0) == cfg.n_layers
+              for k in ("bitdecode", "residual_flush", "bitdecode_merge"))
+          and not eager_counted and step.replays == steps,
+          f"{name} captured: one capture, {steps} replays; the capture counts each decode "
+          f"kernel once a layer ({dict(step.capture_launches)}), the replays count nothing "
+          f"({eager_counted}): launches = capture x replays = {launches}")
+    log(f"  {name} decode, captured: {step_g * 1e3:.2f} ms/step against the eager kernels' "
+        f"{step_k * 1e3:.2f} ms/step (B={tokens.shape[0]}); capture with warm-up "
+        f"{t_capture:.2f} s")
+    prof = {"replay": profile_steps(step.replay, 1), "eager": profile_steps(step._body, 1)}
+    for how, p in prof.items():
+        log(f"  {name} captured step, one {how} (torch.profiler): {p['kernels_per_step']:.0f} "
+            f"device kernels, {p['all_ms_per_step']:.3f} ms of kernels, "
+            f"{p['wall_ms_per_step_profiled']:.2f} ms under the profiler")
+    if prof["replay"]["all_ms_per_step"] > 0 and prof["eager"]["all_ms_per_step"] > 0:
+        check(prof["replay"]["kernels_per_step"] == prof["eager"]["kernels_per_step"],
+              f"{name} captured: one replay runs the eager step's device kernels "
+              f"({prof['replay']['kernels_per_step']:.0f} vs "
+              f"{prof['eager']['kernels_per_step']:.0f})")
+    else:
+        log(f"  {name} captured: the profiler saw no device time (not measured)")
+    return {"ms_per_step": {"captured": step_g * 1e3, "eager_kernels": step_k * 1e3},
+            "tokens_per_s": tokens.shape[0] / step_g, "capture_s": t_capture,
+            "capture_launches": dict(step.capture_launches), "replays": step.replays,
+            "launches": launches, "profile": prof}
 
 
 @contextlib.contextmanager
@@ -641,13 +738,14 @@ def capture_logits(engine, uids=None, feed=None):
     return rows_of, fed_of
 
 
-def serve_phase(model, params, cfg, check, dev, names="abc") -> dict:
-    """Runs (a)-(c) of the serve workload (those of ``names``) through
-    ``ServeEngine`` on the kernels, then, with (c), run (d): the dense kernel
-    path fed (c)'s token streams as one ragged batch.  Run (c) feeds the
-    prefix sharers (a)'s token streams (teacher forcing through the step
-    function), so their logits with and without sharing compare step for
-    step.  Returns the launches of run (a) and a report."""
+def serve_phase(model, params, cfg, check, dev, names="abcef", profile_replay=True) -> dict:
+    """Runs (a)-(c), (e), (f) of the serve workload (those of ``names``)
+    through ``ServeEngine`` on the kernels, then, with (c), run (d): the
+    dense kernel path fed (c)'s token streams as one ragged batch.  Run (c)
+    feeds the prefix sharers (a)'s token streams (teacher forcing through
+    the step function), so their logits with and without sharing compare
+    step for step.  Runs (e) and (f), the async runtime, must equal (a) bit
+    for bit.  Returns the launches of runs (a) and (e) and a report."""
     import torch
 
     from repro_torch.kernels import _build
@@ -659,7 +757,7 @@ def serve_phase(model, params, cfg, check, dev, names="abc") -> dict:
         warm = ServeEngine(model, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=dev)
         drive_engine(warm, [(0, work[1][1][:300], 4)])
         del warm
-    runs, launches = {}, {}
+    runs, launches, async_launches = {}, {}, {}
     for name, kw in serve_runs(work).items():
         if name not in names:
             continue
@@ -679,6 +777,12 @@ def serve_phase(model, params, cfg, check, dev, names="abc") -> dict:
             check(False, f"run ({name}): audit failed: {err}")
             continue
         torch.cuda.synchronize()
+        counted = dict(_build.launches)
+        if engine._runner is not None:
+            counted = async_checks(engine, name, reqs, summ, counted, cfg, check,
+                                   profile_replay=profile_replay and name == "e")
+            if name == "e":
+                async_launches = counted
         if name == "a":
             launches = dict(_build.launches)
             n_kq, calls = launches.get("kv_quant", 0), summ["prefill_calls"]
@@ -693,32 +797,55 @@ def serve_phase(model, params, cfg, check, dev, names="abc") -> dict:
             f"{summ['tpot_p99_ms']:.1f} ms, host_stall_fraction "
             f"{summ['host_stall_fraction']:.3f}, preempted {summ['preempted']}, cow "
             f"{summ['cow_copies']}, prefix hit blocks {summ['sched_prefix_hit_blocks']}, "
-            f"peak {peak:.2f} GiB; launches {dict(_build.launches)}")
-        log(f"    phase seconds {summ['phase_s']}")
+            f"discarded steps {summ['discarded_steps']}, peak {peak:.2f} GiB; launches {counted}")
+        ph = summ["phase_s"]
+        log(f"    phase seconds {ph}; a decode cycle (cycle time less prefill, over the "
+            f"cycles) {(ph['cycle'] - ph['prefill']) / max(1, summ['steps']) * 1e3:.2f} ms")
         check(all(r.phase is Phase.DONE for r in reqs), f"run ({name}): all {len(reqs)} requests DONE")
         check(pool.n_free == pool.capacity and pool.reserved == 0,
               f"run ({name}): pool drained ({pool.n_free}/{pool.capacity} free, "
               f"{pool.reserved} reserved)")
-        if name in "ab":
+        if name in "abef":
             check(summ["cow_copies"] > 0 and summ["sched_prefix_hit_blocks"] > 0,
                   f"run ({name}): copy on write ({summ['cow_copies']}) and prefix hits "
                   f"({summ['sched_prefix_hit_blocks']} blocks)")
-        runs[name] = dict(out={r.uid: list(r.out_tokens) for r in reqs}, rows=rows, fed=fed,
-                          peak=peak, summary=summ)
+        runs[name] = dict(out={r.uid: list(r.out_tokens) for r in reqs},
+                          phases={r.uid: r.phase for r in reqs}, rows=rows, fed=fed,
+                          peak=peak, summary=summ, launches=counted)
+        engine.close()
         del engine
     report = {n: {k: r["summary"][k] for k in (
         "steps", "decoded_tokens", "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
         "tpot_p99_ms", "host_stall_fraction", "preempted", "cow_copies",
-        "sched_prefix_hit_blocks", "wall_s", "phase_s")} | {"peak_gib": r["peak"]}
-        for n, r in runs.items()}
-    if not {"a", "b"} <= set(runs):
-        return {"launches": launches, "report": report}
-    a, b = runs["a"], runs["b"]
-    check(b["summary"]["preempted"] > 0, f"run (b) preempted ({b['summary']['preempted']})")
-    diff = [u for u in a["out"] if a["out"][u] != b["out"][u]]
-    check(not diff, f"run (b) token streams equal run (a)'s bit for bit (differ: {diff})")
+        "sched_prefix_hit_blocks", "discarded_steps", "wall_s", "phase_s")}
+        | {"peak_gib": r["peak"], "launches": r["launches"],
+           "replay_profile": r["summary"].get("replay_profile")} for n, r in runs.items()}
+    out = {"launches": launches, "async_launches": async_launches, "report": report}
+    if "a" not in runs:
+        return out
+    a = runs["a"]
+    for name in "bef":
+        if name not in runs:
+            continue
+        r = runs[name]
+        diff = [u for u in a["out"] if a["out"][u] != r["out"][u]
+                or a["phases"][u] != r["phases"][u]]
+        check(not diff, f"run ({name}) token streams and terminal phases equal run (a)'s bit "
+                        f"for bit (differ: {diff})")
+        if name in "bf":
+            check(r["summary"]["preempted"] > 0,
+                  f"run ({name}) preempted ({r['summary']['preempted']})")
+    for name in "ef":
+        if name in runs:
+            ra, re_ = runs["a"]["summary"], runs[name]["summary"]
+            log(f"  run ({name}) against (a), same process: tokens/s {re_['tokens_per_s']:.1f} vs "
+                f"{ra['tokens_per_s']:.1f} ({re_['tokens_per_s'] / ra['tokens_per_s']:.2f}x), "
+                f"TPOT p50 {re_['tpot_p50_ms']:.1f} vs {ra['tpot_p50_ms']:.1f} ms, TTFT p50 "
+                f"{re_['ttft_p50_ms']:.0f} vs {ra['ttft_p50_ms']:.0f} ms, host_stall_fraction "
+                f"{re_['host_stall_fraction']:.3f} (overlap-aware) vs "
+                f"{ra['host_stall_fraction']:.3f}")
     if "c" not in runs:
-        return {"launches": launches, "report": report}
+        return out
     c = runs["c"]
     same = [u for u in (donor, *pair) if a["out"][u] == c["out"][u] == c["fed"][u]]
     check(len(same) == 3, f"donor and copy-on-write pair equal with sharing on and off "
@@ -769,7 +896,68 @@ def serve_phase(model, params, cfg, check, dev, names="abc") -> dict:
         f"dense batch of {len(work)} took {t_dense:.1f} s")
     report["dense_vs_c"] = f | {"request_steps": len(rows_d), "outside_tolerance": fails}
     report["workload"] = [(len(p), n) for _, p, n in work]
-    return {"launches": launches, "report": report}
+    return out
+
+
+def async_checks(engine, name, reqs, summ, counted, cfg, check, *, profile_replay) -> dict:
+    """Checks of an async run: each decode step one replay of the one
+    captured step, the completion ledger exactly once per request.  Returns
+    the run's launches: the eager prefills' as counted, the decode steps'
+    as the capture's count times the replays.  With ``profile_replay``, one
+    replay and one eager run of the captured body under the profiler (late
+    in a long process the profiler drops device events, so gemma-7b's phase
+    does not take it: ``scripts/captured_step_profile.py`` compares them in
+    a fresh process)."""
+    runner = engine._runner
+    step, comp = runner.step_fn, engine._completions
+    n = cfg.n_layers
+    check(step.graph is not None and step.replays == runner.dispatched == summ["steps"]
+          and all(step.capture_launches.get(k, 0) == n for k in
+                  ("paged_bitdecode", "paged_residual_flush", "bitdecode_merge")),
+          f"run ({name}): one capture ({dict(step.capture_launches)}), one replay a decode "
+          f"step ({step.replays} replays, {runner.dispatched} dispatches)")
+    check(sorted(comp.records) == sorted(r.uid for r in reqs) and comp.duplicates == 0
+          and summ["completions_enqueued"] == len(reqs),
+          f"run ({name}): the completion ledger holds every uid once "
+          f"({len(comp.records)} records, {comp.duplicates} duplicates)")
+    total = dict(counted)
+    for k, v in step.launches.items():
+        total[k] = total.get(k, 0) + v
+    for k in SERVE_PATH:
+        check(total.get(k, 0) > 0, f"run ({name}): {k} launched ({total.get(k, 0)}; decode "
+                                   "kernels counted as the capture's count x the replays)")
+    if profile_replay:
+        prof = {"replay": profile_steps(step.replay, 1), "eager": profile_steps(step._body, 1)}
+        for how, p in prof.items():
+            log(f"  run (e) captured step, one {how} (torch.profiler): "
+                f"{p['kernels_per_step']:.0f} device kernels, {p['all_ms_per_step']:.3f} ms of "
+                f"kernels, {p['wall_ms_per_step_profiled']:.2f} ms under the profiler")
+        if prof["replay"]["all_ms_per_step"] > 0 and prof["eager"]["all_ms_per_step"] > 0:
+            check(prof["replay"]["kernels_per_step"] == prof["eager"]["kernels_per_step"],
+                  f"run (e): one replay runs the eager step's device kernels "
+                  f"({prof['replay']['kernels_per_step']:.0f} vs "
+                  f"{prof['eager']['kernels_per_step']:.0f})")
+        else:
+            log("  run (e): the profiler saw no device time (not measured)")
+        summ["replay_profile"] = prof
+    return total
+
+
+def serve_cli(check) -> dict:
+    """``python -m repro_torch.launch.serve --async-runtime`` once, in
+    process, at the smoke width on the card."""
+    from repro_torch.launch import serve as launch_serve
+
+    argv = ["--arch", "llama3-8b", "--smoke", "--async-runtime", "--requests", "8",
+            "--slots", "4", "--prompt-len", "96", "--max-new", "48", "--max-seq", "256",
+            "--shared-prefix-len", "64", "--audit-every", "1"]
+    stats = launch_serve.main(argv)
+    check(stats["decoded_tokens"] == sum(48 + uid % 3 for uid in range(8))
+          and stats["completions_enqueued"] == 8 and stats["budget_retired"] == 8,
+          f"the serve CLI ({' '.join(argv)}): every request DONE ({stats['decoded_tokens']} "
+          "tokens)")
+    return {k: stats[k] for k in ("decoded_tokens", "tokens_per_s", "tpot_p50_ms",
+                                  "host_stall_fraction", "discarded_steps")}
 
 
 def jax_init_witness(dev) -> int:
@@ -1520,7 +1708,8 @@ def main() -> int:
     # ------------------------------------------------------------ 3. end to end
     log("== 3. end to end: llama3-8b, full width and depth")
     cfg, model, params, n_params = build_random("llama3-8b", dev)
-    dense = dense_phase(model, params, cfg, check, dev, PROMPT_LENS, DECODE_STEPS, split3=True)
+    dense = dense_phase(model, params, cfg, check, dev, PROMPT_LENS, DECODE_STEPS, split3=True,
+                        captured=True)
     launches = dict(dense.pop("launches"))
 
     # ------------------------------------------------------------ 4. serve
@@ -1547,29 +1736,39 @@ def main() -> int:
         rep = dense_phase(model, params, cfg, check, dev, FAMILY_PROMPT_LENS, FAMILY_STEPS)
         rep |= {"n_params": n, "cut": cut.lstrip(", ") or None}
         if phase == 5:
-            sv = serve_phase(model, params, cfg, check, dev, names="ab")
+            sv = serve_phase(model, params, cfg, check, dev, names="abe", profile_replay=False)
             for k in SERVE_PATH:
                 cnt = sv["launches"].get(k, 0)
                 check(cnt > 0, f"{name}: {k} launched in serve run (a) ({cnt})")
-            rep |= {"serve": sv["report"], "serve_launches": sv["launches"]}
+            rep |= {"serve": sv["report"], "serve_launches": sv["launches"],
+                    "async_launches": sv["async_launches"]}
         family[name] = rep
         del model, params
         gc.collect()
         torch.cuda.empty_cache()
+
+    # -------------------------------------------------------------- the CLI
+    log("== the serve CLI, async runtime, smoke llama3-8b")
+    cli = serve_cli(check)
 
     # ------------------------------------------------------------ 7. summary
     rows = []
     for name, meta in KERNELS.items():
         st = stats[name]
         by_path = {"llama3-8b dense": launches.get(name, 0) if name in DENSE_PATH else 0,
-                   "llama3-8b serve (a)": serve["launches"].get(name, 0)}
+                   "llama3-8b dense captured": dense["captured"]["launches"].get(name, 0),
+                   "llama3-8b serve (a)": serve["launches"].get(name, 0),
+                   "llama3-8b serve (e), async": serve["async_launches"].get(name, 0)}
         for fam, rep in family.items():
             by_path[f"{fam} dense"] = rep["launches"].get(name, 0)
             if "serve_launches" in rep:
                 by_path[f"{fam} serve (a)"] = rep["serve_launches"].get(name, 0)
+                by_path[f"{fam} serve (e), async"] = rep["async_launches"].get(name, 0)
         rows.append({
             "name": name, "route": "cuda", **meta, "launches": launches.get(name, 0),
-            "serve_launches": serve["launches"].get(name, 0), "launches_by_path": by_path,
+            "serve_launches": serve["launches"].get(name, 0),
+            "async_launches": serve["async_launches"].get(name, 0),
+            "launches_by_path": by_path,
             "parity": "bitwise" if name in BITWISE else TOLERANCE[name],
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
@@ -1585,6 +1784,7 @@ def main() -> int:
         })
     total_s = time.perf_counter() - t_start
     print(json.dumps({"kernels": rows, "e2e": dense, "serve": serve["report"], "family": family,
+                      "cli": cli,
                       "n_params": n_params, "build_s": _build.build_seconds,
                       "total_s": total_s}), flush=True)
     log(f"  chip_smoke took {total_s:.1f} s, the build {_build.build_seconds:.1f} s of it")

@@ -27,10 +27,11 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core import layout, quantizer
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import resolve_device, upload
 from repro_torch.kernels.kv_quant import ops as kvq_ops
 from repro_torch.kernels.residual_flush import ops as rf_ops
 
@@ -312,12 +313,19 @@ def _page_axis(arr, field: str) -> int:
     return arr.ndim - _PAGED_POOL_BASE_RANK[field]
 
 
+def _index(x, device) -> torch.Tensor:
+    """Page indices as int64 on ``device``: a tensor as given, host values
+    uploaded without waiting on the card (``core.device.upload``)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.long)
+    return upload(np.asarray(x, np.int64), device)
+
+
 def copy_pages(cache: PagedQuantKVCache, src, dst) -> PagedQuantKVCache:
     """Copy-on-write primitive, in place: pool page ``dst[i]`` becomes a
     bitwise replica of ``src[i]`` in all six pool fields and every stacked
     layer.  ``dst`` entries are pairwise distinct and disjoint from ``src``."""
-    src = torch.as_tensor(src, dtype=torch.long, device=cache.kw.device)
-    dst = torch.as_tensor(dst, dtype=torch.long, device=cache.kw.device)
+    src, dst = (_index(x, cache.kw.device) for x in (src, dst))
     for f in _PAGED_POOL_FIELDS:
         pool = getattr(cache, f)
         ax = _page_axis(pool, f)
@@ -335,7 +343,7 @@ def dequant_prior(cache: PagedQuantKVCache, pages):
     layout ``core.attention.prefix_suffix_attention`` takes.  Pool K is
     stored after RoPE, so the prior needs no position re-applied."""
 
-    idx = torch.as_tensor(pages, dtype=torch.long, device=cache.kw.device)
+    idx = _index(pages, cache.kw.device)
 
     def gather(field: str):
         arr = getattr(cache, field)

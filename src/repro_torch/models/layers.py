@@ -73,13 +73,19 @@ def silu(x):
     return x * (1 / (1 + torch.exp(-x)))
 
 
+def const(value: float, x) -> torch.Tensor:
+    """``value`` rounded to x's dtype, as a 0-d tensor on x's device.  It is
+    filled on the device, not copied from the host, so it neither waits on
+    the card nor breaks a CUDA graph capture."""
+    return torch.full((), value, dtype=x.dtype, device=x.device)
+
+
 def gelu(x):
     """The tanh form of GELU as XLA evaluates a bf16 ``jax.nn.gelu``: the
     constants rounded to x's dtype, ``x ** 3`` as two products, every op
     rounded to x's dtype.  On every normal bf16 input it equals JAX bit for
     bit (XLA flushes subnormals to zero; PyTorch keeps them)."""
-    c = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
-    k = torch.tensor((2.0 / math.pi) ** 0.5, dtype=x.dtype, device=x.device)
+    c, k = const(0.044715, x), const((2.0 / math.pi) ** 0.5, x)
     return x * ((torch.tanh((x + x * x * x * c) * k) + 1.0) * 0.5)
 
 

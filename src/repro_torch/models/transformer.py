@@ -94,7 +94,7 @@ class DecoderLM:
     def _embed(self, params, tokens):
         x = layers.embed(params["embed"], tokens)
         if self.cfg.embed_scale:  # the scale rounded to x's dtype first, as in JAX
-            x = x * torch.tensor(self.cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+            x = x * layers.const(self.cfg.d_model**0.5, x)
         return x
 
     def _logits(self, params, x):

@@ -22,6 +22,14 @@ The engine composes the serving pieces into one cycle (:meth:`ServeEngine.step`)
 4. read the logits once (the cycle's one device sync), advance per-token
    accounting, retire finished requests.
 
+``async_runtime=True`` replaces this stop-the-world cycle with the
+overlapped runtime (:mod:`repro_torch.serve.async_runtime`): each decode
+step is one replay of a captured CUDA graph, the next token is taken on the
+card and fed back there, the host consumes a step's results up to
+``async_window`` steps behind its dispatch, and finished requests go to a
+background completion thread.  Its token streams equal this cycle's bit for
+bit; the sync cycle stays eager and is the oracle.
+
 Idle slots decode garbage into their own scratch pages (their table rows
 point there): wasted lanes, never corruption.
 
@@ -42,9 +50,9 @@ matrix product's kernel by shape, and a row's result is then a function of
 that row alone: a preempted request rebuilds its prefill bit for bit.
 
 Not ported yet, and refused with ``NotImplementedError``: self-speculative
-decoding (``spec_k > 1``) and the async runtime (ROADMAP A9); a mesh, the
-split-KV routing and page-affine pools (A11); the exact-length shim
-(``paged=False``) and cache families other than split K/V attention (A10).
+decoding (``spec_k > 1``, ROADMAP A9.3); a mesh, the split-KV routing and
+page-affine pools (A11); the exact-length shim (``paged=False``) and cache
+families other than split K/V attention (A10).
 """
 from __future__ import annotations
 
@@ -54,8 +62,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import qcache
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import resolve_device, upload
 from repro_torch.serve import pages as pg
+from repro_torch.serve.async_runtime import AsyncRunner, CompletionWorker, DeviceTokens
 from repro_torch.serve.audit import audit_engine
 from repro_torch.serve.scheduler import (  # noqa: F401 (Phase/Request re-exported)
     Phase,
@@ -92,6 +101,9 @@ STAT_COUNTERS = (
     "expired", "cancelled", "errored", "audits", "faults_injected",
     # retained pages evicted back to the free list
     "retained_reclaims",
+    # async runtime: terminal retirements handed to the completion thread;
+    # in-flight decode results consumed after their request left the slot
+    "completions_enqueued", "discarded_steps",
 )
 
 
@@ -137,19 +149,27 @@ class ServeEngine:
                  expected_quantile: float = 0.5, preempt_policy: str = "youngest",
                  audit_every: int = 0, faults=None, clock=None, spec_k: int = 1,
                  trace: bool | Tracer = False, metrics: MetricsRegistry | None = None,
-                 async_runtime: bool = False, device=None):
+                 async_runtime: bool = False, async_window: int = 2,
+                 completion_queue: int = 64, watchdog_s: float = 30.0,
+                 on_complete=None, device=None):
         """The options are the JAX engine's (see its docstring): ``n_pages``
         bounds the pool (default: full provisioning, ``slots * nb_max`` plus
         the scratch pages), ``share_prefix``/``spec_tail``/``retain_prefix``
         drive prefix sharing, ``reserve_policy``/``expected_quantile``/
         ``preempt_policy`` the pressure handling, ``audit_every``/``faults``/
         ``clock`` the self-checks and guards, ``trace``/``metrics`` telemetry.
+        ``async_runtime`` runs the overlapped runtime (module docstring) with
+        at most ``async_window`` decode steps in flight; ``completion_queue``
+        bounds the completion thread's queue, ``watchdog_s`` every blocking
+        wait of the runtime (``async_runtime.DeadlockError``), and
+        ``on_complete`` (called with each ``CompletionRecord``) runs on that
+        thread.
         ``impl`` picks the prefill and decode attention kernels (a suffix
         prefill over a shared prefix stays plain PyTorch), ``quant_impl`` the
         quantize and flush kernels ('auto' | 'cuda' | 'torch').  ``device``:
         where the state lives (the card unless given)."""
-        if spec_k != 1 or async_runtime:
-            raise _unported("speculative decoding (spec_k > 1) and the async runtime", "9")
+        if spec_k != 1:
+            raise _unported("speculative decoding (spec_k > 1)", "9.3")
         if mesh is not None or splitkv != "auto" or page_affine:
             raise _unported("the mesh, split-KV routing and page-affine pools", "11")
         if paged is False:
@@ -180,8 +200,10 @@ class ServeEngine:
         self.tracer = trace if isinstance(trace, Tracer) else (Tracer() if trace else None)
         for name in STAT_COUNTERS:
             self.metrics.counter(name)
+        # device_starved_s: async runtime, wall time the dispatch pipeline sat
+        # empty while work remained (the overlap-aware host-stall numerator)
         for hist in (*PHASE_METRICS.values(), "cycle_s", "device_idle_gap_s", "ttft_s",
-                     "tpot_s", "queue_wait_s", "e2e_latency_s"):
+                     "tpot_s", "queue_wait_s", "e2e_latency_s", "device_starved_s"):
             self.metrics.histogram(hist)
         self._phase_acc: dict[str, float] = {}
         self._cycle_worked = False
@@ -239,6 +261,16 @@ class ServeEngine:
             np.arange(slots, dtype=np.int32)[:, None], (slots, self.nb_max)).copy()
         self._table_dirty = False
 
+        # --- async overlapped runtime: captures the decode step over the
+        # state above, so it comes last
+        self.async_runtime = bool(async_runtime)
+        self._runner = None
+        self._completions = None
+        if self.async_runtime:
+            self._completions = CompletionWorker(queue_size=completion_queue,
+                                                 watchdog_s=watchdog_s, on_complete=on_complete)
+            self._runner = AsyncRunner(self, window=async_window, watchdog_s=watchdog_s)
+
     # ------------------------------------------------------------ public
 
     @property
@@ -294,9 +326,20 @@ class ServeEngine:
         while self._has_work() and cycles < max_cycles:
             self.step()
             cycles += 1
+            if self._runner is not None:
+                self._runner.check_liveness()
+        if self._completions is not None:
+            # every enqueued completion processed before the drain audit
+            self._completions.drain()
         if self.audit_every:
             self.audit().raise_if_violations()  # clean at drain
         return self.summary(wall_s=time.perf_counter() - t0)
+
+    def close(self) -> None:
+        """Stop the background completion thread (async runtime); idempotent
+        and a no-op for the synchronous engine."""
+        if self._completions is not None:
+            self._completions.close()
 
     def summary(self, *, wall_s: float | None = None) -> dict:
         """Engine statistics.  ``wall_s`` defaults to the first-work to
@@ -311,7 +354,7 @@ class ServeEngine:
         wait_total = self.metrics.histogram("phase_device_wait_s").total
         lat = self._tpot_s if self._tpot_s else self._ttft_s
         sched = self.sched.stats
-        return {
+        out = {
             **stats,
             "wall_s": wall_s,
             "tokens_per_s": stats["decoded_tokens"] / wall_s if wall_s > 0 else 0.0,
@@ -342,13 +385,23 @@ class ServeEngine:
                                 / max(1, sched["prefix_lookup_blocks"])),
             "pool_pages_retained": self.pool.n_retained,
         }
+        if self._runner is not None and self._runner.dispatched > 0:
+            # overlap-aware: the share of cycle time the dispatch pipeline sat
+            # empty; under overlap, host work no longer means an idle device
+            starved = self.metrics.histogram("device_starved_s").total
+            out["host_stall_fraction"] = (min(1.0, starved / cycle_total)
+                                          if cycle_total > 0 else 0.0)
+        return out
 
     def _has_work(self) -> bool:
-        return self.sched.has_work or bool(self._deferred)
+        return (self.sched.has_work or bool(self._deferred)
+                or (self._runner is not None and self._runner.pending))
 
     # ------------------------------------------------ the one decode cycle
 
     def step(self) -> bool:
+        if self._runner is not None:
+            return self._runner.step()
         t0 = time.perf_counter()
         self._cycle += 1
         self._cycle_worked = False
@@ -440,7 +493,11 @@ class ServeEngine:
             self._advance_one(slot, req, int(nxt[slot]), (bad or {}).get(slot), dt, now)
 
     def _advance_one(self, slot: int, req: Request, nxt_tok: int, bad: str | None,
-                     dt: float, now: float) -> None:
+                     dt: float, now: float, *, cycle: int | None = None) -> None:
+        """One slot's share of :meth:`_advance`, the one per-token body both
+        runtimes share: the sync cycle calls it right after its host sync,
+        the async runtime at the consumption boundary with the step's
+        dispatch ``cycle`` (for error attribution)."""
         if req.replay_left > 0:
             req.pos += 1
             req.replay_left -= 1
@@ -459,8 +516,8 @@ class ServeEngine:
         self._observe_token(req, dt, now)
         self.metrics.inc("decoded_tokens")
         if bad is not None:
-            self._retire(req, Phase.ERRORED,
-                         reason=f"request {req.uid} step {self._cycle}: {bad}")
+            step_no = self._cycle if cycle is None else cycle
+            self._retire(req, Phase.ERRORED, reason=f"request {req.uid} step {step_no}: {bad}")
             return
         hit_eos = self.eos_id is not None and tok == self.eos_id
         if hit_eos or len(req.out_tokens) >= req.max_new_tokens:
@@ -486,7 +543,11 @@ class ServeEngine:
 
     def _retire(self, req: Request, phase: Phase, reason: str | None = None) -> None:
         """The one retirement path: reset the table row to scratch, honour a
-        delayed-release fault, release through the scheduler, count."""
+        delayed-release fault, release through the scheduler, count, and
+        (async runtime) hand the request to the completion thread."""
+        if self._runner is not None and req.slot is not None:
+            # lagging in-flight steps of this slot are discarded at consumption
+            self._runner.on_slot_cleared(req.slot)
         if req.slot is not None:
             self._table[req.slot, :] = req.slot
             self._table_dirty = True
@@ -508,6 +569,9 @@ class ServeEngine:
             self.tracer.end_open(uid=req.uid, cat="request")
             self.tracer.instant(phase.value, uid=req.uid, cat="request",
                                 args={"reason": reason} if reason is not None else None)
+        if self._completions is not None:
+            self.metrics.inc("completions_enqueued")
+            self._completions.put(req)
 
     def _service_deferred(self) -> None:
         """Free pages whose injected release delay has elapsed."""
@@ -544,6 +608,9 @@ class ServeEngine:
         (a victim caught mid-replay keeps its parked one), reset the table
         row and requeue at the FIFO head for re-prefill and replay."""
         slot = req.slot
+        if self._runner is not None:
+            # a still-lazy admission feed becomes a host value first
+            self._runner.on_preempt(req)
         pending = req.pending_token if req.replay_left > 0 else int(self.tokens[slot, 0])
         self._table[slot, :] = slot
         self._table_dirty = True
@@ -584,11 +651,14 @@ class ServeEngine:
         req.pages.append(page)
         return page
 
-    def _admit_and_prefill(self) -> None:
+    def _admit_and_prefill(self, *, defer_first: bool = False) -> dict:
+        """Admit and prefill.  ``defer_first`` (async runtime): the first
+        tokens stay on the device; returns slot -> (DeviceTokens, row)."""
         with self._phase("schedule"):
             groups = self.sched.admit()
             if groups:
                 self._note_admissions(groups)
+        lazy: dict[int, tuple] = {}
         for bucket_len, reqs in groups.items():
             # one call per prior width as well (see the module docstring)
             by_prior: dict[int, list[Request]] = {}
@@ -597,7 +667,8 @@ class ServeEngine:
                 by_prior.setdefault(bucket_for(s, min_bucket=1) if s else 0, []).append(req)
             for part in by_prior.values():
                 with self._phase("prefill"):
-                    self._prefill_bucket(bucket_len, part)
+                    lazy.update(self._prefill_bucket(bucket_len, part, defer_first=defer_first))
+        return lazy
 
     def _note_admissions(self, groups: dict[int, list[Request]]) -> None:
         """Close the queue span, open the prefill span, observe queue wait
@@ -627,7 +698,8 @@ class ServeEngine:
                                   lengths=lens, quant_impl=self._quant_impl,
                                   prior=prior, prior_len=prior_len)
 
-    def _prefill_bucket(self, bucket_len: int, reqs: list[Request]) -> None:
+    def _prefill_bucket(self, bucket_len: int, reqs: list[Request], *,
+                        defer_first: bool = False) -> dict:
         # divergent-suffix prefill: row r holds request r's unshared tail
         toks = np.zeros((self.slots, bucket_len), np.int64)
         lens = np.ones((self.slots,), np.int32)  # pad rows: length 1
@@ -640,7 +712,7 @@ class ServeEngine:
             self.metrics.inc("prefill_tokens", sl)
             self.metrics.inc("prefill_tokens_saved", req.prompt_len - sl)
         dev = self.device
-        t_toks, t_lens = torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev)
+        t_toks, t_lens = upload(toks, dev), upload(lens, dev)
         if p_max == 0:
             logits, dstate = self._prefill(t_toks, t_lens)
         else:
@@ -652,11 +724,16 @@ class ServeEngine:
                 s = len(req.shared_pages)
                 pages[r, :s] = req.shared_pages
                 plens[r] = s * self.block_n
-            logits, dstate = self._prefill_shared(
-                t_toks, t_lens, torch.from_numpy(pages).to(dev),
-                torch.from_numpy(plens).to(dev))
+            logits, dstate = self._prefill_shared(t_toks, t_lens, upload(pages, dev),
+                                                  upload(plens, dev))
         self.metrics.inc("prefill_calls")
-        first = logits[:, 0].argmax(-1).cpu().numpy()
+        lazy: dict[int, tuple] = {}
+        if defer_first:
+            # async runtime: no host sync at admission; the token is read at
+            # the slot's first consumption boundary (or at preemption)
+            first = DeviceTokens(logits[:, 0].argmax(-1))
+        else:
+            first = logits[:, 0].argmax(-1).cpu().numpy()
 
         slot_ids, lengths, pages_per_req = [], [], []
         for r, req in enumerate(reqs):
@@ -686,20 +763,23 @@ class ServeEngine:
                 # preempted before any decode: resume from the parked token
                 self.tokens[req.slot, 0] = req.pending_token
                 req.pending_token = None
+            elif defer_first:
+                lazy[req.slot] = (first, r)
             else:
                 self.tokens[req.slot, 0] = int(first[r])
         self._table_dirty = True
         pg.adopt_prefill(self.state["caches"], dstate["caches"], slot_ids=slot_ids,
                          lengths=lengths, pages_per_req=pages_per_req,
                          block_n=self.block_n, base_blocks=shared_blocks)
-        sidx = torch.as_tensor(slot_ids, device=dev)
-        self.state["pos"][sidx] = torch.as_tensor(
-            [r.prompt_len for r in reqs], dtype=torch.int32, device=dev)
+        # in place: the async runtime's captured step reads this tensor
+        self.state["pos"][upload(np.asarray(slot_ids, np.int64), dev)] = upload(
+            np.asarray([r.prompt_len for r in reqs], np.int32), dev)
         # full prompt blocks (shared + fresh) become discoverable
         for r, req in enumerate(reqs):
             self.sched.register_prefix(req, req.shared_pages + pages_per_req[r])
+        return lazy
 
-    def _ensure_flush_pages(self) -> None:
+    def _ensure_flush_pages(self, pos_of=None) -> None:
         """Allocate the destination page of every row whose residual fills on
         the coming step (``pos % block_n == block_n - 1``).  A destination
         column that holds a page with refcount > 1 (a speculative shared
@@ -707,14 +787,18 @@ class ServeEngine:
         is replicated on the device, and only its own column is repointed.
         A privately held page is overwritten in place, so its stale index
         node is dropped.  Preemption can fire here, so the loop re-checks
-        each request is still active."""
+        each request is still active.  ``pos_of`` (request -> position)
+        overrides the position checked: the async runtime passes its
+        dispatch-frontier position, which leads ``req.pos`` by the steps in
+        flight (a destination must exist before its step is dispatched)."""
         cow_src, cow_dst = [], []
         for req in list(self.sched.active.values()):
             if self.sched.active.get(req.slot) is not req:
                 continue  # preempted by an earlier alloc this cycle
-            if req.pos % self.block_n != self.block_n - 1:
+            pos = req.pos if pos_of is None else pos_of(req)
+            if pos % self.block_n != self.block_n - 1:
                 continue
-            blk = req.pos // self.block_n
+            blk = pos // self.block_n
             entry = int(self._table[req.slot, blk])
             if entry < self.slots:  # still scratch -> fresh private page
                 page = self._alloc_page(req)

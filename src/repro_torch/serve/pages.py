@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import qcache as _qc
+from repro_torch.core.device import upload
 
 
 class PagePool:
@@ -301,7 +302,7 @@ class PagePool:
 
 
 def _ints(vals, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(vals, np.int64), device=device)
+    return upload(np.asarray(vals, np.int64), device)
 
 
 def adopt_prefill(paged_caches: list, dense_caches: list, *, slot_ids: list[int],
@@ -352,11 +353,12 @@ def cow_pages(paged_caches: list, src: list[int], dst: list[int]) -> list:
 def set_page_tables(paged_caches: list, table: np.ndarray) -> list:
     """Push the host page table ([B, nb_max]) into every stacked paged cache
     with one in-place copy per stack: the layers' tables are views of one
-    tensor (``qcache.init_paged_cache(layers=...)``)."""
+    tensor (``qcache.init_paged_cache(layers=...)``).  The push does not
+    wait on the card (``core.device.upload``): it is queued behind the
+    decode steps in flight, which read the table it replaces."""
     for pc in paged_caches:
-        t = torch.from_numpy(np.ascontiguousarray(table, np.int32))
         pt = pc.page_table
         if pt.dim() > 2 and pt.stride(0) == 0:
             pt = pt[0]  # one tensor expanded over the layers
-        pt.copy_(t.expand(pt.shape), non_blocking=False)
+        pt.copy_(upload(np.asarray(table, np.int32), pt.device).expand(pt.shape))
     return paged_caches

@@ -704,3 +704,191 @@ def test_append_kernel_refuses_what_it_cannot_take(cuda):
     k_new = torch.zeros((2, 2, 1, 64), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="CUDA tensors"):
         qcache.append_decode(cache, k_new, k_new)
+
+
+# ------------------------------------- the async runtime's captured decode step
+
+
+def _state_fields(state) -> list:
+    return [*(getattr(c, f) for c in state["caches"] for f in qcache._PAGED_FIELDS
+              if hasattr(c, f)), state["pos"]]
+
+
+def _decode_state(model, params, cuda, *, paged):
+    """A decode state mid-run of the smoke model (block_n 32): rows of 50
+    and 60 prompt tokens (18 and 28 into their residuals, so both flush
+    within the steps below) and an idle row 2 (no token, no page)."""
+    from repro_torch.serve import pages as pg
+
+    cfg = model.cfg
+    tokens = torch.randint(0, cfg.vocab, (3, 60), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(4))
+    lengths = torch.tensor([50, 60, 1], dtype=torch.int32, device=cuda)
+    _, dense = model.prefill(params, {"tokens": tokens}, 160, lengths=lengths)
+    if not paged:
+        for c in dense["caches"]:
+            c.pack_blocks[:, 2] = 0
+            c.res_len[:, 2] = 0
+        dense["pos"][2] = 0
+        return dense
+    bn, nb_max = cfg.kv_block, 5
+    state = model.init_paged_decode_state(3, n_pages=3 + 8, nb_max=nb_max, device=cuda)
+    pg.adopt_prefill(state["caches"], dense["caches"], slot_ids=[0, 1], lengths=[50, 60],
+                     pages_per_req=[[7], [4]], block_n=bn)
+    table = np.arange(3, dtype=np.int32)[:, None].repeat(nb_max, 1)
+    table[0, :3], table[1, :3] = [7, 9, 3], [4, 10, 8]  # flush destinations allocated
+    pg.set_page_tables(state["caches"], table)
+    state["pos"][:2] = torch.tensor([50, 60], dtype=torch.int32, device=cuda)
+    return state
+
+
+@pytest.fixture(scope="module")
+def graph_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = smoke_config("llama3-8b").with_(kv_block=32)
+    model = build_model(cfg)
+    return model, model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_captured_step_equals_eager_bitwise(cuda, graph_model, paged):
+    """40 replays of the captured step against 40 eager steps fed the same
+    tokens, from the same state: every state tensor, the argmax and the
+    finite flags bit for bit after every step, over a flush on both live
+    rows and an idle row.  Capture leaves the state as it found it, and
+    records one launch of each of the step's kernels a layer."""
+    from repro_torch.serve.async_runtime import CapturedDecodeStep
+
+    model, params = graph_model
+    with torch.no_grad():
+        eager, graphed = (_decode_state(model, params, cuda, paged=paged) for _ in range(2))
+        for a, b in zip(_state_fields(eager), _state_fields(graphed)):
+            assert torch.equal(a, b)
+        before = [t.clone() for t in _state_fields(graphed)]
+        step = CapturedDecodeStep(model, params, graphed)
+        for a, b in zip(_state_fields(graphed), before):
+            assert torch.equal(a, b)
+        n = model.cfg.n_layers
+        kinds = ("paged_bitdecode", "paged_residual_flush") if paged else (
+            "bitdecode", "residual_flush")
+        assert all(step.capture_launches[k] == n for k in kinds), step.capture_launches
+        pack0 = eager["caches"][0].pack_blocks[0].clone()
+        feed = torch.zeros((3, 1), dtype=torch.int32, device=cuda)
+        step.tokens.copy_(feed)
+        for i in range(40):
+            logits, eager = model.decode_step(params, eager, feed)
+            step.replay()
+            want = logits[:, 0].argmax(-1).to(torch.int32)
+            assert torch.equal(step.nxt, want) and torch.equal(step.tokens[:, 0], want), i
+            assert torch.equal(step.finite, torch.isfinite(logits[:, 0]).all(-1))
+            for a, b in zip(_state_fields(eager), _state_fields(graphed)):
+                assert torch.equal(a, b), f"step {i}"
+            feed = want[:, None]
+    # 18 + 40, 28 + 40 and 0 + 40 tokens in 32-token blocks
+    assert (eager["caches"][0].pack_blocks[0] - pack0).tolist() == [1, 2, 1]
+    assert step.replays == 40 and step.launches[kinds[0]] == 40 * n
+
+
+def _gpu_workload(cfg, n=5):
+    rng = np.random.default_rng(42)
+    base = rng.integers(0, cfg.vocab, 70).astype(np.int32)
+    prompts = [base, np.concatenate([base[:64], rng.integers(0, cfg.vocab, 30)])]
+    prompts += [rng.integers(0, cfg.vocab, int(rng.integers(34, 48))).astype(np.int32)
+                for _ in range(n - 2)]
+    return [Request(uid=i, prompt=p, max_new_tokens=int(rng.integers(24, 40)))
+            for i, p in enumerate(prompts)]
+
+
+def _drive(eng, reqs):
+    eng.submit(reqs[0])
+    eng.step()
+    for r in reqs[1:]:
+        eng.submit(r)
+    eng.run()
+    eng.close()
+    return {r.uid: list(r.out_tokens) for r in reqs}, {r.uid: r.phase for r in reqs}
+
+
+@pytest.mark.parametrize("pressure", [False, True])
+def test_async_engine_equals_sync_on_the_card(cuda, graph_model, pressure):
+    """The smoke engine on the card (prefix sharing, flushes, and with
+    ``pressure`` preemption): the async runtime's streams and phases equal
+    the sync cycle's bit for bit; one replay a dispatch; the fresh async
+    engine's state equals a fresh sync engine's."""
+    model, params = graph_model
+    kw = dict(slots=3, max_seq=192, audit_every=1)
+    if pressure:
+        kw.update(n_pages=3 + 5, reserve_policy="expected", expected_quantile=0.0)
+    with torch.no_grad():
+        sync_eng = ServeEngine(model, params, **kw)
+        async_eng = ServeEngine(model, params, async_runtime=True, **kw)
+        for a, b in zip(_state_fields(sync_eng.state), _state_fields(async_eng.state)):
+            assert torch.equal(a, b)
+        want = _drive(sync_eng, _gpu_workload(model.cfg))
+        got = _drive(async_eng, _gpu_workload(model.cfg))
+    assert got == want
+    runner = async_eng._runner
+    assert runner.step_fn.graph is not None and runner.step_fn.replays == runner.dispatched
+    assert async_eng.stats["preempted"] == sync_eng.stats["preempted"]
+    assert (async_eng.stats["preempted"] > 0) == pressure
+    assert async_eng.sched.stats["prefix_hit_blocks"] > 0
+    assert async_eng.pool.n_free == async_eng.pool.capacity
+
+
+def test_async_dispatch_side_makes_no_host_sync(cuda, graph_model):
+    """Everything the async step does outside consumption (admission and
+    its prefills, a shared-prefix suffix prefill, flush-page allocation,
+    the page-table push, the feed overrides, the replay and the read-back)
+    runs under ``torch.cuda.set_sync_debug_mode("error")``: only the event
+    wait in ``_consume_one`` blocks."""
+    model, params = graph_model
+    eng = ServeEngine(model, params, slots=3, max_seq=192, async_runtime=True)
+    runner = eng._runner
+    consume = runner._consume_one
+
+    def consume_unchecked():
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            consume()
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    runner._consume_one = consume_unchecked
+    reqs = _gpu_workload(model.cfg)
+    try:
+        with torch.no_grad():
+            eng.submit(reqs[0])
+            torch.cuda.set_sync_debug_mode("error")
+            eng.step()
+            for r in reqs[1:]:
+                eng.submit(r)
+            while eng._has_work():
+                eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        eng.close()
+    assert all(r.done for r in reqs) and eng.sched.stats["prefix_hit_blocks"] > 0
+    assert eng.stats["cow_copies"] + eng.stats["decoded_tokens"] > 0
+
+
+def test_capture_failure_raises_and_does_not_fall_back(cuda, graph_model):
+    """A decode step that syncs the host cannot be captured: the engine's
+    construction raises instead of running the step eagerly."""
+    model, params = graph_model
+
+    class Syncing:
+        cfg = model.cfg
+
+        def __getattr__(self, name):
+            return getattr(model, name)
+
+        def decode_step(self, *args, **kw):
+            torch.cuda.synchronize()  # not allowed while a stream is capturing
+            return model.decode_step(*args, **kw)
+
+    with pytest.raises(RuntimeError, match="capturing the decode step"):
+        ServeEngine(Syncing(), params, slots=2, max_seq=128, async_runtime=True)
+    eng = ServeEngine(model, params, slots=2, max_seq=128, async_runtime=True)
+    assert eng._runner.step_fn.graph is not None
+    eng.close()
