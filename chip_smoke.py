@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of BitDecoding on one NVIDIA GPU (written for an
 H100), from the kernels' build to full-width decoding and serving of
-llama3-8b and gemma-7b, and the dense loop of starcoder2-3b and
+llama3-8b (at full depth, by one-token cycles, on the async runtime and by
+self-speculation) and gemma-7b, and the dense loop of starcoder2-3b and
 command-r-35b.
 
     python3 chip_smoke.py
@@ -28,7 +29,11 @@ Phases:
      starcoder2-3b and command-r-35b, bits 2, 4, 8, block_n 32-128, rows
      with fewer blocks than splits, empty rows and full residuals;
      paged_bitdecode on an identity table bit for bit equal to bitdecode;
-     one decode call at most two launches; the split merge alone within
+     both decode kernels' speculative draft read (``draft_bits``: bits
+     4 -> 1, 2, 3; 8 -> 2, 4; 2 -> 1; both K granularities; d 128 and 256;
+     a residual of block_n or block_n + 8 tokens with res_len > block_n)
+     within the same tolerances, draft_bits = bits bit for bit the normal
+     read; one decode call at most two launches; the split merge alone within
      1e-5 of its plain version; flash_prefill within out 3e-2 / lse 1e-3
      over head dims 32-256, 1, 4 and 12 query heads per KV head, S from one
      row to 2,100 across every edge of its 64-row warpgroups and 128-row KV
@@ -42,8 +47,9 @@ Phases:
      and an empty kernel (the launch floor), at llama3-8b's and gemma-7b's
      decode caches; bitdecode and
      paged_bitdecode as whole calls (merge included) at the three decode
-     shapes, flash_prefill also at long context (one 8,192-token prompt)
-     and beside PyTorch's ``scaled_dot_product_attention`` (the yardstick;
+     shapes (at llama3-8b's also the draft read at 2 bits, same call),
+     flash_prefill also at long context (one 8,192-token prompt) and beside
+     PyTorch's ``scaled_dot_product_attention`` (the yardstick;
      the port never calls it), with its TFLOP/s and share of the bound;
   3. the dense path end to end: llama3-8b at full width and depth (32
      layers, random bf16 weights from a seeded torch.Generator), 4 ragged
@@ -70,19 +76,29 @@ Phases:
      decode steps in flight, each one graph replay), token streams and
      terminal phases bit for bit equal to (a)'s, (f) preempting, every
      completion recorded once, tokens/s, TTFT, TPOT and the overlap-aware
-     host_stall_fraction beside (a)'s; every run audited every cycle; then
+     host_stall_fraction beside (a)'s; (g) and (h): (a)'s pool and (b)'s
+     (preempting, with the async runtime's completion thread) decoding by
+     self-speculation, spec_k 4, drafts read at 2 bits, each draft and
+     verify pass one replay of its captured graph, token streams and
+     terminal phases bit for bit equal to (a)'s, the spec counters
+     conserved, tokens/s, TTFT, TPOT, cycles, spec_accept_rate and ms a
+     draft and a verify replay (CUDA events) beside (a)'s and (e)'s; every
+     run audited every cycle; then
      three engine cycles of four decoding slots under the profiler, as in
-     phase 3.  Launches of a captured step are counted at the capture: a
-     path's count is the capture's count times the replays;
-  5. gemma-7b at full width and depth (28 layers, head_dim 256, 16/16
-     heads, GeGLU, (1 + w) RMSNorm, tied scaled embeddings): the dense loop
+     phase 3.  Launches of a captured step or pass are counted at the
+     capture: a path's count is the capture's count times the replays;
+  5. gemma-7b at full width, cut to 14 of its 28 layers (head_dim 256,
+     16/16 heads, GeGLU, (1 + w) RMSNorm, tied scaled embeddings; the cut
+     keeps the script within its time since phase 4's runs (g) and (h)
+     came): the dense loop
      as in phase 3 (plain vs kernels, every row flushing), then runs (a),
      (b) and (e) of the serve workload, (b) and (e) bit for bit equal to
      (a) (d = 256 instances of paged_bitdecode and the append under
      capture);
-  6. the dense loop, plain vs kernels, at full width: starcoder2-3b at full
-     depth (30 layers; LayerNorm, GELU, biases, 12 query heads per KV head)
-     and command-r-35b cut to 8 of its 40 layers (parallel residual, tied
+  6. the dense loop, plain vs kernels, at full width: starcoder2-3b cut to
+     15 of its 30 layers (as gemma-7b, for time; LayerNorm, GELU, biases,
+     12 query heads per KV head) and command-r-35b cut to 8 of its 40
+     layers (parallel residual, tied
      embeddings; its ~61 GB of bf16 weights leave too little room on one
      80 GB card for the plain comparison);
   then ``repro_torch.launch.serve --async-runtime`` once at the smoke width;
@@ -161,7 +177,10 @@ SERVE_PATH = ("kv_quant", "paged_residual_flush", "paged_bitdecode", "bitdecode_
 # phases 5 and 6: the dense family at full width
 FAMILY_PROMPT_LENS = (1000, 1080, 1150, 1200)  # every row flushes within the steps
 FAMILY_STEPS = 96
-FAMILY = (("gemma-7b", {}), ("starcoder2-3b", {}), ("command-r-35b", {"n_layers": 8}))
+# depths cut to keep the script within its time (runs (g) and (h) of phase 4
+# took the time of gemma-7b's and starcoder2-3b's other half)
+FAMILY = (("gemma-7b", {"n_layers": 14}), ("starcoder2-3b", {"n_layers": 15}),
+          ("command-r-35b", {"n_layers": 8}))
 
 
 # the serve phase: llama3-8b at full width and depth behind the paged engine
@@ -169,6 +188,9 @@ SERVE_SLOTS, SERVE_MAX_SEQ = 4, 4096
 SERVE_STAGGER = 8  # cycles between submissions after the first SERVE_SLOTS
 SHARED_PREFIX = 1024  # 8 blocks shared by the four prefix sharers
 ASYNC_WINDOW = 2  # runs (e), (f): decode steps in flight
+SPEC_K, SPEC_BITS = 4, 2  # runs (g), (h): self-speculative decoding
+# phase 2's draft reads: (bits, draft_bits)
+DRAFT_PAIRS = ((4, 1), (4, 2), (4, 3), (8, 2), (8, 4), (2, 1))
 
 
 def serve_workload(vocab: int, seed: int = 7) -> list:
@@ -196,14 +218,18 @@ def serve_workload(vocab: int, seed: int = 7) -> list:
 
 
 def serve_runs(work) -> dict:
-    """Engine options of runs (a)-(c), (e), (f): (a) worst-case reservations
+    """Engine options of runs (a)-(c), (e)-(h): (a) worst-case reservations
     with prefix sharing, audited every cycle; (b) the same in a pool of the
     scratch pages plus half the worst case, expected-case reservations at
     quantile 0 (every decode-time page must be won, so it preempts); (c) no
     prefix sharing; (e) and (f): (a) and (b) on the async runtime, two steps
-    in flight, each decode step one replay of the captured step."""
+    in flight, each decode step one replay of the captured step; (g) and
+    (h): (a)'s and (b)'s pools decoding by self-speculation (``spec_k`` 4,
+    drafts read at 2 bits; each pass one graph replay), (h) with the async
+    runtime's completion thread."""
     worst = SERVE_SLOTS * max((len(p) + n) // BLOCK_N for _, p, n in work)
     base = dict(audit_every=1)
+    spec = dict(spec_k=SPEC_K, spec_bits=SPEC_BITS)
     return {
         "a": dict(base, share_prefix=True),
         "b": dict(base, share_prefix=True, n_pages=SERVE_SLOTS + -(-worst // 2),
@@ -213,6 +239,9 @@ def serve_runs(work) -> dict:
         "f": dict(base, share_prefix=True, n_pages=SERVE_SLOTS + -(-worst // 2),
                   reserve_policy="expected", expected_quantile=0.0, async_runtime=True,
                   async_window=ASYNC_WINDOW),
+        "g": dict(base, share_prefix=True, **spec),
+        "h": dict(base, share_prefix=True, n_pages=SERVE_SLOTS + -(-worst // 2),
+                  reserve_policy="expected", expected_quantile=0.0, async_runtime=True, **spec),
     }
 
 
@@ -489,18 +518,7 @@ def captured_loop(model, params, cfg, check, tokens, lengths, steps, feed, lg_k,
     log(f"  {name} decode, captured: {step_g * 1e3:.2f} ms/step against the eager kernels' "
         f"{step_k * 1e3:.2f} ms/step (B={tokens.shape[0]}); capture with warm-up "
         f"{t_capture:.2f} s")
-    prof = {"replay": profile_steps(step.replay, 1), "eager": profile_steps(step._body, 1)}
-    for how, p in prof.items():
-        log(f"  {name} captured step, one {how} (torch.profiler): {p['kernels_per_step']:.0f} "
-            f"device kernels, {p['all_ms_per_step']:.3f} ms of kernels, "
-            f"{p['wall_ms_per_step_profiled']:.2f} ms under the profiler")
-    if prof["replay"]["all_ms_per_step"] > 0 and prof["eager"]["all_ms_per_step"] > 0:
-        check(prof["replay"]["kernels_per_step"] == prof["eager"]["kernels_per_step"],
-              f"{name} captured: one replay runs the eager step's device kernels "
-              f"({prof['replay']['kernels_per_step']:.0f} vs "
-              f"{prof['eager']['kernels_per_step']:.0f})")
-    else:
-        log(f"  {name} captured: the profiler saw no device time (not measured)")
+    prof = replay_vs_eager(step, f"{name} captured", check)
     return {"ms_per_step": {"captured": step_g * 1e3, "eager_kernels": step_k * 1e3},
             "tokens_per_s": tokens.shape[0] / step_g, "capture_s": t_capture,
             "capture_launches": dict(step.capture_launches), "replays": step.replays,
@@ -560,31 +578,27 @@ def parent_fills():
 
 
 def prefill_profile(model, params, tokens, lengths) -> dict:
-    """torch.profiler over one prefill of the prompts on the kernels: the
+    """torch.profiler over one prefill of the prompts on the kernels (the
+    median of :data:`PROFILE_ROUNDS` sessions, :func:`median_traced`): the
     device kernels and their ms, and kv_quant's share; with the pair fill
     and (key ``parent_fill``) with the parent's fill."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     def run():
-        with torch.no_grad():
+        def fill():
             model.prefill(params, {"tokens": tokens}, tokens.shape[1] + 1, lengths=lengths)
+
+        with torch.no_grad():
+            fill()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                model.prefill(params, {"tokens": tokens}, tokens.shape[1] + 1, lengths=lengths)
-                torch.cuda.synchronize()
+        events, _ = median_traced(fill)
         out = {"kernels": 0, "all_ms": 0.0, "kv_quant_ms": 0.0, "kv_quant_kernels": 0}
-        for ev in prof.key_averages():
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            us = getattr(ev, "self_device_time_total", None)
-            us = getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
-            out["kernels"] += ev.count
+        for key, (count, us) in events.items():
+            out["kernels"] += count
             out["all_ms"] += us / 1e3
-            if "kv_quant" in ev.key:
+            if "kv_quant" in key:
                 out["kv_quant_ms"] += us / 1e3
-                out["kv_quant_kernels"] += ev.count
+                out["kv_quant_kernels"] += count
         return out
 
     out = run()
@@ -593,13 +607,10 @@ def prefill_profile(model, params, tokens, lengths) -> dict:
     return out
 
 
-def profile_steps(step, steps) -> dict:
-    """torch.profiler over ``steps`` calls of ``step()``: each kernel's own
-    time summed by name.  Returns ms a step for all kernels, for the decode
-    attention (bitdecode / paged_bitdecode and the merge) and the flush (the
-    whole fused append; in the unfused step only its flush), the device
-    kernels a step (the profiler's count of device events), beside the
-    steps' wall time under the profiler."""
+def traced(fn, calls) -> tuple[dict, float]:
+    """torch.profiler (CPU and CUDA activities) over ``calls`` calls of
+    ``fn()``, ending in one synchronise.  Returns each device event's
+    (count, own us) by name, and the calls' wall seconds."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -607,28 +618,93 @@ def profile_steps(step, steps) -> dict:
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
                                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_kind = {"all": 0.0, "decode_attention": 0.0, "flush": 0.0}
-    kernels = 0
+    events = {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:  # the kernels' own rows, not the ops'
             continue
         us = getattr(ev, "self_device_time_total", None)
         us = getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
+        count, total = events.get(ev.key, (0, 0.0))
+        events[ev.key] = (count + ev.count, total + us)
+    return events, wall
+
+
+#: sessions whose median an exact count is read from (:func:`median_traced`)
+PROFILE_ROUNDS = 5
+
+
+def median_traced(fn) -> tuple[dict, float]:
+    """:func:`traced` over one call of ``fn()`` in :data:`PROFILE_ROUNDS`
+    sessions; returns the session whose count of device events is the
+    median.  One session's count is not exact on the card: now and then a
+    session loses a run of device records (on an H100 one session of run
+    (e)'s step read 2,448 events against 2,456 for the same step run
+    eagerly; ``scripts/captured_step_profile.py --repeats`` shows single
+    sessions short of the others), so a check of an exact count reads the
+    median of five."""
+    rounds = sorted((traced(fn, 1) for _ in range(PROFILE_ROUNDS)),
+                    key=lambda r: sum(c for c, _ in r[0].values()))
+    return rounds[len(rounds) // 2]
+
+
+def profile_steps(step, steps) -> dict:
+    """:func:`summarise` of :func:`traced` over ``steps`` calls of ``step()``."""
+    events, wall = traced(step, steps)
+    return summarise(events, wall, steps)
+
+
+def summarise(events, wall, steps) -> dict:
+    """Device events of ``steps`` steps (:func:`traced`): ms a step for all
+    kernels, for the decode attention (bitdecode / paged_bitdecode and the
+    merge) and the flush (the whole fused append; in the unfused step only
+    its flush), the device kernels a step (the profiler's count of device
+    events), beside the steps' wall time under the profiler."""
+    by_kind = {"all": 0.0, "decode_attention": 0.0, "flush": 0.0}
+    kernels = 0
+    for key, (count, us) in events.items():
         by_kind["all"] += us
-        kernels += ev.count
-        if "bitdecode" in ev.key:
+        kernels += count
+        if "bitdecode" in key:
             by_kind["decode_attention"] += us
-        elif "residual_flush" in ev.key:
+        elif "residual_flush" in key:
             by_kind["flush"] += us
     out = {f"{k}_ms_per_step": v / steps / 1e3 for k, v in by_kind.items()}
     out["kernels_per_step"] = kernels / steps
     out["wall_ms_per_step_profiled"] = wall / steps * 1e3
     out["device_busy_share"] = by_kind["all"] / 1e3 / (wall * 1e3) if wall else None
     return out
+
+
+def replay_vs_eager(step, label, check) -> dict:
+    """One replay of the captured ``step`` and one eager run of its body,
+    each the median of :data:`PROFILE_ROUNDS` profiled sessions
+    (:func:`median_traced`): the same number of device events (a copy is a
+    ``Memcpy DtoD`` eagerly and a ``memcpy32_post`` kernel node in the
+    graph, so the totals are compared; on a mismatch the names whose counts
+    differ are logged).  Returns the two profiles."""
+    prof, events = {}, {}
+    for how, fn in (("replay", step.replay), ("eager", step._body)):
+        events[how], wall = median_traced(fn)
+        p = prof[how] = summarise(events[how], wall, 1)
+        log(f"  {label} step, one {how} (torch.profiler): {p['kernels_per_step']:.0f} device "
+            f"kernels, {p['all_ms_per_step']:.3f} ms of kernels, "
+            f"{p['wall_ms_per_step_profiled']:.2f} ms under the profiler")
+    if prof["replay"]["all_ms_per_step"] == 0 or prof["eager"]["all_ms_per_step"] == 0:
+        log(f"  {label}: the profiler saw no device time (not measured)")
+        return prof
+    if not check(prof["replay"]["kernels_per_step"] == prof["eager"]["kernels_per_step"],
+                 f"{label}: one replay runs the eager step's device kernels "
+                 f"({prof['replay']['kernels_per_step']:.0f} vs "
+                 f"{prof['eager']['kernels_per_step']:.0f})"):
+        r, e = ({k: c for k, (c, _) in events[how].items()} for how in ("replay", "eager"))
+        differ = {k[:80]: (r.get(k, 0), e.get(k, 0)) for k in r.keys() | e.keys()
+                  if r.get(k, 0) != e.get(k, 0)}
+        log(f"    names whose counts differ (replay, eager): {differ}")
+    return prof
 
 
 def device_profile(model, params, tokens, lengths, steps=3) -> dict:
@@ -738,14 +814,15 @@ def capture_logits(engine, uids=None, feed=None):
     return rows_of, fed_of
 
 
-def serve_phase(model, params, cfg, check, dev, names="abcef", profile_replay=True) -> dict:
-    """Runs (a)-(c), (e), (f) of the serve workload (those of ``names``)
+def serve_phase(model, params, cfg, check, dev, names="abcefgh", profile_replay=True) -> dict:
+    """Runs (a)-(c), (e)-(h) of the serve workload (those of ``names``)
     through ``ServeEngine`` on the kernels, then, with (c), run (d): the
     dense kernel path fed (c)'s token streams as one ragged batch.  Run (c)
     feeds the prefix sharers (a)'s token streams (teacher forcing through
     the step function), so their logits with and without sharing compare
-    step for step.  Runs (e) and (f), the async runtime, must equal (a) bit
-    for bit.  Returns the launches of runs (a) and (e) and a report."""
+    step for step.  Runs (e) and (f), the async runtime, and (g) and (h),
+    self-speculative decoding, must equal (a) bit for bit.  Returns the
+    launches of runs (a), (e), (g) and (h) and a report."""
     import torch
 
     from repro_torch.kernels import _build
@@ -757,7 +834,7 @@ def serve_phase(model, params, cfg, check, dev, names="abcef", profile_replay=Tr
         warm = ServeEngine(model, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=dev)
         drive_engine(warm, [(0, work[1][1][:300], 4)])
         del warm
-    runs, launches, async_launches = {}, {}, {}
+    runs, launches, async_launches, spec_launches = {}, {}, {}, {}
     for name, kw in serve_runs(work).items():
         if name not in names:
             continue
@@ -768,6 +845,7 @@ def serve_phase(model, params, cfg, check, dev, names="abcef", profile_replay=Tr
             rows, fed = capture_logits(engine, set(sharers))
         elif name == "c" and "a" in runs:
             rows, fed = capture_logits(engine, feed={u: runs["a"]["out"][u] for u in sharers})
+        pairs = time_replays(engine) if engine.spec_k > 1 else None
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _build.launches.clear()
@@ -778,6 +856,9 @@ def serve_phase(model, params, cfg, check, dev, names="abcef", profile_replay=Tr
             continue
         torch.cuda.synchronize()
         counted = dict(_build.launches)
+        if engine.spec_k > 1:
+            counted = spec_checks(engine, name, reqs, summ, counted, cfg, check, pairs)
+            spec_launches[name] = counted
         if engine._runner is not None:
             counted = async_checks(engine, name, reqs, summ, counted, cfg, check,
                                    profile_replay=profile_replay and name == "e")
@@ -805,7 +886,7 @@ def serve_phase(model, params, cfg, check, dev, names="abcef", profile_replay=Tr
         check(pool.n_free == pool.capacity and pool.reserved == 0,
               f"run ({name}): pool drained ({pool.n_free}/{pool.capacity} free, "
               f"{pool.reserved} reserved)")
-        if name in "abef":
+        if name in "abefgh":
             check(summ["cow_copies"] > 0 and summ["sched_prefix_hit_blocks"] > 0,
                   f"run ({name}): copy on write ({summ['cow_copies']}) and prefix hits "
                   f"({summ['sched_prefix_hit_blocks']} blocks)")
@@ -814,17 +895,22 @@ def serve_phase(model, params, cfg, check, dev, names="abcef", profile_replay=Tr
                           peak=peak, summary=summ, launches=counted)
         engine.close()
         del engine
+    spec_keys = ("spec_cycles", "spec_draft_tokens", "spec_accepted_tokens",
+                 "spec_rejected_tokens", "spec_accept_rate", "draft_replay_ms",
+                 "verify_replay_ms", "draft_replays", "verify_replays")
     report = {n: {k: r["summary"][k] for k in (
         "steps", "decoded_tokens", "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
         "tpot_p99_ms", "host_stall_fraction", "preempted", "cow_copies",
         "sched_prefix_hit_blocks", "discarded_steps", "wall_s", "phase_s")}
+        | {k: r["summary"][k] for k in spec_keys if k in r["summary"]}
         | {"peak_gib": r["peak"], "launches": r["launches"],
            "replay_profile": r["summary"].get("replay_profile")} for n, r in runs.items()}
-    out = {"launches": launches, "async_launches": async_launches, "report": report}
+    out = {"launches": launches, "async_launches": async_launches,
+           "spec_launches": spec_launches, "report": report}
     if "a" not in runs:
         return out
     a = runs["a"]
-    for name in "bef":
+    for name in "befgh":
         if name not in runs:
             continue
         r = runs[name]
@@ -832,7 +918,7 @@ def serve_phase(model, params, cfg, check, dev, names="abcef", profile_replay=Tr
                 or a["phases"][u] != r["phases"][u]]
         check(not diff, f"run ({name}) token streams and terminal phases equal run (a)'s bit "
                         f"for bit (differ: {diff})")
-        if name in "bf":
+        if name in "bfh":
             check(r["summary"]["preempted"] > 0,
                   f"run ({name}) preempted ({r['summary']['preempted']})")
     for name in "ef":
@@ -844,6 +930,22 @@ def serve_phase(model, params, cfg, check, dev, names="abcef", profile_replay=Tr
                 f"{re_['ttft_p50_ms']:.0f} vs {ra['ttft_p50_ms']:.0f} ms, host_stall_fraction "
                 f"{re_['host_stall_fraction']:.3f} (overlap-aware) vs "
                 f"{ra['host_stall_fraction']:.3f}")
+    for name in "gh":
+        if name in runs:
+            rs = runs[name]["summary"]
+            ref = {n: runs[n]["summary"] for n in "ae" if n in runs}
+
+            def beside(key, fmt, rs=rs, ref=ref):
+                return f"{rs[key]:{fmt}} vs " + ", ".join(f"({n}) {r[key]:{fmt}}"
+                                                         for n, r in ref.items())
+
+            log(f"  run ({name}) against {', '.join(f'({n})' for n in ref)}, same process: "
+                f"tokens/s {beside('tokens_per_s', '.1f')}; TTFT p50 "
+                f"{beside('ttft_p50_ms', '.0f')} ms; TPOT p50 {beside('tpot_p50_ms', '.1f')} "
+                f"ms; cycles {beside('steps', 'd')}; spec_accept_rate "
+                f"{rs['spec_accept_rate']:.3f}; {_ms(rs['draft_replay_ms'])} a draft replay "
+                f"({rs['draft_replays']}), {_ms(rs['verify_replay_ms'])} a verify replay "
+                f"({rs['verify_replays']})")
     if "c" not in runs:
         return out
     c = runs["c"]
@@ -904,10 +1006,10 @@ def async_checks(engine, name, reqs, summ, counted, cfg, check, *, profile_repla
     captured step, the completion ledger exactly once per request.  Returns
     the run's launches: the eager prefills' as counted, the decode steps'
     as the capture's count times the replays.  With ``profile_replay``, one
-    replay and one eager run of the captured body under the profiler (late
-    in a long process the profiler drops device events, so gemma-7b's phase
-    does not take it: ``scripts/captured_step_profile.py`` compares them in
-    a fresh process)."""
+    replay and one eager run of the captured body under the profiler
+    (:func:`replay_vs_eager`; gemma-7b's phase does not take it:
+    ``scripts/captured_step_profile.py`` compares them at any model's
+    shapes)."""
     runner = engine._runner
     step, comp = runner.step_fn, engine._completions
     n = cfg.n_layers
@@ -927,19 +1029,77 @@ def async_checks(engine, name, reqs, summ, counted, cfg, check, *, profile_repla
         check(total.get(k, 0) > 0, f"run ({name}): {k} launched ({total.get(k, 0)}; decode "
                                    "kernels counted as the capture's count x the replays)")
     if profile_replay:
-        prof = {"replay": profile_steps(step.replay, 1), "eager": profile_steps(step._body, 1)}
-        for how, p in prof.items():
-            log(f"  run (e) captured step, one {how} (torch.profiler): "
-                f"{p['kernels_per_step']:.0f} device kernels, {p['all_ms_per_step']:.3f} ms of "
-                f"kernels, {p['wall_ms_per_step_profiled']:.2f} ms under the profiler")
-        if prof["replay"]["all_ms_per_step"] > 0 and prof["eager"]["all_ms_per_step"] > 0:
-            check(prof["replay"]["kernels_per_step"] == prof["eager"]["kernels_per_step"],
-                  f"run (e): one replay runs the eager step's device kernels "
-                  f"({prof['replay']['kernels_per_step']:.0f} vs "
-                  f"{prof['eager']['kernels_per_step']:.0f})")
-        else:
-            log("  run (e): the profiler saw no device time (not measured)")
+        prof = replay_vs_eager(step, "run (e)", check)
         summ["replay_profile"] = prof
+    return total
+
+
+def time_replays(engine) -> dict:
+    """Wrap the spec engine's draft and verify ``replay`` with CUDA events
+    around each graph launch; returns name -> the event pairs, read after
+    the run (each pass is followed by its read-back, so every pair has
+    completed by then)."""
+    import torch
+
+    pairs: dict = {"draft": [], "verify": []}
+    for name, ps in (("draft", engine._draft), ("verify", engine._verify)):
+        replay = ps.replay
+
+        def timed(replay=replay, out=pairs[name]):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            replay()
+            e1.record()
+            out.append((e0, e1))
+
+        ps.replay = timed
+    return pairs
+
+
+def spec_checks(engine, name, reqs, summ, counted, cfg, check, pairs) -> dict:
+    """Checks of a speculative run: each draft and verify pass one replay
+    of its captured graph (a verify replay each cycle, the draft's only on
+    the cycles with a row to draft for), the spec counters conserved, and
+    with the async runtime every completion recorded once.  Records ms per
+    draft and per verify replay (CUDA events) and the accept rate in
+    ``summ``.  Returns the run's launches: the eager prefills' as counted,
+    each pass's as its capture's count times its replays."""
+    import torch
+
+    draft, verify = engine._draft, engine._verify
+    n = cfg.n_layers
+    check(draft.graph is not None and verify.graph is not None
+          and verify.replays == summ["spec_cycles"] == summ["steps"]
+          and 0 < draft.replays <= verify.replays
+          and draft.capture_launches.get("paged_bitdecode", 0) == n * (SPEC_K - 1)
+          and draft.capture_launches.get("paged_residual_flush", 0) == 0
+          and verify.capture_launches.get("paged_residual_flush", 0) == n * SPEC_K,
+          f"run ({name}): draft and verify captured (draft {dict(draft.capture_launches)}, "
+          f"verify {dict(verify.capture_launches)}), one verify replay a cycle "
+          f"({verify.replays} replays, {summ['spec_cycles']} cycles), {draft.replays} draft "
+          "replays")
+    check(summ["spec_draft_tokens"] == summ["spec_accepted_tokens"]
+          + summ["spec_rejected_tokens"] > 0,
+          f"run ({name}): spec counters conserved (drafted {summ['spec_draft_tokens']} = "
+          f"accepted {summ['spec_accepted_tokens']} + rejected {summ['spec_rejected_tokens']})")
+    if engine._completions is not None:
+        comp = engine._completions
+        check(sorted(comp.records) == sorted(r.uid for r in reqs) and comp.duplicates == 0,
+              f"run ({name}): the completion ledger holds every uid once "
+              f"({len(comp.records)} records, {comp.duplicates} duplicates)")
+    torch.cuda.synchronize()
+    for what, ps in (("draft", draft), ("verify", verify)):
+        ms = [a.elapsed_time(b) for a, b in pairs[what]]
+        summ[f"{what}_replay_ms"] = sum(ms) / len(ms) if ms else None
+        summ[f"{what}_replays"] = ps.replays
+    total = dict(counted)
+    for ps in (draft, verify):
+        for k, v in ps.launches.items():
+            total[k] = total.get(k, 0) + v
+    for k in SERVE_PATH:
+        check(total.get(k, 0) > 0, f"run ({name}): {k} launched ({total.get(k, 0)}; the "
+                                   "passes' kernels counted as each capture's count x its "
+                                   "replays)")
     return total
 
 
@@ -1097,7 +1257,7 @@ def main() -> int:
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
 
     # --------------------------------------------- 2. kernels vs plain versions
-    log("== 2. kernels vs plain versions")
+    log(f"== 2. kernels vs plain versions (at {time.perf_counter() - t_start:.1f} s)")
     # (B, H, S, d, block_n): the main path's K/V at prefill, the smoke model's,
     # and every other cache width of the configs (zamba2-7b's 112, the MLA
     # latents 160 and 576, gemma-7b's 256), as the model's strided views
@@ -1286,6 +1446,50 @@ def main() -> int:
                 check(torch.equal(got[0], out_d) and torch.equal(got[1], lse_d),
                       f"paged_bitdecode == bitdecode bit for bit, {label}, identity table, "
                       f"num_splits={ns}")
+
+    # the speculative draft read (draft_bits) of K3 and K4 (a scrambled
+    # table) against their plain versions: bits 4 -> 1, 2, 3; 8 -> 2, 4;
+    # 2 -> 1; both K granularities; d 128 and 256; a residual of block_n
+    # tokens or widened by 8 (the draft pass's), with a row whose res_len
+    # runs past block_n; draft_bits = bits is the normal read bit for bit
+    n_draft, draft_fail = 0, []
+    for (bits_, dbits), gran, (g_, d_), res_n in itertools.product(
+            DRAFT_PAIRS, ("channel", "tensor"), ((4, 128), (1, 256)), (BLOCK_N, BLOCK_N + 8)):
+        rl = [res_n, 57]
+        case = decode_case(2, 4, g_, d_, 6, BLOCK_N, bits_, gran, [6, 4], rl)
+        if res_n > BLOCK_N:
+            for f in ("k_res", "v_res"):
+                case[f] = torch.cat([case[f], case[f][:, :, :8]], 2).contiguous()
+        pools = pools_of(case)
+        order = torch.randperm(12, generator=gen, device=dev)
+        table = order.reshape(2, 6).to(torch.int32)
+        pools = [torch.empty_like(p_).index_copy_(0, order, p_) for p_ in pools]
+        pargs = [case["q"], *pools, case["k_res"], case["v_res"], table, case["pack_blocks"],
+                 case["res_len"]]
+        kw = dict(bits=bits_, block_n=BLOCK_N, k_gran=gran, return_lse=True)
+        what = f"bits {bits_} -> {dbits} {gran} g={g_} d={d_} residual {res_n}"
+        for name, call in (("bitdecode", lambda **x: bd_ops.bitdecode_attention(**case, **kw, **x)),
+                           ("paged_bitdecode", lambda **x: pg_ops.paged_bitdecode_attention(
+                               *pargs, **kw, **x))):
+            ref = call(impl="torch", num_splits=1, draft_bits=dbits)
+            for ns in (1, "auto"):
+                got = call(impl="cuda", num_splits=ns, draft_bits=dbits)
+                (out_k, lse_k), (out_r, lse_r) = got, ref
+                note_err(name, out_k, out_r)
+                n_draft += 1
+                if not (torch.allclose(out_k, out_r, rtol=2e-2, atol=2e-2)
+                        and torch.allclose(lse_k, lse_r, rtol=1e-3, atol=1e-3)):
+                    draft_fail.append(f"{name} {what} num_splits={ns}: max|dout| "
+                                      f"{(out_k - out_r).abs().max().item():.2e}")
+            full = call(impl="cuda", num_splits="auto")
+            same = call(impl="cuda", num_splits="auto", draft_bits=bits_)
+            if not (torch.equal(full[0], same[0]) and torch.equal(full[1], same[1])):
+                draft_fail.append(f"{name} {what}: draft_bits = bits is not the normal read")
+    check(not draft_fail, f"bitdecode and paged_bitdecode draft reads within out 2e-2 / lse "
+                          f"1e-3 of their plain versions ({n_draft} calls: bits 4 -> 1/2/3, "
+                          f"8 -> 2/4, 2 -> 1, both K granularities, d 128/256, residual "
+                          f"{BLOCK_N}/{BLOCK_N + 8} with res_len > block_n), draft_bits = bits "
+                          f"bit for bit the normal read (failed: {draft_fail})")
 
     # one call on the card is at most two launches: the kernel, and the
     # merge when it runs as more than one split
@@ -1528,23 +1732,28 @@ def main() -> int:
               *kq_ops.quantize_kv(randn(b, h, nb * bn, d), BITS, "tensor", block_n=bn)]
     res = [randn(b, h, bn, d), randn(b, h, bn, d)]
 
-    def time_decode(key, paged, b, h, g, d, pb, rl, cache, table=None):
+    def time_decode(key, paged, b, h, g, d, pb, rl, cache, table=None, draft=False):
         """One whole call of K3 / K4 (wrapper, kernel, merge) and its plain
         version at these lengths; the lengths are on the card before the
-        timed calls, as the model's are."""
+        timed calls, as the model's are.  With ``draft``, also the draft
+        read at SPEC_BITS in the same call (``draft_ms``: the same bytes)."""
         q_, res_ = randn(b, h, g, d), [randn(b, h, bn, d), randn(b, h, bn, d)]
         pbt, rlt = ints(pb), ints(rl)
         name, kw = ("paged_bitdecode" if paged else "bitdecode"), dict(
             bits=BITS, block_n=bn, k_gran="channel")
         if paged:
-            call = lambda impl: pg_ops.paged_bitdecode_attention(  # noqa: E731
-                q_, *cache, *res_, table, pbt, rlt, impl=impl, **kw)
+            call = lambda impl, **x: pg_ops.paged_bitdecode_attention(  # noqa: E731
+                q_, *cache, *res_, table, pbt, rlt, impl=impl, **kw, **x)
         else:
-            call = lambda impl: bd_ops.bitdecode_attention(  # noqa: E731
-                q_, *cache, *res_, pbt, rlt, impl=impl, **kw)
+            call = lambda impl, **x: bd_ops.bitdecode_attention(  # noqa: E731
+                q_, *cache, *res_, pbt, rlt, impl=impl, **kw, **x)
         st = stats[name]
         st[key + "ms"] = time_ms(lambda: call("cuda"))
         st[key + "plain_ms"] = time_ms(lambda: call("torch"), iters=3)
+        if draft:
+            st[key + "draft_ms"] = time_ms(lambda: call("cuda", draft_bits=SPEC_BITS))
+            st[key + "draft_plain_ms"] = time_ms(lambda: call("torch", draft_bits=SPEC_BITS),
+                                                 iters=3)
         nb_ = table.shape[1] if paged else cache[0].shape[2]
         st[key + "num_splits"] = splits_of("auto", b, h, g, d, nb_, bn, BITS)
         npr_ = bn * BITS // 32
@@ -1561,7 +1770,9 @@ def main() -> int:
         log(f"  time {name} {key or 'llama3_'}{st[key + 'shape']}: call {st[key + 'ms'] * 1e3:.1f} us "
             f"({st[key + 'num_splits']} splits, {st[key + 'share_of_bound']:.1%} of the bound), "
             f"plain {st[key + 'plain_ms'] * 1e3:.1f} us, bound {st[key + 'bound_ms'] * 1e3:.2f} us "
-            f"({st[key + 'bound_by']})")
+            f"({st[key + 'bound_by']})"
+            + (f"; the draft read at {SPEC_BITS} bits {st[key + 'draft_ms'] * 1e3:.1f} us "
+               f"(plain {st[key + 'draft_plain_ms'] * 1e3:.1f} us), same call" if draft else ""))
 
     def decode_cache(paged, b, h, d, nb):
         rows, n = (1, n_pages * bn) if paged else (b, nb * bn)
@@ -1574,7 +1785,7 @@ def main() -> int:
     # starcoder2-3b
     pb_main, rl_main = [14, 15, 16, 16], [108, 80, 2, 52]
     pb_fam, rl_fam = [8, 8, 9, 9], [104, 56, 126, 48]
-    time_decode("", False, b, h, g, d, pb_main, rl_main, packed)
+    time_decode("", False, b, h, g, d, pb_main, rl_main, packed, draft=True)
     for key, (b_, h_, g_, d_) in (("gemma_", (4, 16, 1, 256)), ("starcoder2_", (4, 2, 12, 128))):
         nb_fam = -(-(max(FAMILY_PROMPT_LENS) + FAMILY_STEPS) // bn)
         time_decode(key, False, b_, h_, g_, d_, pb_fam, rl_fam, decode_cache(False, b_, h_, d_, nb_fam))
@@ -1599,7 +1810,7 @@ def main() -> int:
     table = (b + torch.randperm(n_pages - b, generator=gen, device=dev)[:b * nb_max]
              ).reshape(b, nb_max).to(torch.int32)
     pb_serve, rl_serve = [10, 20, 7, 13], [100, 60, 30, 90]  # a mid-run decode step
-    time_decode("", True, b, h, g, d, pb_serve, rl_serve, pool, table)
+    time_decode("", True, b, h, g, d, pb_serve, rl_serve, pool, table, draft=True)
     for key, (b_, h_, g_, d_) in (("gemma_", (4, 16, 1, 256)), ("starcoder2_", (4, 2, 12, 128))):
         time_decode(key, True, b_, h_, g_, d_, pb_serve, rl_serve,
                     decode_cache(True, b_, h_, d_, nb_max), table)
@@ -1706,14 +1917,16 @@ def main() -> int:
     del scrub, packed, res, x, pool
 
     # ------------------------------------------------------------ 3. end to end
-    log("== 3. end to end: llama3-8b, full width and depth")
+    log(f"== 3. end to end: llama3-8b, full width and depth (at "
+        f"{time.perf_counter() - t_start:.1f} s)")
     cfg, model, params, n_params = build_random("llama3-8b", dev)
     dense = dense_phase(model, params, cfg, check, dev, PROMPT_LENS, DECODE_STEPS, split3=True,
                         captured=True)
     launches = dict(dense.pop("launches"))
 
     # ------------------------------------------------------------ 4. serve
-    log("== 4. serve: llama3-8b behind the paged engine, full width and depth")
+    log(f"== 4. serve: llama3-8b behind the paged engine, full width and depth (at "
+        f"{time.perf_counter() - t_start:.1f} s)")
     serve = serve_phase(model, params, cfg, check, dev)
     serve["report"]["device_profile"] = serve_profile(model, params, cfg, dev)
     log_profile("serve engine cycle, 4 slots decoding", serve["report"]["device_profile"])
@@ -1731,7 +1944,8 @@ def main() -> int:
         phase = 5 if name == "gemma-7b" else 6
         cut = f", cut to {change['n_layers']} layers" if "n_layers" in change else ""
         log(f"== {phase}. {name} at full width{cut or ' and depth'}: the dense loop"
-            + (" and the engine" if phase == 5 else ""))
+            + (" and the engine" if phase == 5 else "")
+            + f" (at {time.perf_counter() - t_start:.1f} s)")
         cfg, model, params, n = build_random(name, dev, **change)
         rep = dense_phase(model, params, cfg, check, dev, FAMILY_PROMPT_LENS, FAMILY_STEPS)
         rep |= {"n_params": n, "cut": cut.lstrip(", ") or None}
@@ -1748,7 +1962,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # -------------------------------------------------------------- the CLI
-    log("== the serve CLI, async runtime, smoke llama3-8b")
+    log(f"== the serve CLI, async runtime, smoke llama3-8b (at "
+        f"{time.perf_counter() - t_start:.1f} s)")
     cli = serve_cli(check)
 
     # ------------------------------------------------------------ 7. summary
@@ -1758,7 +1973,9 @@ def main() -> int:
         by_path = {"llama3-8b dense": launches.get(name, 0) if name in DENSE_PATH else 0,
                    "llama3-8b dense captured": dense["captured"]["launches"].get(name, 0),
                    "llama3-8b serve (a)": serve["launches"].get(name, 0),
-                   "llama3-8b serve (e), async": serve["async_launches"].get(name, 0)}
+                   "llama3-8b serve (e), async": serve["async_launches"].get(name, 0),
+                   **{f"llama3-8b serve ({r}), spec": n.get(name, 0)
+                      for r, n in serve["spec_launches"].items()}}
         for fam, rep in family.items():
             by_path[f"{fam} dense"] = rep["launches"].get(name, 0)
             if "serve_launches" in rep:
@@ -1779,7 +1996,7 @@ def main() -> int:
                                                     "num_splits", "shape")
                or k.startswith(("gemma_", "long_", "starcoder2_", "unfused_", "flush_mode_",
                                 "bound_ms_no_flush", "launch_floor", "v_", "pair_",
-                                "fill_parent_"))
+                                "fill_parent_", "draft_"))
                or k in ("tflops", "share_of_bound", "vs_library")},
         })
     total_s = time.perf_counter() - t_start
@@ -1789,6 +2006,8 @@ def main() -> int:
                       "total_s": total_s}), flush=True)
     log(f"  chip_smoke took {total_s:.1f} s, the build {_build.build_seconds:.1f} s of it")
     if check.failed:
+        for what in check.failed:
+            print(f"chip_smoke: FAIL {what}", file=sys.stderr)
         print(f"chip_smoke: {len(check.failed)} check(s) failed", file=sys.stderr)
         return 1
     print(power, flush=True)
@@ -1796,6 +2015,10 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.2f} ms"
 
 
 def _leaves(tree):

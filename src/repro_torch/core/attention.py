@@ -39,26 +39,28 @@ def inverse_query_transform(o: torch.Tensor) -> torch.Tensor:
 
 def decode_attention(q, cache: QuantKVCache | PagedQuantKVCache, *,
                      sm_scale: float | None = None, impl: str = "auto",
-                     num_splits="auto"):
+                     num_splits="auto", draft_bits: int | None = None):
     """Low-bit fused decode attention of q [B, 1, h_q, d_k] against the cache;
     returns f32 [B, 1, h_q, d_v].  ``num_splits`` is the in-kernel split-KV
-    count ('auto' or an integer).  A paged cache goes through the page table
-    (:func:`_paged_decode_attention`)."""
+    count ('auto' or an integer).  ``draft_bits`` reads the packed blocks at
+    that truncated width (the speculative draft read; None or >= the
+    cache's bits is the normal read).  A paged cache goes through the page
+    table (:func:`_paged_decode_attention`)."""
     if isinstance(cache, PagedQuantKVCache):
         return _paged_decode_attention(q, cache, sm_scale=sm_scale, impl=impl,
-                                       num_splits=num_splits)
+                                       num_splits=num_splits, draft_bits=draft_bits)
     qt = query_transform(q, cache.kw.shape[1])
     out = bd_ops.bitdecode_attention(
         qt, cache.kw, cache.k_scale, cache.k_zero, cache.vw, cache.v_scale,
         cache.v_zero, cache.k_res, cache.v_res, cache.pack_blocks, cache.res_len,
         bits=cache.bits, block_n=cache.block_n, sm_scale=sm_scale,
-        k_gran=cache.k_gran, impl=impl, num_splits=num_splits,
+        k_gran=cache.k_gran, impl=impl, num_splits=num_splits, draft_bits=draft_bits,
     )
     return inverse_query_transform(out)
 
 
 def _paged_decode_attention(q, cache: PagedQuantKVCache, *, sm_scale, impl,
-                            num_splits):
+                            num_splits, draft_bits=None):
     """Paged decode: the page-table walk of kernels/paged_bitdecode."""
     qt = query_transform(q, cache.kw.shape[1])
     out = pg_ops.paged_bitdecode_attention(
@@ -66,19 +68,34 @@ def _paged_decode_attention(q, cache: PagedQuantKVCache, *, sm_scale, impl,
         cache.v_zero, cache.k_res, cache.v_res, cache.page_table,
         cache.pack_blocks, cache.res_len, bits=cache.bits, block_n=cache.block_n,
         sm_scale=sm_scale, k_gran=cache.k_gran, impl=impl, num_splits=num_splits,
+        draft_bits=draft_bits,
     )
     return inverse_query_transform(out)
 
 
 def decode_append_attention(q, cache: QuantKVCache | PagedQuantKVCache, k_new,
                             v_new, *, quant_impl: str = "auto", mask=None,
-                            **attn_kwargs):
+                            draft_bits: int | None = None, **attn_kwargs):
     """The per-token hot path: append the new KV token (residual write +
     flush, in place; ``qcache.append_decode`` or ``qcache.paged_append_decode``
     by the cache's type) and run fused low-bit decode attention over the
     updated cache.  Returns ``(out, cache)``.  ``attn_kwargs`` go to
     :func:`decode_attention`.  The serving engine swaps in a paged state and
-    the model code stays the same."""
+    the model code stays the same.
+
+    The two modes of self-speculative decoding are explicit arguments here
+    (the JAX package sets them as trace-time contexts, ``use_draft`` and
+    ``masked_append`` in its ``core/attention.py``):
+
+    * ``mask`` ([B] bool, the verify pass): rows with ``False`` keep their
+      cache unchanged bit for bit, live rows append exactly as unmasked;
+    * ``draft_bits`` (the draft pass): the append is residual-only
+      (``qcache.draft_append``: no flush, the pools untouched) and the read
+      dequantizes the packed blocks at ``draft_bits``.
+    """
+    if draft_bits is not None:
+        cache = qcache.draft_append(cache, k_new, v_new)
+        return decode_attention(q, cache, draft_bits=draft_bits, **attn_kwargs), cache
     append = (qcache.paged_append_decode if isinstance(cache, PagedQuantKVCache)
               else qcache.append_decode)
     cache = append(cache, k_new, v_new, quant_impl=quant_impl, mask=mask)

@@ -176,6 +176,48 @@ def prefill(cache: QuantKVCache, k, v, *, lengths=None,
 
 
 # --------------------------------------------------------------------------
+# The speculative draft's residual (self-speculative decoding)
+# --------------------------------------------------------------------------
+
+
+def widen_residual(cache, extra: int, *, multiple: int = 1):
+    """The cache with its residual token axis padded by at least ``extra``
+    rows of zeros, to a multiple of ``multiple`` rows: fresh residual
+    tensors, every other field shared.  The draft pass appends up to
+    ``spec_k - 1`` tokens without flushing, so ``res_len`` may run past
+    ``block_n``; the decode reads take the residual's width from
+    ``k_res.shape[-2]`` and mask by ``res_len``, so the rows past it change
+    nothing.  JAX pads by exactly ``extra``; the decode kernel reads the
+    residual in units of ``bitdecode.ops.RES_TOKENS`` tokens, so the
+    speculative pass rounds up (``multiple``).  Dense and paged caches
+    alike, stacked over layers or not."""
+    n = cache.k_res.shape[-2]
+    width = -(-(n + extra) // multiple) * multiple if extra > 0 else n
+    if width == n:
+        return cache
+
+    def pad(res):
+        return torch.nn.functional.pad(res, (0, 0, 0, width - n))
+
+    return dataclasses.replace(cache, k_res=pad(cache.k_res), v_res=pad(cache.v_res))
+
+
+def draft_append(cache, k_new, v_new):
+    """The draft pass's append (k_new/v_new: [B, H, 1, d]), in place: write
+    each row's token at its ``res_len`` and add 1 to ``res_len``.  No flush,
+    no pool, ``pack_blocks`` or table write: the caller widened the residual
+    (:func:`widen_residual`), and the draft state is thrown away after the
+    verify pass.  The row index stays on the device (a scatter), so the
+    append captures into a CUDA graph.  Dense and paged caches alike."""
+    b, h, _, d = k_new.shape
+    idx = cache.res_len.long()[:, None, None, None].expand(b, h, 1, d)
+    cache.k_res.scatter_(2, idx, k_new.to(cache.k_res.dtype))
+    cache.v_res.scatter_(2, idx, v_new.to(cache.v_res.dtype))
+    cache.res_len.add_(1)
+    return cache
+
+
+# --------------------------------------------------------------------------
 # Paged cache (page pools + per-sequence page tables)
 # --------------------------------------------------------------------------
 

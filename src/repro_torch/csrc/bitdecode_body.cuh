@@ -38,7 +38,11 @@
 // Dequantization is bf16(fmaf(code, scale, zero)) in f32, as the plain
 // version; P is rounded to bf16 before PV while l sums the f32 p.  The
 // instances are templates over bits, W, the head dims, the padded g and
-// K's param granularity, so the hot loops carry no runtime branch.
+// K's param granularity, so the hot loops carry no runtime branch.  The
+// speculative draft read (the JAX package's XLA-only `draft_bits`) is a
+// runtime argument of the same instances: every packed word is ANDed with
+// a mask that keeps each code's top bits (draft_keep), residual tokens are
+// read as they are.
 #pragma once
 
 #include <type_traits>
@@ -129,7 +133,27 @@ struct BdArgs {
   float* lse;             // [S, B, H, g]
   int B, H, g, nb, block_n, res_n, num_splits;
   float sm_scale;
+  // the speculative draft read: each code read as its top BITS - draft_shift
+  // bits (0: the normal read; see draft_keep)
+  int draft_shift;
 };
+
+// The mask a packed word is ANDed with before its codes are taken: every
+// BITS-bit code keeps its top BITS - draft_shift bits (all ones for
+// draft_shift 0, the normal read).  The plain version's draft read
+// (ref.py `_dequant_blocks(draft_bits=)`) takes code >> draft_shift against
+// the scale times 2^draft_shift; the masked code is (code >> draft_shift) *
+// 2^draft_shift, an exact small integer, so fmaf(masked, s, z) rounds the
+// same real number once as fmaf(code >> draft_shift, s * 2^draft_shift, z)
+// would, with no branch, template instance or scale change in the loops.
+template <int BITS>
+__device__ __forceinline__ uint32_t draft_keep(int draft_shift) {
+  const uint32_t code = ((1u << BITS) - 1u) >> draft_shift << draft_shift;
+  uint32_t keep = 0u;
+#pragma unroll
+  for (int i = 0; i < 32 / BITS; ++i) keep |= code << (BITS * i);
+  return keep;
+}
 
 template <int BITS, int W, int DK, int DV, int NT>
 struct BdShape {
@@ -229,10 +253,12 @@ __device__ __forceinline__ void q_fragments(const bf16* q_s, int kc, int gam, in
 }
 
 // A packed unit: W word rows (unit `qg` of its block) staged at `st`; K's
-// params per channel (KCH) or per token.
+// params per channel (KCH) or per token; every word read through `keep`
+// (draft_keep).
 template <int BITS, int W, int DK, int DV, int NT, bool KCH>
 __device__ __forceinline__ void packed_unit(const unsigned char* st, const bf16* q_s,
-                                            uint32_t* pbuf, int qg, int npr, float sm_scale,
+                                            uint32_t* pbuf, int qg, int npr, uint32_t keep,
+                                            float sm_scale,
                                             float (&m_run)[NT][2], float (&l_run)[NT][2],
                                             float (&o)[DV / 16][NT][4]) {
   using S = BdShape<BITS, W, DK, DV, NT>;
@@ -270,8 +296,10 @@ __device__ __forceinline__ void packed_unit(const unsigned char* st, const bf16*
   for (int kc = 0; kc < S::KC; ++kc) {
     const uint4 w4 = *reinterpret_cast<const uint4*>(krow + 16 * kc);
     const int pre = 2 * BITS * subk;
-    const uint32_t w[4] = {static_cast<uint32_t>(w4.x) >> pre, static_cast<uint32_t>(w4.y) >> pre,
-                           static_cast<uint32_t>(w4.z) >> pre, static_cast<uint32_t>(w4.w) >> pre};
+    const uint32_t w[4] = {(static_cast<uint32_t>(w4.x) & keep) >> pre,
+                           (static_cast<uint32_t>(w4.y) & keep) >> pre,
+                           (static_cast<uint32_t>(w4.z) & keep) >> pre,
+                           (static_cast<uint32_t>(w4.w) & keep) >> pre};
     uint32_t qb[NT][2];
     q_fragments<NT, S::QLD>(q_s, kc, gam, tig, qb);
     float sc[4], zc[4];
@@ -344,10 +372,10 @@ __device__ __forceinline__ void packed_unit(const unsigned char* st, const bf16*
     for (int mp = 0; mp < DV / 32; ++mp) {
       const uint4 a4 = *reinterpret_cast<const uint4*>(v0 + 32 * mp);
       const uint4 b4 = *reinterpret_cast<const uint4*>(v1 + 32 * mp);
-      const uint32_t w0[4] = {static_cast<uint32_t>(a4.x), static_cast<uint32_t>(a4.y),
-                              static_cast<uint32_t>(a4.z), static_cast<uint32_t>(a4.w)};
-      const uint32_t w1[4] = {static_cast<uint32_t>(b4.x), static_cast<uint32_t>(b4.y),
-                              static_cast<uint32_t>(b4.z), static_cast<uint32_t>(b4.w)};
+      const uint32_t w0[4] = {static_cast<uint32_t>(a4.x) & keep, static_cast<uint32_t>(a4.y) & keep,
+                              static_cast<uint32_t>(a4.z) & keep, static_cast<uint32_t>(a4.w) & keep};
+      const uint32_t w1[4] = {static_cast<uint32_t>(b4.x) & keep, static_cast<uint32_t>(b4.y) & keep,
+                              static_cast<uint32_t>(b4.z) & keep, static_cast<uint32_t>(b4.w) & keep};
 #pragma unroll
       for (int x = 0; x < 2; ++x) {
         const int cl = 2 * x, ch = 2 * x + 1;
@@ -432,6 +460,7 @@ __device__ __forceinline__ void bitdecode_body(const BdArgs& a, CellOf cell_of) 
   const int bh = blockIdx.x, split = blockIdx.y, b = bh / a.H;
   const int npr = a.block_n * BITS / 32, upb = npr / W;
   const int kp = KCH ? DK : a.block_n;
+  const uint32_t keep = draft_keep<BITS>(a.draft_shift);
   // the merge (launched as a programmatic dependent) may start its CTAs
   // now; it waits in griddepcontrol.wait until this grid has finished
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -542,8 +571,8 @@ __device__ __forceinline__ void bitdecode_body(const BdArgs& a, CellOf cell_of) 
     __syncwarp();
     const unsigned char* st = mine + ((u - lo) % BD_STAGES) * S::STAGE;
     if (u < n_pk) {
-      packed_unit<BITS, W, DK, DV, NT, KCH>(st, q_s, pbuf, u % upb, npr, a.sm_scale, m_run,
-                                            l_run, o);
+      packed_unit<BITS, W, DK, DV, NT, KCH>(st, q_s, pbuf, u % upb, npr, keep, a.sm_scale,
+                                            m_run, l_run, o);
     } else {
       const int t0 = (u - n_pk) * BD_RES_TOKENS;
       residual_unit<BITS, W, DK, DV, NT>(st, q_s, rl - t0, a.sm_scale, m_run, l_run, o);

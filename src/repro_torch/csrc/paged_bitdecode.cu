@@ -37,14 +37,15 @@ extern "C" int paged_bitdecode_launch(
     const void* vs, const void* vz, const void* k_res, const void* v_res,
     const void* page_table, const void* pack_blocks, const void* res_len, void* out,
     void* lse, int B, int H, int g, int dk, int dv, int nb_max, int n_pages, int block_n,
-    int res_n, int bits, int k_channel, int num_splits, float sm_scale, void* stream) {
+    int res_n, int bits, int k_channel, int num_splits, int draft_shift, float sm_scale,
+    void* stream) {
   if (B * H == 0) return 0;
-  if (dv != dk) return (int)cudaErrorInvalidValue;
+  if (dv != dk || draft_shift < 0 || draft_shift >= bits) return (int)cudaErrorInvalidValue;
   const BdArgs a{(const bf16*)q, (const int32_t*)kw, (const bf16*)ks, (const bf16*)kz,
                  (const int32_t*)vw, (const bf16*)vs, (const bf16*)vz, (const bf16*)k_res,
                  (const bf16*)v_res, (const int32_t*)pack_blocks, (const int32_t*)res_len,
                  (float*)out, (float*)lse, B, H, g, nb_max, block_n, res_n, num_splits,
-                 sm_scale};
+                 sm_scale, draft_shift};
   const dim3 grid(B * H, num_splits);
   return (int)bd_dispatch(
       bits, bd_unit_rows(block_n, bits), dk, g > 8 ? 2 : 1, k_channel,

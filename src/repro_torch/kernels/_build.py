@@ -42,10 +42,10 @@ _SIGNATURES = {
     "kv_quant": ("kv_quant_launch", [_P] * 9 + [_I] * 9 + [_P]),
     # both modes of both caches: one entry point, counted as dense or paged
     "residual_flush": ("residual_flush_launch", [_P] * 17 + [_L] * 4 + [_I] * 12 + [_P]),
-    "bitdecode": ("bitdecode_launch", [_P] * 13 + [_I] * 11 + [_F, _P]),
+    "bitdecode": ("bitdecode_launch", [_P] * 13 + [_I] * 12 + [_F, _P]),
     "bitdecode_merge": ("bitdecode_merge_launch", [_P] * 4 + [_I] * 3 + [_P]),
     "paged_residual_flush": ("residual_flush_launch", [_P] * 17 + [_L] * 4 + [_I] * 12 + [_P]),
-    "paged_bitdecode": ("paged_bitdecode_launch", [_P] * 14 + [_I] * 12 + [_F, _P]),
+    "paged_bitdecode": ("paged_bitdecode_launch", [_P] * 14 + [_I] * 13 + [_F, _P]),
     "flash_prefill": ("flash_prefill_launch", [_P] * 5 + [_I] * 5 + [_L] * 12
                       + [_I, _F, _I, _P]),
 }

@@ -109,10 +109,22 @@ def kernel_operand(t, what: str):
     return t
 
 
-def launch_decode(name: str, q, arrays, ints, *, d_v: int, num_splits: int, sm_scale: float):
+def draft_shift(bits: int, draft_bits: int | None) -> int:
+    """The kernel's ``draft_shift``: the low bits of each code a draft read
+    drops (0 for the normal read, ``draft_bits`` None or >= ``bits``)."""
+    if draft_bits is None or draft_bits >= bits:
+        return 0
+    if draft_bits < 1:
+        raise ValueError(f"draft_bits={draft_bits} outside [1, bits={bits}]")
+    return bits - draft_bits
+
+
+def launch_decode(name: str, q, arrays, ints, *, d_v: int, num_splits: int, sm_scale: float,
+                  shift: int = 0):
     """Launch kernel ``name`` (its C entry point takes q, ``arrays``, out,
-    lse, B, H, g, ``ints``, num_splits, sm_scale, stream) and, with more than
-    one split, the merge.  Returns (out [B, H, g, d_v] f32, lse [B, H, g] f32)."""
+    lse, B, H, g, ``ints``, num_splits, the draft shift, sm_scale, stream)
+    and, with more than one split, the merge.  Returns (out [B, H, g, d_v]
+    f32, lse [B, H, g] f32)."""
     b, h, g, _ = q.shape
     dev = q.device
     out = torch.empty((b, h, g, d_v), dtype=torch.float32, device=dev)
@@ -124,7 +136,7 @@ def launch_decode(name: str, q, arrays, ints, *, d_v: int, num_splits: int, sm_s
         l_part = torch.empty((num_splits, b, h, g), dtype=torch.float32, device=dev)
     stream = _build.stream_of(q)
     _build.launch(name, q.data_ptr(), *(t.data_ptr() for t in arrays), o_part.data_ptr(),
-                  l_part.data_ptr(), b, h, g, *ints, num_splits, float(sm_scale), stream)
+                  l_part.data_ptr(), b, h, g, *ints, num_splits, shift, float(sm_scale), stream)
     if num_splits > 1:
         merge_cuda(o_part, l_part, out, lse)
     return out, lse
@@ -150,8 +162,10 @@ def query_operand(q):
 
 def bitdecode_cuda(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, pack_blocks,
                    res_len, *, bits: int, block_n: int, sm_scale: float, k_gran: str,
-                   num_splits):
-    """The kernel (and merge) on CUDA tensors: (out, lse)."""
+                   num_splits, draft_bits: int | None = None):
+    """The kernel (and merge) on CUDA tensors: (out, lse).  ``draft_bits``
+    below ``bits`` reads every packed code at that width (the runtime
+    shift of ``csrc/bitdecode_body.cuh``)."""
     b, h, g, d_k = q.shape
     nb, npr = kw.shape[2], kw.shape[3]
     d_v, res_n = vw.shape[-1], k_res.shape[2]
@@ -167,7 +181,8 @@ def bitdecode_cuda(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, pa
                                 k_channel=k_gran == "channel")
     return launch_decode("bitdecode", query_operand(q), arrays,
                          (d_k, d_v, nb, block_n, res_n, bits, int(k_gran == "channel")),
-                         d_v=d_v, num_splits=splits, sm_scale=sm_scale)
+                         d_v=d_v, num_splits=splits, sm_scale=sm_scale,
+                         shift=draft_shift(bits, draft_bits))
 
 
 def bitdecode_attention(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res,
@@ -181,11 +196,13 @@ def bitdecode_attention(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res,
 
     q: [B, H_kv, g, d_k] (query-transformed); see ref.py for the shapes.
     impl: 'cuda' | 'torch' | 'auto' (the kernel for CUDA tensors).
-    ``shared_kv`` (MLA latent cache) and ``draft_bits`` (truncated draft
-    read) exist in the plain version only: on CUDA tensors they raise
-    unless the caller asks for ``impl='torch'``.  The plain version resolves
-    ``num_splits="auto"`` to 1 (splitting multiplies its work); explicit
-    integers are honoured.
+    ``draft_bits`` (the speculative draft read: each packed code read at
+    its top ``draft_bits`` bits, against the scale times 2^(bits -
+    draft_bits)) runs in the kernel too; ``draft_bits >= bits`` is the
+    normal read.  ``shared_kv`` (MLA latent cache) exists in the plain
+    version only: on CUDA tensors it raises unless the caller asks for
+    ``impl='torch'``.  The plain version resolves ``num_splits="auto"`` to 1
+    (splitting multiplies its work); explicit integers are honoured.
     """
     d_k = q.shape[-1]
     if sm_scale is None:
@@ -194,9 +211,9 @@ def bitdecode_attention(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res,
         draft_bits = None  # a full-fidelity read is the normal path
     impl = _build.resolve_impl(impl, q, kw, k_scale, k_zero, vw, v_scale, v_zero,
                                k_res, v_res, pack_blocks, res_len)
-    if impl == "cuda" and (shared_kv or draft_bits is not None):
-        raise ValueError("shared_kv and draft_bits have no CUDA kernel; pass impl='torch' "
-                         "for the plain version")
+    if impl == "cuda" and shared_kv:
+        raise ValueError("shared_kv has no CUDA kernel; pass impl='torch' for the plain "
+                         "version")
     if impl == "torch":
         out, lse = _ref.bitdecode_attention_ref(
             q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res,
@@ -209,6 +226,6 @@ def bitdecode_attention(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res,
         out, lse = bitdecode_cuda(
             q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res,
             pack_blocks, res_len, bits=bits, block_n=block_n, sm_scale=sm_scale,
-            k_gran=k_gran, num_splits=num_splits,
+            k_gran=k_gran, num_splits=num_splits, draft_bits=draft_bits,
         )
     return (out, lse) if return_lse else out

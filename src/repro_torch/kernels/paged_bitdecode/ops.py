@@ -19,8 +19,10 @@ from repro_torch.kernels.paged_bitdecode import ref as _ref
 
 def paged_bitdecode_cuda(q, kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool,
                          v_zero_pool, k_res, v_res, page_table, pack_blocks, res_len, *,
-                         bits: int, block_n: int, sm_scale: float, k_gran: str, num_splits):
-    """The kernel (and merge) on CUDA tensors: (out, lse)."""
+                         bits: int, block_n: int, sm_scale: float, k_gran: str, num_splits,
+                         draft_bits: int | None = None):
+    """The kernel (and merge) on CUDA tensors: (out, lse); ``draft_bits`` as
+    in ``bitdecode.ops.bitdecode_cuda``."""
     b, h, g, d_k = q.shape
     n_pages, _, npr, _ = kw_pool.shape
     nb_max = page_table.shape[1]
@@ -40,7 +42,8 @@ def paged_bitdecode_cuda(q, kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale
     return bd_ops.launch_decode(
         "paged_bitdecode", bd_ops.query_operand(q), arrays,
         (d_k, d_v, nb_max, n_pages, block_n, res_n, bits, int(k_gran == "channel")),
-        d_v=d_v, num_splits=splits, sm_scale=sm_scale)
+        d_v=d_v, num_splits=splits, sm_scale=sm_scale,
+        shift=bd_ops.draft_shift(bits, draft_bits))
 
 
 def paged_bitdecode_attention(q, kw_pool, k_scale_pool, k_zero_pool, vw_pool,
@@ -56,10 +59,11 @@ def paged_bitdecode_attention(q, kw_pool, k_scale_pool, k_zero_pool, vw_pool,
 
     q: [B, H_kv, g, d_k] (query-transformed); see ref.py for the shapes.
     impl: 'cuda' | 'torch' | 'auto' (the kernel for CUDA tensors).
-    ``shared_kv`` (MLA latent pools) and ``draft_bits`` (truncated draft
-    read) exist in the plain version only: on CUDA tensors they raise unless
-    the caller asks for ``impl='torch'``.  The plain version resolves
-    ``num_splits="auto"`` to 1; explicit integers are honoured.
+    ``draft_bits`` (the speculative draft read) runs in the kernel as in
+    the dense wrapper; ``shared_kv`` (MLA latent pools) exists in the plain
+    version only: on CUDA tensors it raises unless the caller asks for
+    ``impl='torch'``.  The plain version resolves ``num_splits="auto"`` to
+    1; explicit integers are honoured.
     """
     d_k = q.shape[-1]
     if sm_scale is None:
@@ -69,9 +73,9 @@ def paged_bitdecode_attention(q, kw_pool, k_scale_pool, k_zero_pool, vw_pool,
     impl = _build.resolve_impl(impl, q, kw_pool, k_scale_pool, k_zero_pool, vw_pool,
                                v_scale_pool, v_zero_pool, k_res, v_res, page_table,
                                pack_blocks, res_len)
-    if impl == "cuda" and (shared_kv or draft_bits is not None):
-        raise ValueError("shared_kv and draft_bits have no CUDA kernel; pass impl='torch' "
-                         "for the plain version")
+    if impl == "cuda" and shared_kv:
+        raise ValueError("shared_kv has no CUDA kernel; pass impl='torch' for the plain "
+                         "version")
     if impl == "torch":
         out, lse = _ref.paged_bitdecode_attention_ref(
             q, kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool,
@@ -84,6 +88,6 @@ def paged_bitdecode_attention(q, kw_pool, k_scale_pool, k_zero_pool, vw_pool,
         out, lse = paged_bitdecode_cuda(
             q, kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool,
             k_res, v_res, page_table, pack_blocks, res_len, bits=bits, block_n=block_n,
-            sm_scale=sm_scale, k_gran=k_gran, num_splits=num_splits,
+            sm_scale=sm_scale, k_gran=k_gran, num_splits=num_splits, draft_bits=draft_bits,
         )
     return (out, lse) if return_lse else out

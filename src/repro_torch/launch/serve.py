@@ -12,16 +12,18 @@ picks where the engine runs (the card unless ``cpu``).  ``--async-runtime``
 runs the overlapped runtime: each decode step is one replay of a captured
 CUDA graph, and the host reads a step's tokens up to ``--async-window``
 steps after dispatching it (``repro_torch.serve.async_runtime``).
+``--spec-k K`` (K > 1) decodes by self-speculation: K - 1 greedy drafts a
+cycle read the same pools at ``--spec-bits`` bits, one verify pass keeps
+the longest prefix the full-fidelity argmax agrees with (on the card each
+pass is one CUDA graph replay); the streams equal ``--spec-k 1``.
 
-Page-pool sizing, reservations, preemption, the auditor, deadlines and
-tracing (``--trace-out``) work as in the JAX launcher.  Not ported yet, and
-refused with ``NotImplementedError`` naming the ROADMAP item: the cache
-families other than attention (``--family mla|hybrid|xlstm``) and the
-exact-length shim (``--dense``, queue A item 10), cross-chip split-KV
-routing (``--splitkv`` other than ``auto``, item 11), self-speculative
-decoding (``--spec-k`` > 1 and ``--spec-bits``, item 9.3), and the
-engine's ``strict`` and ``metrics_every`` (``--strict``,
-``--metrics-every``, item 9.6).
+Page-pool sizing, reservations, preemption, the auditor, deadlines,
+``--strict``, ``--metrics-every`` and tracing (``--trace-out``) work as in
+the JAX launcher.  Not ported yet, and refused with
+``NotImplementedError`` naming the ROADMAP item: the cache families other
+than attention (``--family mla|hybrid|xlstm``) and the exact-length shim
+(``--dense``, queue A item 10), and cross-chip split-KV routing
+(``--splitkv`` other than ``auto``, item 11).
 """
 from __future__ import annotations
 
@@ -116,10 +118,6 @@ def _refuse_unported(args) -> None:
         raise _unported("the exact-length shim (--dense)", "10")
     if args.splitkv != "auto":
         raise _unported("cross-chip split-KV routing (--splitkv)", "11")
-    if args.spec_k > 1 or args.spec_bits is not None:
-        raise _unported("self-speculative decoding (--spec-k, --spec-bits)", "9.3")
-    if args.strict or args.metrics_every:
-        raise _unported("--strict and --metrics-every", "9.6")
 
 
 def main(argv=None):
@@ -141,8 +139,10 @@ def main(argv=None):
         model, params, slots=args.slots, max_seq=args.max_seq, n_pages=args.pages,
         share_prefix=not args.no_prefix_sharing, reserve_policy=args.reserve_policy,
         expected_quantile=args.expected_quantile, preempt_policy=args.preempt_policy,
-        audit_every=args.audit_every, async_runtime=args.async_runtime,
-        async_window=args.async_window, trace=args.trace_out is not None, device=dev,
+        audit_every=args.audit_every, strict=args.strict, spec_k=args.spec_k,
+        spec_bits=args.spec_bits, metrics_every=args.metrics_every,
+        async_runtime=args.async_runtime, async_window=args.async_window,
+        trace=args.trace_out is not None, device=dev,
     )
     print(f"[serve] engine mode: paged, pool={engine.n_pages} pages "
           f"({engine.kv_page_bytes} B/page)")
@@ -181,6 +181,13 @@ def main(argv=None):
         print(f"[serve] pressure: preempted={stats['preempted']}"
               f" preempt_remat_tokens={stats['preempt_remat_tokens']}"
               f" audits={stats['audits']}")
+    if args.spec_k > 1:
+        print(f"[serve] speculative: k={args.spec_k}"
+              f" accept_rate={stats.get('spec_accept_rate', 0.0):.3f}"
+              f" drafted={stats.get('spec_draft_tokens', 0)}"
+              f" accepted={stats.get('spec_accepted_tokens', 0)}"
+              f" draft_replays={engine._draft.replays}"
+              f" verify_replays={engine._verify.replays}")
     if engine._runner is not None:
         step = engine._runner.step_fn
         print(f"[serve] async runtime: window={engine._runner.window}"

@@ -82,13 +82,15 @@ def attn_prefill_cache(p, cfg, x, positions, max_seq: int, *, impl="auto",
 
 
 def attn_decode(p, cfg, x, positions, cache, *, impl="auto", quant_impl="auto",
-                num_splits="auto"):
+                num_splits="auto", mask=None, draft_bits=None):
     """x: [B, 1, d]; appends to the cache (in place), then runs the fused
     low-bit decode kernel.  ``impl`` picks the attention kernel,
-    ``quant_impl`` the flush, ``num_splits`` the split-KV count."""
+    ``quant_impl`` the flush, ``num_splits`` the split-KV count; ``mask``
+    and ``draft_bits`` are the speculative modes of
+    ``core.attention.decode_append_attention``."""
     q, k, v = _qkv(p, cfg, x, positions)
     out, cache = catt.decode_append_attention(
         q, cache, k.transpose(1, 2), v.transpose(1, 2), quant_impl=quant_impl,
-        impl=impl, num_splits=num_splits,
+        mask=mask, draft_bits=draft_bits, impl=impl, num_splits=num_splits,
     )
     return _out(out.to(x.dtype), p["wo"]), cache

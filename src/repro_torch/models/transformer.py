@@ -214,11 +214,18 @@ class DecoderLM:
                 "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device)}
 
     def decode_step(self, params, state, tokens, *, impl="auto", quant_impl="auto",
-                    num_splits="auto"):
+                    num_splits="auto", mask=None, draft_bits=None):
         """tokens [B, 1] -> (logits [B, 1, V], state).  The caches of
         ``state`` are updated in place; the returned state holds the same
         caches and ``pos + 1``.  ``num_splits`` is the decode attention's
-        split-KV count ('auto' or an integer)."""
+        split-KV count ('auto' or an integer).
+
+        Self-speculative decoding (``serve/speculative.py``): ``mask`` ([B]
+        bool) freezes the caches of the rows that are ``False`` (the verify
+        pass; the JAX package's ``masked_append``), ``draft_bits`` makes every
+        layer's append residual-only and its read truncated to that width
+        (the draft pass; JAX's ``use_draft``).  The returned ``pos + 1`` is
+        unmasked: the caller freezes ``pos`` itself."""
         x = self._embed(params, tokens)
         pos = state["pos"]
         positions = pos[:, None]
@@ -229,5 +236,6 @@ class DecoderLM:
                 x, _ = self._block(p, x, lambda h: mattn.attn_decode(
                     p["attn"], self.cfg, h, positions, stacked.layer(li),
                     impl=impl, quant_impl=quant_impl, num_splits=num_splits,
+                    mask=mask, draft_bits=draft_bits,
                 ))
         return self._logits(params, x), {"caches": state["caches"], "pos": pos + 1}

@@ -241,53 +241,47 @@ class DeviceTokens:
         return int(self._host[row])
 
 
-class CapturedDecodeStep:
-    """One decode step of ``model`` over ``state``, with the next-token
-    argmax (``nxt``, int32 ``[B]``) and the rows' finiteness (``finite``,
-    bool ``[B]``) computed on the device and the argmax copied into the
-    step's token buffer (``tokens``, int32 ``[B, 1]``): the feed of the next
-    step.  The step writes ``state`` in place, ``state["pos"]`` included.
+class CapturedPass:
+    """A body over a decode ``state`` that runs as one CUDA graph on the card:
+    the machinery :class:`CapturedDecodeStep` and the speculative passes
+    (``serve/speculative.py``) share.
 
-    On the card the construction runs two eager steps on a side
-    stream (the kernel library's build, the occupancy queries, cuBLAS's
-    handles and the allocator settle), captures one step as a CUDA graph,
-    and restores every state tensor to what it held before: the warm-up
-    appended a token to every row.  :meth:`replay` then launches the graph
-    on the current stream.  A failed capture raises; there is no eager
-    fallback on the card.  On the CPU :meth:`replay` runs the same step
-    eagerly.
+    On the card :meth:`capture` runs the body ``_WARMUP_STEPS`` times
+    eagerly on a side stream (the kernel library's build, the occupancy
+    queries, cuBLAS's handles and the allocator settle), captures one run
+    as a CUDA graph, and restores every state tensor and every buffer of
+    :meth:`_buffers` to what it held before: the warm-up wrote them.
+    :meth:`replay` then launches the graph on the current stream.  A failed
+    capture raises; there is no eager fallback on the card.  On the CPU
+    :meth:`replay` runs the same body eagerly.
 
-    ``capture_launches`` counts the kernels the capture recorded (the
-    wrappers count at capture, not at replay); ``replays`` the steps run."""
+    The body must read and write only tensors that live as long as the pass
+    (the state's, written in place, and the pass's own buffers), and must
+    neither copy from the host nor synchronise.  ``capture_launches``
+    counts the kernels the capture recorded (the wrappers count at capture,
+    not at replay); ``replays`` the runs."""
 
-    def __init__(self, model, params, state, *, impl: str = "auto",
-                 quant_impl: str = "auto"):
-        self.model, self.params, self.state = model, params, state
-        self.impl, self.quant_impl = impl, quant_impl
-        pos = state["pos"]
-        dev = pos.device
-        b = pos.shape[0]
-        self.tokens = torch.zeros((b, 1), dtype=torch.int32, device=dev)
-        self.nxt = torch.zeros((b,), dtype=torch.int32, device=dev)
-        self.finite = torch.ones((b,), dtype=torch.bool, device=dev)
+    what = "the pass"
+
+    def __init__(self, state):
+        self.state = state
         self.replays = 0
         self.capture_launches: collections.Counter = collections.Counter()
         self.graph = None
-        if dev.type == "cuda":
-            self._capture()
 
     def _body(self) -> None:
-        logits, st = self.model.decode_step(self.params, self.state, self.tokens,
-                                            impl=self.impl, quant_impl=self.quant_impl)
-        self.state["pos"].copy_(st["pos"])
-        row = logits[:, 0]
-        nxt = row.argmax(-1)
-        self.nxt.copy_(nxt)
-        self.finite.copy_(torch.isfinite(row).all(-1))
-        self.tokens.copy_(nxt[:, None])
+        raise NotImplementedError
 
-    def _capture(self) -> None:
-        saved = [t.clone() for t in _state_tensors(self.state)]
+    def _buffers(self) -> list[torch.Tensor]:
+        """The pass's own tensors the warm-up may write."""
+        return []
+
+    def capture(self) -> None:
+        """Capture the body as a graph (on the card; a no-op on the CPU)."""
+        if self.state["pos"].device.type != "cuda":
+            return
+        keep = _state_tensors(self.state) + self._buffers()
+        saved = [t.clone() for t in keep]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.no_grad():
@@ -301,24 +295,65 @@ class CapturedDecodeStep:
                 with torch.cuda.graph(graph):
                     self._body()
             except Exception as err:
-                raise RuntimeError(f"capturing the decode step as a CUDA graph failed: "
+                raise RuntimeError(f"capturing {self.what} as a CUDA graph failed: "
                                    f"{err}") from err
             self.capture_launches = collections.Counter(_build.launches) - before
-            for t, s in zip(_state_tensors(self.state), saved):
+            for t, s in zip(keep, saved):
                 t.copy_(s)
-            self.tokens.zero_()
-            self.nxt.zero_()
-            self.finite.fill_(True)
         self.graph = graph
 
     def replay(self) -> None:
-        """Run one step: the graph on the card, the eager step on the CPU."""
+        """Run the body once: the graph on the card, eagerly on the CPU."""
         if self.graph is not None:
             self.graph.replay()
         else:
             with torch.no_grad():
                 self._body()
         self.replays += 1
+
+    @property
+    def launches(self) -> dict:
+        """Kernel launches of the replays so far: the capture's count of
+        each kernel times the replays (the eager runs on the CPU launch no
+        kernel)."""
+        return {k: v * self.replays for k, v in self.capture_launches.items()}
+
+
+class CapturedDecodeStep(CapturedPass):
+    """One decode step of ``model`` over ``state``, with the next-token
+    argmax (``nxt``, int32 ``[B]``) and the rows' finiteness (``finite``,
+    bool ``[B]``) computed on the device and the argmax copied into the
+    step's token buffer (``tokens``, int32 ``[B, 1]``): the feed of the next
+    step.  The step writes ``state`` in place, ``state["pos"]`` included.
+    Captured on construction (:class:`CapturedPass`)."""
+
+    what = "the decode step"
+
+    def __init__(self, model, params, state, *, impl: str = "auto",
+                 quant_impl: str = "auto"):
+        super().__init__(state)
+        self.model, self.params = model, params
+        self.impl, self.quant_impl = impl, quant_impl
+        pos = state["pos"]
+        dev = pos.device
+        b = pos.shape[0]
+        self.tokens = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        self.nxt = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.finite = torch.ones((b,), dtype=torch.bool, device=dev)
+        self.capture()
+
+    def _buffers(self) -> list[torch.Tensor]:
+        return [self.tokens, self.nxt, self.finite]
+
+    def _body(self) -> None:
+        logits, st = self.model.decode_step(self.params, self.state, self.tokens,
+                                            impl=self.impl, quant_impl=self.quant_impl)
+        self.state["pos"].copy_(st["pos"])
+        row = logits[:, 0]
+        nxt = row.argmax(-1)
+        self.nxt.copy_(nxt)
+        self.finite.copy_(torch.isfinite(row).all(-1))
+        self.tokens.copy_(nxt[:, None])
 
     def read_back(self):
         """Queue copies of the last step's ``nxt`` and ``finite`` into fresh
@@ -334,13 +369,6 @@ class CapturedDecodeStep:
         done = torch.cuda.Event()
         done.record()
         return nxt, finite, done
-
-    @property
-    def launches(self) -> dict:
-        """Kernel launches of the replays so far: the capture's count of
-        each kernel times the replays (the eager steps on the CPU launch no
-        kernel)."""
-        return {k: v * self.replays for k, v in self.capture_launches.items()}
 
 
 # --------------------------------------------------------------------------
@@ -610,7 +638,8 @@ class AsyncRunner:
                 poisoned = eng.faults is not None and eng.faults.fires(
                     "poison_logits", cycle=rec.cycle, uid=req.uid,
                     progress=len(req.out_tokens))
-                bad = "non-finite logits row" if poisoned or not bool(finite[slot]) else None
+                bad = ("non-finite logits row"
+                       if eng.guard_logits and (poisoned or not bool(finite[slot])) else None)
                 eng._advance_one(slot, req, int(nxt[slot]), bad, dt, now, cycle=rec.cycle)
             eng.metrics.inc("steps")
         self.last_progress = now

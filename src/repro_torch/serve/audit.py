@@ -1,6 +1,6 @@
 """Invariant auditor for the paged serving engine (the port's copy of the
-JAX package's ``serve/audit.py``: the pool and telemetry audits; the
-speculative-state audit comes with the speculative path, ROADMAP A9).
+JAX package's ``serve/audit.py``: the pool, speculative-state and telemetry
+audits).
 
 Four views of page ownership must agree at every cycle boundary, and each
 is maintained by different code:
@@ -27,6 +27,8 @@ enough for continuous background use.
 from __future__ import annotations
 
 import dataclasses
+
+from repro_torch.serve.scheduler import Phase
 
 
 class AuditError(RuntimeError):
@@ -271,8 +273,58 @@ def audit_engine(engine) -> AuditReport:
                     "index"
                 )
 
+    _audit_spec(engine, out)
     _audit_telemetry(engine, out)
     return report
+
+
+def _audit_spec(engine, out: list) -> None:
+    """Self-speculative decoding state.
+
+    * the configuration: ``spec_k >= 1``; with speculation on, ``spec_bits``
+      in ``[1, kv_bits]`` and both passes built;
+    * token conservation: every drafted token was accepted or rejected,
+      ``spec_draft_tokens == spec_accepted + spec_rejected``, and no
+      counter, the per-request ones included, is negative;
+    * position bookkeeping: an active DECODE request's ``pos`` equals
+      ``prompt_len + len(out_tokens) - replay_left``: the multi-token verify
+      and the one-token cycle keep the same ledger, so drift here is a lost
+      or double-counted append.
+    """
+    spec_k = getattr(engine, "spec_k", 1)
+    stats = getattr(engine, "stats", {})
+    if spec_k < 1:
+        out.append(f"spec_k={spec_k} out of range (must be >= 1)")
+    if spec_k > 1:
+        bits = getattr(getattr(getattr(engine, "model", None), "cfg", None), "kv_bits", None)
+        sb = getattr(engine, "spec_bits", None)
+        if sb is not None and bits is not None and not 1 <= sb <= bits:
+            out.append(f"spec_bits={sb} outside [1, kv_bits={bits}]")
+        if getattr(engine, "_draft", None) is None:
+            out.append("spec_k > 1 but no draft pass was built")
+        if getattr(engine, "_verify", None) is None:
+            out.append("spec_k > 1 but no verify pass was built")
+    drafted = stats.get("spec_draft_tokens", 0)
+    accepted = stats.get("spec_accepted_tokens", 0)
+    rejected = stats.get("spec_rejected_tokens", 0)
+    if min(drafted, accepted, rejected) < 0:
+        out.append(f"negative speculative counter(s): drafted={drafted} "
+                   f"accepted={accepted} rejected={rejected}")
+    if drafted != accepted + rejected:
+        out.append(f"speculative token conservation breach: drafted={drafted} != "
+                   f"accepted={accepted} + rejected={rejected}")
+    sched = getattr(engine, "sched", None)
+    if sched is None:
+        return
+    for req in sched.active.values():
+        if req.spec_accepted < 0 or req.spec_rejected < 0:
+            out.append(f"request {req.uid}: negative per-request speculative counter(s) "
+                       f"({req.spec_accepted}/{req.spec_rejected})")
+        if req.phase is Phase.DECODE:
+            want = req.prompt_len + len(req.out_tokens) - req.replay_left
+            if req.pos != want:
+                out.append(f"request {req.uid}: pos={req.pos} but prompt_len + out_tokens - "
+                           f"replay_left = {want} (append ledger drift)")
 
 
 def _audit_telemetry(engine, out: list) -> None:

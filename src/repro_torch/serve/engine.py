@@ -22,6 +22,15 @@ The engine composes the serving pieces into one cycle (:meth:`ServeEngine.step`)
 4. read the logits once (the cycle's one device sync), advance per-token
    accounting, retire finished requests.
 
+``spec_k > 1`` replaces steps 3 and 4 with a self-speculative cycle
+(:meth:`ServeEngine._step_spec_once`, :mod:`repro_torch.serve.speculative`): a
+draft pass proposes ``spec_k - 1`` tokens a row against the ``spec_bits``
+read of the same pools, one verify pass runs all ``spec_k`` feeds at full
+fidelity, and the host keeps the longest prefix the verify argmax agrees
+with.  On the card each pass is one replay of a captured CUDA graph; the
+cycle's two host syncs are the two read-backs.  The streams equal
+``spec_k = 1`` bit for bit.
+
 ``async_runtime=True`` replaces this stop-the-world cycle with the
 overlapped runtime (:mod:`repro_torch.serve.async_runtime`): each decode
 step is one replay of a captured CUDA graph, the next token is taken on the
@@ -49,10 +58,9 @@ shapes whichever requests it is admitted with.  On the card cuBLAS picks a
 matrix product's kernel by shape, and a row's result is then a function of
 that row alone: a preempted request rebuilds its prefill bit for bit.
 
-Not ported yet, and refused with ``NotImplementedError``: self-speculative
-decoding (``spec_k > 1``, ROADMAP A9.3); a mesh, the split-KV routing and
-page-affine pools (A11); the exact-length shim (``paged=False``) and cache
-families other than split K/V attention (A10).
+Not ported yet, and refused with ``NotImplementedError``: a mesh, the
+split-KV routing and page-affine pools (ROADMAP A11); the exact-length shim
+(``paged=False``) and cache families other than split K/V attention (A10).
 """
 from __future__ import annotations
 
@@ -66,6 +74,7 @@ from repro_torch.core.device import resolve_device, upload
 from repro_torch.serve import pages as pg
 from repro_torch.serve.async_runtime import AsyncRunner, CompletionWorker, DeviceTokens
 from repro_torch.serve.audit import audit_engine
+from repro_torch.serve.speculative import DraftPass, VerifyPass
 from repro_torch.serve.scheduler import (  # noqa: F401 (Phase/Request re-exported)
     Phase,
     Request,
@@ -104,6 +113,9 @@ STAT_COUNTERS = (
     # async runtime: terminal retirements handed to the completion thread;
     # in-flight decode results consumed after their request left the slot
     "completions_enqueued", "discarded_steps",
+    # self-speculative decoding: cycles, and draft tokens proposed,
+    # accepted and rejected (drafted = accepted + rejected)
+    "spec_cycles", "spec_draft_tokens", "spec_accepted_tokens", "spec_rejected_tokens",
 )
 
 
@@ -147,29 +159,40 @@ class ServeEngine:
                  spec_tail: bool = True, retain_prefix: bool = False,
                  page_affine: bool = False, reserve_policy: str = "worst_case",
                  expected_quantile: float = 0.5, preempt_policy: str = "youngest",
-                 audit_every: int = 0, faults=None, clock=None, spec_k: int = 1,
-                 trace: bool | Tracer = False, metrics: MetricsRegistry | None = None,
-                 async_runtime: bool = False, async_window: int = 2,
+                 audit_every: int = 0, faults=None, strict: bool = False,
+                 guard_logits: bool = True, clock=None, spec_k: int = 1,
+                 spec_bits: int | None = None, trace: bool | Tracer = False,
+                 metrics: MetricsRegistry | None = None, metrics_every: int = 0,
+                 metrics_sink=None, async_runtime: bool = False, async_window: int = 2,
                  completion_queue: int = 64, watchdog_s: float = 30.0,
-                 on_complete=None, device=None):
+                 detokenizer=None, on_complete=None, device=None):
         """The options are the JAX engine's (see its docstring): ``n_pages``
         bounds the pool (default: full provisioning, ``slots * nb_max`` plus
         the scratch pages), ``share_prefix``/``spec_tail``/``retain_prefix``
         drive prefix sharing, ``reserve_policy``/``expected_quantile``/
         ``preempt_policy`` the pressure handling, ``audit_every``/``faults``/
-        ``clock`` the self-checks and guards, ``trace``/``metrics`` telemetry.
+        ``clock`` the self-checks and guards (``strict=True``: a submission
+        that can never be admitted raises instead of retiring REJECTED;
+        ``guard_logits=False``: no per-row poisoned-step isolation),
+        ``trace``/``metrics`` telemetry (``metrics_every=N``: a registry
+        snapshot every N cycles to ``metrics_sink``, a callable, or printed
+        as the Prometheus text exposition when it is None).
+        ``spec_k > 1`` decodes up to ``spec_k`` tokens a cycle by
+        self-speculation (module docstring), drafting against the
+        ``spec_bits`` read (default ``min(2, kv_bits)``, within
+        ``[1, kv_bits]``).
         ``async_runtime`` runs the overlapped runtime (module docstring) with
         at most ``async_window`` decode steps in flight; ``completion_queue``
         bounds the completion thread's queue, ``watchdog_s`` every blocking
         wait of the runtime (``async_runtime.DeadlockError``), and
-        ``on_complete`` (called with each ``CompletionRecord``) runs on that
-        thread.
+        ``detokenizer`` (tokens -> text) and ``on_complete`` (called with
+        each ``CompletionRecord``) run on that thread.  With ``spec_k > 1``
+        the speculative cycle runs unoverlapped (it syncs twice for up to
+        ``spec_k`` tokens) and completions still go to the thread.
         ``impl`` picks the prefill and decode attention kernels (a suffix
         prefill over a shared prefix stays plain PyTorch), ``quant_impl`` the
         quantize and flush kernels ('auto' | 'cuda' | 'torch').  ``device``:
         where the state lives (the card unless given)."""
-        if spec_k != 1:
-            raise _unported("speculative decoding (spec_k > 1)", "9.3")
         if mesh is not None or splitkv != "auto" or page_affine:
             raise _unported("the mesh, split-KV routing and page-affine pools", "11")
         if paged is False:
@@ -190,6 +213,7 @@ class ServeEngine:
         self.preempt_policy = preempt_policy
         self.audit_every = audit_every
         self.faults = faults
+        self.guard_logits = guard_logits
         self.clock = clock if clock is not None else time.monotonic
         self.device = resolve_device(device)
         self._cycle = 0
@@ -198,6 +222,8 @@ class ServeEngine:
         # --- telemetry ---------------------------------------------------
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.tracer = trace if isinstance(trace, Tracer) else (Tracer() if trace else None)
+        self.metrics_every = int(metrics_every)
+        self.metrics_sink = metrics_sink
         for name in STAT_COUNTERS:
             self.metrics.counter(name)
         # device_starved_s: async runtime, wall time the dispatch pipeline sat
@@ -219,6 +245,13 @@ class ServeEngine:
         self._deferred: list[tuple[int, int, list[int]]] = []
 
         self.block_n = spec.block_n
+        # self-speculative decoding: the passes are built over the state below
+        self.spec_k = int(spec_k)
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k={spec_k} must be >= 1")
+        self.spec_bits = int(spec_bits) if spec_bits is not None else min(2, cfg.kv_bits)
+        if not 1 <= self.spec_bits <= cfg.kv_bits:
+            raise ValueError(f"spec_bits={self.spec_bits} outside [1, kv_bits={cfg.kv_bits}]")
         self._impl, self._quant_impl = impl, quant_impl
         # the decode step: a plain callable over (params, state, tokens), the
         # counterpart of the JAX engine's jitted lambda; it updates the
@@ -251,7 +284,7 @@ class ServeEngine:
             slots=slots, pool=self.pool, block_n=self.block_n, max_seq=max_seq,
             min_bucket=min_bucket, share_prefix=share, spec_tail=spec_tail and share,
             retain_prefix=self.retain_prefix, reserve_policy=reserve_policy,
-            expected_quantile=expected_quantile, clock=self.clock,
+            expected_quantile=expected_quantile, strict=strict, clock=self.clock,
             metrics=self.metrics,
             namespace=f"{cfg.name}/b{cfg.kv_bits}/n{self.block_n}/{cfg.kv_gran}",
         )
@@ -261,15 +294,23 @@ class ServeEngine:
             np.arange(slots, dtype=np.int32)[:, None], (slots, self.nb_max)).copy()
         self._table_dirty = False
 
-        # --- async overlapped runtime: captures the decode step over the
-        # state above, so it comes last
+        # --- the speculative passes and the async runtime capture their
+        # graphs over the state above, so they come last
+        self._draft = self._verify = None
+        if self.spec_k > 1:
+            self._draft = DraftPass(model, params, self.state, spec_k=self.spec_k,
+                                    spec_bits=self.spec_bits, impl=impl, quant_impl=quant_impl)
+            self._verify = VerifyPass(model, params, self.state, spec, spec_k=self.spec_k,
+                                      impl=impl, quant_impl=quant_impl)
         self.async_runtime = bool(async_runtime)
         self._runner = None
         self._completions = None
         if self.async_runtime:
             self._completions = CompletionWorker(queue_size=completion_queue,
-                                                 watchdog_s=watchdog_s, on_complete=on_complete)
-            self._runner = AsyncRunner(self, window=async_window, watchdog_s=watchdog_s)
+                                                 watchdog_s=watchdog_s, detokenizer=detokenizer,
+                                                 on_complete=on_complete)
+            if self.spec_k == 1:
+                self._runner = AsyncRunner(self, window=async_window, watchdog_s=watchdog_s)
 
     # ------------------------------------------------------------ public
 
@@ -385,6 +426,9 @@ class ServeEngine:
                                 / max(1, sched["prefix_lookup_blocks"])),
             "pool_pages_retained": self.pool.n_retained,
         }
+        if self.spec_k > 1:
+            out["spec_accept_rate"] = (stats["spec_accepted_tokens"]
+                                       / max(1, stats["spec_draft_tokens"]))
         if self._runner is not None and self._runner.dispatched > 0:
             # overlap-aware: the share of cycle time the dispatch pipeline sat
             # empty; under overlap, host work no longer means an idle device
@@ -407,11 +451,16 @@ class ServeEngine:
         self._cycle_worked = False
         try:
             with torch.no_grad():
+                if self.spec_k > 1:
+                    return self._step_spec_once(t0)
                 return self._step_once(t0)
         finally:
             self._finish_cycle(t0)
 
-    def _step_once(self, t0: float) -> bool:
+    def _schedule_and_admit(self) -> bool:
+        """The cycle's skeleton before its decode: deferred releases,
+        expiry, the forced-preempt and evict-storm faults, admission and
+        prefill.  Returns whether any request is active."""
         with self._phase("schedule"):
             self._service_deferred()
             self._expire()
@@ -424,7 +473,10 @@ class ServeEngine:
                                                              cycle=self._cycle):
                 self.pool.reclaim_retained(self.faults.storm_pages)
         self._admit_and_prefill()
-        if not self.sched.active:
+        return bool(self.sched.active)
+
+    def _step_once(self, t0: float) -> bool:
+        if not self._schedule_and_admit():
             return False
         with self._phase("schedule"):
             self._ensure_flush_pages()
@@ -450,9 +502,14 @@ class ServeEngine:
                         rows[slot] = np.nan
             nxt = np.argmax(rows, axis=-1)
             # a poisoned row retires its request alone
-            finite = np.isfinite(rows).all(axis=-1)
-            bad = {slot: "non-finite logits row" for slot in self.sched.active
-                   if not finite[slot]}
+            bad: dict[int, str] = {}
+            if self.guard_logits:
+                finite = np.isfinite(rows).all(axis=-1)
+                for slot in self.sched.active:
+                    if not finite[slot]:
+                        bad[slot] = "non-finite logits row"
+                    elif not 0 <= int(nxt[slot]) < rows.shape[-1]:
+                        bad[slot] = f"invalid next token id {int(nxt[slot])}"
             self.metrics.inc("steps")
             # occupancy at the cycle peak: after admission, before release
             self._occupancy.append(self.pool.occupancy)
@@ -463,7 +520,8 @@ class ServeEngine:
 
     def _finish_cycle(self, t0: float) -> None:
         """Cycle-boundary bookkeeping: fold the phase timers into the
-        registry, derive the device-idle gap, advance the work window."""
+        registry, derive the device-idle gap, advance the work window, and
+        serve the periodic metrics sink."""
         now = time.perf_counter()
         cycle_s = now - t0
         acc, self._phase_acc = self._phase_acc, {}
@@ -481,6 +539,142 @@ class ServeEngine:
         if self.tracer is not None:
             self.tracer.complete("cycle", t0=t0, dur_s=cycle_s, cat="engine",
                                  args={"cycle": self._cycle})
+        if self.metrics_every and self._cycle % self.metrics_every == 0:
+            if self.metrics_sink is not None:
+                self.metrics_sink(m.snapshot())
+            else:
+                print(m.to_prometheus(), end="")
+
+    # ------------------------------------------- the speculative decode cycle
+
+    def _step_spec_once(self, t0: float) -> bool:
+        """One self-speculative cycle (``spec_k > 1``): the skeleton of the
+        sync cycle, then
+
+        1. the ``[slots, spec_k]`` feed matrix: column 0 is each row's
+           committed token; a replay row takes its recorded stream (teacher
+           forcing, accepted whatever the verify argmax), a decoding row
+           leaves room for its drafts;
+        2. every flush destination the cycle can reach
+           (``_ensure_flush_pages`` with each row's feed count as its
+           lookahead; copy on write and preemption as in the sync cycle);
+        3. the draft pass (one graph replay on the card), its tokens read
+           back: the cycle's first host sync;
+        4. the verify pass (one graph replay) over every feed, written into
+           the engine's state, its results read back: the second sync;
+        5. :meth:`_advance_spec`: the longest accepted prefix, token by token
+           with the sequential EOS, budget and poisoned-row semantics."""
+        if not self._schedule_and_admit():
+            return False
+        k = self.spec_k
+        feeds = np.zeros((self.slots, k), np.int32)
+        limit = np.zeros((self.slots,), np.int32)
+        forced = np.zeros((self.slots,), bool)
+        with self._phase("schedule"):
+            lookahead: dict[int, int] = {}
+            for slot, req in self.sched.active.items():
+                feeds[slot, 0] = self.tokens[slot, 0]
+                if req.replay_left > 0:
+                    n = min(k, req.replay_left)
+                    start = len(req.out_tokens) - req.replay_left
+                    feeds[slot, 1:n] = req.out_tokens[start + 1:start + n]
+                    limit[slot] = n
+                    forced[slot] = True
+                else:
+                    limit[slot] = min(k, req.max_new_tokens - len(req.out_tokens))
+                lookahead[slot] = int(limit[slot])
+            self._ensure_flush_pages(lookahead=lookahead)
+            for slot in range(self.slots):
+                if self.sched.active.get(slot) is None:
+                    limit[slot] = 0  # preempted while allocating: feeds nothing
+            if self.sched.active and self._table_dirty:
+                pg.set_page_tables(self.state["caches"], self._table)
+                self._table_dirty = False
+        if not self.sched.active:  # everyone self-preempted under faults
+            return False
+
+        self._cycle_worked = True
+        dev = self.device
+        if any(limit[s] > 1 and not forced[s] for s in self.sched.active):
+            with self._phase("decode_dispatch"):
+                self._draft.tok0.copy_(upload(feeds[:, 0], dev))
+                self._draft.replay()
+            with self._phase("device_wait"):
+                drafts = self._draft.drafts.cpu().numpy()
+            if self.tracer is not None:
+                self.tracer.instant("spec_draft", args={"cycle": self._cycle})
+            for slot in self.sched.active:
+                n = int(limit[slot])
+                if not forced[slot] and n > 1:
+                    feeds[slot, 1:n] = drafts[slot, :n - 1]
+        ver = self._verify
+        with self._phase("decode_dispatch"):
+            ver.feeds.copy_(upload(feeds, dev))
+            ver.limit.copy_(upload(limit, dev))
+            ver.forced.copy_(upload(forced, dev))
+            ver.replay()
+        with self._phase("device_wait"):
+            v, applied, finite = torch.stack(
+                (ver.v, ver.applied.to(torch.int32), ver.finite.to(torch.int32))).cpu().numpy()
+        with self._phase("advance"):
+            poison: set[int] = set()
+            if self.faults is not None:
+                for slot, req in list(self.sched.active.items()):
+                    if self.faults.fires("poison_logits", cycle=self._cycle, uid=req.uid,
+                                         progress=len(req.out_tokens)):
+                        poison.add(slot)
+            self.metrics.inc("steps")
+            self.metrics.inc("spec_cycles")
+            # occupancy at the cycle peak: after admission, before release
+            self._occupancy.append(self.pool.occupancy)
+            self._advance_spec(v, applied.astype(bool), finite.astype(bool), limit,
+                               time.perf_counter() - t0, poison)
+        if self.audit_every and self._cycle % self.audit_every == 0:
+            self.audit().raise_if_violations()
+        return True
+
+    def _advance_spec(self, v, applied, finite, limit, dt: float, poison: set[int]) -> None:
+        """Per-row accounting of a speculative cycle.  A row with ``n``
+        applied feeds ran feed 0 (its committed token) and ``n - 1``
+        accepted drafts, each equal to the verify argmax before it; they are
+        recorded by ``n`` calls of the sequential cycle's
+        :meth:`_advance_one`, the next committed token of each being the
+        verify argmax after it, so EOS, the token budget and replay advance
+        token by token as ``n`` sequential cycles would.  Emission stops at
+        the first non-finite verify row (or an injected poison), which
+        retires the request ERRORED after recording the token that produced
+        it, as the sequential poisoned step does.  Replay rows ignore the
+        logits and count no draft."""
+        now = time.perf_counter()
+        cyc_drafted = cyc_accepted = 0
+        for slot, req in list(self.sched.active.items()):
+            n_ap = int(applied[slot].sum())
+            if n_ap == 0:
+                continue
+            n_emit, err = n_ap, None
+            if req.replay_left == 0:
+                drafted, accepted = max(0, int(limit[slot]) - 1), n_ap - 1
+                cyc_drafted += drafted
+                cyc_accepted += accepted
+                self.metrics.inc("spec_draft_tokens", drafted)
+                self.metrics.inc("spec_accepted_tokens", accepted)
+                self.metrics.inc("spec_rejected_tokens", drafted - accepted)
+                req.spec_accepted += accepted
+                req.spec_rejected += drafted - accepted
+                if slot in poison:
+                    n_emit, err = 1, "non-finite logits row"
+                elif self.guard_logits:
+                    bad_idx = np.flatnonzero(~finite[slot, :n_ap])
+                    if bad_idx.size:
+                        n_emit, err = int(bad_idx[0]) + 1, "non-finite logits row"
+            for j in range(n_emit):
+                self._advance_one(slot, req, int(v[slot, j]),
+                                  err if j == n_emit - 1 else None, dt / n_emit, now)
+                if self.sched.active.get(slot) is not req:
+                    break  # retired
+        if self.tracer is not None:
+            self.tracer.instant("spec_verify",
+                                args={"drafted": cyc_drafted, "accepted": cyc_accepted})
 
     def _advance(self, nxt: np.ndarray, dt: float, bad: dict[int, str] | None = None) -> None:
         """Per-token accounting: record the decoded token, advance
@@ -494,10 +688,11 @@ class ServeEngine:
 
     def _advance_one(self, slot: int, req: Request, nxt_tok: int, bad: str | None,
                      dt: float, now: float, *, cycle: int | None = None) -> None:
-        """One slot's share of :meth:`_advance`, the one per-token body both
-        runtimes share: the sync cycle calls it right after its host sync,
-        the async runtime at the consumption boundary with the step's
-        dispatch ``cycle`` (for error attribution)."""
+        """One slot's share of :meth:`_advance`, the one per-token body every
+        cycle shares: the sync cycle calls it right after its host sync, the
+        speculative cycle once a verified feed (:meth:`_advance_spec`), the
+        async runtime at the consumption boundary with the step's dispatch
+        ``cycle`` (for error attribution)."""
         if req.replay_left > 0:
             req.pos += 1
             req.replay_left -= 1
@@ -779,9 +974,12 @@ class ServeEngine:
             self.sched.register_prefix(req, req.shared_pages + pages_per_req[r])
         return lazy
 
-    def _ensure_flush_pages(self, pos_of=None) -> None:
+    def _ensure_flush_pages(self, pos_of=None, lookahead: dict[int, int] | None = None) -> None:
         """Allocate the destination page of every row whose residual fills on
-        the coming step (``pos % block_n == block_n - 1``).  A destination
+        the coming step (``pos % block_n == block_n - 1``); ``lookahead``
+        (slot -> feed count, the speculative cycle) widens the check to
+        every position the cycle's verify pass can reach, which may cross
+        more than one block boundary.  A destination
         column that holds a page with refcount > 1 (a speculative shared
         tail) is copied on write: the request gets a private page, the block
         is replicated on the device, and only its own column is repointed.
@@ -793,36 +991,38 @@ class ServeEngine:
         flight (a destination must exist before its step is dispatched)."""
         cow_src, cow_dst = [], []
         for req in list(self.sched.active.values()):
-            if self.sched.active.get(req.slot) is not req:
-                continue  # preempted by an earlier alloc this cycle
             pos = req.pos if pos_of is None else pos_of(req)
-            if pos % self.block_n != self.block_n - 1:
-                continue
-            blk = pos // self.block_n
-            entry = int(self._table[req.slot, blk])
-            if entry < self.slots:  # still scratch -> fresh private page
-                page = self._alloc_page(req)
-                if page is None:
-                    continue  # self-preempted: requeued, row reset
-                self._table[req.slot, blk] = page
-                self._table_dirty = True
-            elif self.pool.refcount(entry) > 1:  # shared -> copy on write
-                page = self._alloc_page(req)
-                if page is None:
+            window = 1 if lookahead is None else lookahead.get(req.slot, 1)
+            for j in range(max(1, window)):
+                if self.sched.active.get(req.slot) is not req:
+                    break  # preempted by an earlier alloc this cycle
+                if (pos + j) % self.block_n != self.block_n - 1:
                     continue
-                cow_src.append(entry)
-                cow_dst.append(page)
-                req.pages.remove(entry)
-                if req.spec_page == entry:
-                    req.spec_page = None
-                self.pool.free(entry, owner=req.uid)
-                self._table[req.slot, blk] = page
-                self._table_dirty = True
-                self.metrics.inc("cow_copies")
-                if self.tracer is not None:
-                    self.tracer.instant("cow", uid=req.uid, cat="request",
-                                        args={"src": entry, "dst": page})
-            else:
-                self.sched.forget_page(entry)
+                blk = (pos + j) // self.block_n
+                entry = int(self._table[req.slot, blk])
+                if entry < self.slots:  # still scratch -> fresh private page
+                    page = self._alloc_page(req)
+                    if page is None:
+                        continue  # self-preempted: requeued, row reset
+                    self._table[req.slot, blk] = page
+                    self._table_dirty = True
+                elif self.pool.refcount(entry) > 1:  # shared -> copy on write
+                    page = self._alloc_page(req)
+                    if page is None:
+                        continue
+                    cow_src.append(entry)
+                    cow_dst.append(page)
+                    req.pages.remove(entry)
+                    if req.spec_page == entry:
+                        req.spec_page = None
+                    self.pool.free(entry, owner=req.uid)
+                    self._table[req.slot, blk] = page
+                    self._table_dirty = True
+                    self.metrics.inc("cow_copies")
+                    if self.tracer is not None:
+                        self.tracer.instant("cow", uid=req.uid, cat="request",
+                                            args={"src": entry, "dst": page})
+                else:
+                    self.sched.forget_page(entry)
         if cow_src:
             pg.cow_pages(self.state["caches"], cow_src, cow_dst)

@@ -595,8 +595,8 @@ def test_serve_cli_async_runtime_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("argv, item", [
     (["--family", "mla"], "10"), (["--dense"], "10"), (["--splitkv", "always"], "11"),
-    (["--spec-k", "2"], "9.3"), (["--spec-bits", "2"], "9.3"), (["--strict"], "9.6"),
-    (["--metrics-every", "1"], "9.6"),
+    (["--family", "hybrid"], "10"), (["--family", "xlstm"], "10"),
+    (["--splitkv", "never"], "11"), (["--dense", "--spec-k", "2"], "10"),
 ])
 def test_serve_cli_refuses_what_is_not_ported(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, item {item}"):

@@ -10,7 +10,9 @@ decode step's "append") must match bit for bit;
 bitdecode and paged_bitdecode within the reference's tolerances (out 2e-2,
 lse 1e-3), and paged_bitdecode over an identity page table bit for bit
 equal to bitdecode; flash_prefill within its kernel's tolerance (out 3e-2,
-lse 1e-3).  The plain versions are held against the JAX package in
+lse 1e-3); the draft read (``draft_bits``) of both decode kernels within
+the same tolerances, and the speculative passes' graphs bit for bit equal
+to their eager bodies.  The plain versions are held against the JAX package in
 test_torch_kernels.py, test_torch_paged.py and test_torch_flash_prefill.py.
 """
 import functools
@@ -215,18 +217,76 @@ def test_bitdecode_kernel_matches_plain(cuda, case, num_splits):
 
 
 def test_plain_only_options_raise_on_the_card(cuda):
-    """shared_kv and draft_bits have no kernel: on the card they need
-    impl='torch', and 'auto' raises instead of falling back."""
+    """shared_kv has no kernel: on the card it needs impl='torch', and
+    'auto' raises instead of falling back.  draft_bits has one: it launches
+    the kernel."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     args = _decode_args(gen, cuda, *DECODE_CASES[2])
     shared = args[:8] + [None] + args[9:]  # V is read from K: no V residual
-    for call_args, extra in ((shared, dict(shared_kv=True, d_v=64)), (args, dict(draft_bits=2))):
-        call = functools.partial(bd_ops.bitdecode_attention, *call_args, bits=4,
-                                 block_n=128, k_gran="channel", **extra)
-        for impl in ("auto", "cuda"):
-            with pytest.raises(ValueError, match="no CUDA kernel"):
-                call(impl=impl)
-        assert torch.isfinite(call(impl="torch")).all()
+    call = functools.partial(bd_ops.bitdecode_attention, *shared, bits=4, block_n=128,
+                             k_gran="channel", shared_kv=True, d_v=64)
+    for impl in ("auto", "cuda"):
+        with pytest.raises(ValueError, match="no CUDA kernel"):
+            call(impl=impl)
+    assert torch.isfinite(call(impl="torch")).all()
+    _build.launches.clear()
+    bd_ops.bitdecode_attention(*args, bits=4, block_n=128, k_gran="channel", draft_bits=2,
+                               num_splits=1)
+    assert dict(_build.launches) == {"bitdecode": 1}
+
+
+# ---------------------------------------------- the speculative draft read
+
+
+DRAFT_PAIRS = [(4, 1), (4, 2), (4, 3), (8, 2), (8, 4), (2, 1)]
+
+
+@pytest.mark.parametrize("bits, draft_bits", DRAFT_PAIRS)
+@pytest.mark.parametrize("k_gran", ["channel", "tensor"])
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("res_n", [128, 136], ids=["res128", "res136"])
+def test_draft_read_kernel_matches_plain(cuda, bits, draft_bits, k_gran, d, res_n):
+    """K3 and K4 (a scrambled table) with ``draft_bits`` against their plain
+    versions, out 2e-2 / lse 1e-3, with a residual of ``block_n`` tokens or
+    widened by the draft pass's 8 (a row with ``res_len > block_n``); the
+    rows past ``res_len`` are never read (zeroing them changes nothing, bit
+    for bit); ``draft_bits = bits`` is the normal read bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(bits * 100 + draft_bits * 10 + d)
+    g = 4 if d == 128 else 1
+    v_off = 2.0 * torch.randn(d, generator=gen, device=cuda)
+    packed = _packed(gen, cuda, b=2, h=2, nb=4, block_n=128, d=d, bits=bits, k_gran=k_gran,
+                     v_off=v_off)
+    q = randn(gen, (2, 2, g, d), cuda)
+    k_res = randn(gen, (2, 2, res_n, d), cuda)
+    v_res = (randn(gen, (2, 2, res_n, d), cuda) + v_off).to(torch.bfloat16)
+    pb, rl = [4, 3], [res_n - 1, 100]
+    ints = functools.partial(torch.tensor, dtype=torch.int32, device=cuda)
+    kw = dict(bits=bits, block_n=128, k_gran=k_gran, return_lse=True)
+    order = torch.randperm(8, generator=gen, device=cuda)
+    pools = [torch.empty_like(p).index_copy_(0, order, p) for p in _pools(packed)]
+    table = order.reshape(2, 4).to(torch.int32)
+    calls = {
+        "dense": lambda kr, vr, **x: bd_ops.bitdecode_attention(
+            q, *packed, kr, vr, ints(pb), ints(rl), **kw, **x),
+        "paged": lambda kr, vr, **x: pg_ops.paged_bitdecode_attention(
+            q, *pools, kr, vr, table, ints(pb), ints(rl), **kw, **x),
+    }
+    k_zero, v_zero = k_res.clone(), v_res.clone()
+    for t in (k_zero, v_zero):
+        t[0, :, rl[0]:] = 0
+        t[1, :, rl[1]:] = 0
+    for name, call in calls.items():
+        for ns in (1, 3, "auto"):
+            out_k, lse_k = call(k_res, v_res, impl="cuda", num_splits=ns, draft_bits=draft_bits)
+            out_r, lse_r = call(k_res, v_res, impl="torch", num_splits=1, draft_bits=draft_bits)
+            _assert_decode_close(out_k, lse_k, out_r, lse_r, pb, rl)
+            zeroed = call(k_zero, v_zero, impl="cuda", num_splits=ns, draft_bits=draft_bits)
+            assert torch.equal(zeroed[0], out_k) and torch.equal(zeroed[1], lse_k), (name, ns)
+        full = call(k_res, v_res, impl="cuda", num_splits=3)
+        same = call(k_res, v_res, impl="cuda", num_splits=3, draft_bits=bits)
+        assert torch.equal(full[0], same[0]) and torch.equal(full[1], same[1]), name
+        assert not torch.equal(full[0], call(k_res, v_res, impl="cuda", num_splits=3,
+                                             draft_bits=draft_bits)[0])
 
 
 def test_entry_points_default_to_the_card(cuda):
@@ -892,3 +952,85 @@ def test_capture_failure_raises_and_does_not_fall_back(cuda, graph_model):
     eng = ServeEngine(model, params, slots=2, max_seq=128, async_runtime=True)
     assert eng._runner.step_fn.graph is not None
     eng.close()
+
+
+# ------------------------------------------ self-speculative decoding's passes
+
+
+def test_spec_passes_replay_equal_eager_bitwise(cuda, graph_model):
+    """The draft and verify passes captured as CUDA graphs against the same
+    bodies run eagerly, from the same paged state, over six cycles that
+    flush on both live rows (an idle row 2): the drafts, ``v``,
+    ``applied``, ``finite`` and every state tensor bit for bit after every
+    pass.  Capture leaves the state as it found it; the draft graph reads
+    the pools (one K4 launch a layer and step, no flush), the verify graph
+    appends through K5 and reads through K4 once a layer and feed."""
+    from repro_torch.serve.speculative import DraftPass, VerifyPass
+
+    model, params = graph_model
+    k, n = 4, model.cfg.n_layers
+    spec = model.paged_spec()
+    with torch.no_grad():
+        states = [_decode_state(model, params, cuda, paged=True) for _ in range(2)]
+        before = [t.clone() for t in _state_fields(states[1])]
+        passes = [(DraftPass(model, params, st, spec_k=k, spec_bits=2),
+                   VerifyPass(model, params, st, spec, spec_k=k)) for st in states]
+        for a, b in zip(_state_fields(states[1]), before):
+            assert torch.equal(a, b)
+        (d_e, v_e), (d_g, v_g) = passes
+        assert d_g.graph is not None and v_g.graph is not None
+        assert d_g.capture_launches["paged_bitdecode"] == n * (k - 1)
+        assert d_g.capture_launches["paged_residual_flush"] == 0
+        assert v_g.capture_launches["paged_residual_flush"] == n * k
+        assert v_g.capture_launches["paged_bitdecode"] == n * k
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        tok0 = torch.zeros(3, dtype=torch.int32, device=cuda)
+        for cycle in range(6):
+            for d_pass in (d_e, d_g):
+                d_pass.tok0.copy_(tok0)
+            d_e._body()
+            d_g.replay()
+            assert torch.equal(d_e.drafts, d_g.drafts), cycle
+            feeds = torch.cat([tok0[:, None], d_e.drafts], 1)
+            feeds[1, 2:] = torch.randint(0, model.cfg.vocab, (k - 2,), generator=gen,
+                                         device=cuda, dtype=torch.int32)
+            for v_pass in (v_e, v_g):
+                v_pass.feeds.copy_(feeds)
+                v_pass.limit.copy_(torch.tensor([k, k - 1, 0], dtype=torch.int32, device=cuda))
+                v_pass.forced.copy_(torch.tensor([cycle % 2 == 0, False, False], device=cuda))
+            v_e._body()
+            v_g.replay()
+            for name in ("v", "applied", "finite"):
+                assert torch.equal(getattr(v_e, name), getattr(v_g, name)), (cycle, name)
+            for a, b in zip(_state_fields(states[0]), _state_fields(states[1])):
+                assert torch.equal(a, b), cycle
+            last = v_e.applied.sum(1) - 1
+            tok0 = v_e.v[torch.arange(3, device=cuda), last.clamp(min=0)].to(torch.int32)
+    assert d_g.replays == v_g.replays == 6
+
+
+@pytest.mark.parametrize("async_runtime", [False, True])
+@pytest.mark.parametrize("pressure", [False, True])
+def test_spec_engine_equals_sequential_on_the_card(cuda, graph_model, pressure, async_runtime):
+    """The smoke engine at ``spec_k = 4``, ``spec_bits = 2`` on the card
+    (prefix sharing, flushes inside verify scans, with ``pressure``
+    preemption and replay; with ``async_runtime`` completions on the
+    background thread): streams and phases bit for bit the ``spec_k = 1``
+    engine's; every draft and verify pass one graph replay."""
+    model, params = graph_model
+    kw = dict(slots=3, max_seq=192, audit_every=1)
+    if pressure:
+        kw.update(n_pages=3 + 5, reserve_policy="expected", expected_quantile=0.0)
+    with torch.no_grad():
+        want = _drive(ServeEngine(model, params, **kw), _gpu_workload(model.cfg))
+        eng = ServeEngine(model, params, spec_k=4, spec_bits=2, async_runtime=async_runtime,
+                          **kw)
+        got = _drive(eng, _gpu_workload(model.cfg))
+    assert got == want
+    s = eng.stats
+    assert eng._draft.graph is not None and eng._verify.graph is not None
+    assert eng._verify.replays == s["spec_cycles"] == s["steps"] > 0
+    assert 0 < eng._draft.replays <= eng._verify.replays
+    assert s["spec_draft_tokens"] == s["spec_accepted_tokens"] + s["spec_rejected_tokens"] > 0
+    assert (s["preempted"] > 0) == pressure
+    assert eng.pool.n_free == eng.pool.capacity

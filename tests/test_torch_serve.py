@@ -348,7 +348,7 @@ def test_cow_pair_equals_solo_runs(small_model):
     assert engine.pool.n_free == engine.pool.capacity
 
 
-@pytest.mark.parametrize("kw", [dict(spec_k=2),
+@pytest.mark.parametrize("kw", [dict(splitkv="never"),
                                 dict(mesh=object()), dict(splitkv="always"),
                                 dict(page_affine=True), dict(paged=False)])
 def test_unported_options_raise(small_model, kw):
