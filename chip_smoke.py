@@ -2,8 +2,8 @@
 """Drive the PyTorch port of BitDecoding on one NVIDIA GPU (written for an
 H100), from the kernels' build to full-width decoding and serving of
 llama3-8b (at full depth, by one-token cycles, on the async runtime and by
-self-speculation) and gemma-7b, and the dense loop of starcoder2-3b and
-command-r-35b.
+self-speculation), gemma-7b and qwen3-moe-235b-a22b, and the dense loop of
+starcoder2-3b and command-r-35b.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --jax-init   # the init-scale witness, see below
@@ -26,19 +26,21 @@ Phases:
      fourth step, every array compared after every step; bitdecode and
      paged_bitdecode within out 2e-2 / lse 1e-3, over scrambled and
      identity page tables, at the decode shapes of llama3-8b, gemma-7b,
-     starcoder2-3b and command-r-35b, bits 2, 4, 8, block_n 32-128, rows
+     starcoder2-3b, command-r-35b and qwen3-moe-235b-a22b (g 16), bits 2,
+     4, 8, block_n 32-128, rows
      with fewer blocks than splits, empty rows and full residuals;
      paged_bitdecode on an identity table bit for bit equal to bitdecode;
      both decode kernels' speculative draft read (``draft_bits``: bits
-     4 -> 1, 2, 3; 8 -> 2, 4; 2 -> 1; both K granularities; d 128 and 256;
+     4 -> 1, 2, 3; 8 -> 2, 4; 2 -> 1; both K granularities; g 4, 1 and 16;
      a residual of block_n or block_n + 8 tokens with res_len > block_n)
      within the same tolerances, draft_bits = bits bit for bit the normal
      read; one decode call at most two launches; the split merge alone within
      1e-5 of its plain version; flash_prefill within out 3e-2 / lse 1e-3
      over head dims 32-256, 1, 4 and 12 query heads per KV head, S from one
      row to 2,100 across every edge of its 64-row warpgroups and 128-row KV
-     tiles, causal and full, both layouts and head slices of a fused QKV
-     buffer), then timed with CUDA events at the main paths' shapes beside
+     tiles, causal and full, both layouts, head slices of a fused QKV
+     buffer and qwen3-moe's prefill shape, 64/4 heads over 1,200 tokens),
+     then timed with CUDA events at the main paths' shapes beside
      its bound (bytes / 3.35 TB/s vs operations / peak rate): kv_quant at
      llama3-8b's and gemma-7b's prefill (K alone, V alone, the pair into the
      cache, and the parent's fill: two launches and six slice copies); the flush
@@ -96,13 +98,26 @@ Phases:
      (a) (d = 256 instances of paged_bitdecode and the append under
      capture);
   6. the dense loop, plain vs kernels, at full width: starcoder2-3b cut to
-     15 of its 30 layers (as gemma-7b, for time; LayerNorm, GELU, biases,
-     12 query heads per KV head) and command-r-35b cut to 8 of its 40
-     layers (parallel residual, tied
-     embeddings; its ~61 GB of bf16 weights leave too little room on one
-     80 GB card for the plain comparison);
+     8 of its 30 layers (LayerNorm, GELU, biases, 12 query heads per KV
+     head) and command-r-35b cut to 4 of its 40 layers (parallel residual,
+     tied embeddings; its ~61 GB of bf16 weights leave too little room on
+     one 80 GB card for the plain comparison), both cut for the time of
+     phases 4 (runs (g), (h)) and 7;
+  7. qwen3-moe-235b-a22b at full width, cut to 4 of its 94 layers (a
+     full-width layer is ~4.98 GB of bf16, 4.83 GB of it the 128 experts'
+     weights; 94 layers would be ~470 GB): top-8 MoE FFNs of d_expert 1536,
+     q/k RMSNorm, 64/4 heads (16 query heads per KV head, K3/K4's largest
+     g), vocab 151,936; the dense loop as in phase 5 with the plain run
+     split three ways as in phase 3, the share of (token, layer) top-8 sets
+     on which the kernel run and the split run route as the plain run does
+     (by phase and layer, beside the plain run's router logit gap at the
+     8th expert) and one decode step's device ms by part (the expert products,
+     routing + dispatch + combine, the attention kernels, the rest) beside
+     the bounds of reading all experts and only the routed ones; then serve
+     runs (a) and (e), (e) bit for bit equal to (a) (the MoE decode step one
+     graph replay);
   then ``repro_torch.launch.serve --async-runtime`` once at the smoke width;
-  7. a JSON line per kernel, the card's name and power limit, and the
+  8. a JSON line per kernel, the card's name and power limit, and the
      result line.
 
 ``--jax-init`` instead draws the weights at the JAX package's scales (the
@@ -178,9 +193,14 @@ SERVE_PATH = ("kv_quant", "paged_residual_flush", "paged_bitdecode", "bitdecode_
 FAMILY_PROMPT_LENS = (1000, 1080, 1150, 1200)  # every row flushes within the steps
 FAMILY_STEPS = 96
 # depths cut to keep the script within its time (runs (g) and (h) of phase 4
-# took the time of gemma-7b's and starcoder2-3b's other half)
-FAMILY = (("gemma-7b", {"n_layers": 14}), ("starcoder2-3b", {"n_layers": 15}),
-          ("command-r-35b", {"n_layers": 8}))
+# took the time of gemma-7b's and starcoder2-3b's other half; phase 7 that
+# of command-r-35b's 4 more layers and starcoder2-3b's 7)
+FAMILY = (("gemma-7b", {"n_layers": 14}), ("starcoder2-3b", {"n_layers": 8}),
+          ("command-r-35b", {"n_layers": 4}))
+# phase 7: the MoE family at full width, cut to 4 of 94 layers (a layer is
+# ~4.98 GB of bf16, 4.83 GB of it experts; 94 layers, ~470 GB, fit no card)
+MOE = ("qwen3-moe-235b-a22b", {"n_layers": 4})
+MOE_PARTS = ("route", "slots", "dispatch", "experts", "combine", "aux_loss")  # models/moe.py
 
 
 # the serve phase: llama3-8b at full width and depth behind the paged engine
@@ -349,8 +369,10 @@ def build_random(name: str, dev, **change):
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     n = sum(p.numel() for p in _leaves(params))
+    moe = (f", {cfg.n_experts} experts of d_expert {cfg.d_expert}, top-{cfg.top_k}"
+           if cfg.n_experts else "")
     log(f"  {name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
-        f"{cfg.n_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+        f"{cfg.n_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}{moe}, vocab {cfg.vocab}; "
         f"{n / 1e9:.2f} B parameters drawn in {time.perf_counter() - t0:.1f} s")
     return cfg, model, params, n
 
@@ -365,17 +387,25 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
     around the first flush within rtol 2e-2 / atol 3e-1, every row flushed,
     and layer 0's cache bit for bit.  With ``captured``, the kernel run's
     steps once more as replays of the captured step (:func:`captured_loop`).
-    Returns the report and the kernels' launches in the kernel run."""
+    For an MoE model, how alike the kernel run (and the split run) route
+    as the plain run does (:func:`routing_agreement`) and the device ms of
+    one decode step by part (:func:`moe_step_profile`).  Returns the report
+    and the kernels' launches in the kernel run."""
     import torch
 
     from repro_torch.kernels import _build
 
     tokens, lengths = model_inputs(cfg, dev, prompt_lens)
-    bn, name = cfg.kv_block, cfg.name
+    bn, name, moe = cfg.kv_block, cfg.name, bool(cfg.n_experts)
 
-    def run(impl, feed=None, num_splits="auto"):
-        return decode_run(model, params, tokens, lengths, steps, impl,
-                          num_splits=num_splits, feed=feed)
+    routes = {}
+
+    def run(label, impl, feed=None, num_splits="auto"):
+        with routing_recorder() if moe else contextlib.nullcontext([]) as seen:
+            out = decode_run(model, params, tokens, lengths, steps, impl,
+                             num_splits=num_splits, feed=feed)
+        routes[label] = seen
+        return out
 
     with torch.no_grad():
         for impl in ("torch", "auto"):  # warm-up (allocator, cuBLAS), untimed
@@ -385,13 +415,13 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
                               quant_impl=impl)
         del lg, st
         torch.cuda.reset_peak_memory_stats()
-        lg_p, st_p, pre_p, step_p = run("torch")
+        lg_p, st_p, pre_p, step_p = run("plain", "torch")
         peak_plain = torch.cuda.max_memory_allocated()
         feed = list(lg_p[:-1].argmax(-1)[:, :, None])
-        lg_p3 = run("torch", feed, num_splits=3)[0] if split3 else None
+        lg_p3 = run("plain_split3", "torch", feed, num_splits=3)[0] if split3 else None
         torch.cuda.reset_peak_memory_stats()
         _build.launches.clear()
-        lg_k, st_k, pre_k, step_k = run("auto", feed)
+        lg_k, st_k, pre_k, step_k = run("kernels", "auto", feed)
         launches = dict(_build.launches)
         peak_kernel = torch.cuda.max_memory_allocated()
 
@@ -406,8 +436,8 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
     check(launches.get("kv_quant", 0) == cfg.n_layers,
           f"{name}: kv_quant once a layer for K and V in the prefill "
           f"({launches.get('kv_quant', 0)} launches, {cfg.n_layers} layers)")
-    check(bool(torch.isfinite(lg_k).all()) and lg_k.shape == (steps + 1, b, cfg.vocab),
-          f"{name}: logits finite, shaped")
+    check(bool(torch.isfinite(lg_k).all()) and lg_k.shape == (steps + 1, b, cfg.padded_vocab),
+          f"{name}: logits finite, shaped (the vocab padded to {cfg.padded_vocab})")
     c_p, c_k = st_p["caches"][0], st_k["caches"][0]
     check(torch.equal(c_p.pack_blocks, c_k.pack_blocks) and torch.equal(c_p.res_len, c_k.res_len),
           f"{name}: pack_blocks {c_k.pack_blocks[0].tolist()} and res_len "
@@ -431,6 +461,21 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
     fid = {"kernels": fidelity(lg_p, lg_k)}
     if split3:
         fid["plain_split3"] = fidelity(lg_p, lg_p3)
+    for run_name in fid if moe else ():
+        r = routing_agreement(routes["plain"], routes[run_name], lengths,
+                              cfg.n_layers - cfg.first_dense_layers)
+        fid[run_name] |= {"routing_agreement": r["all"], "routing": r}
+        k = cfg.top_k
+        by_layer = {ph: ", ".join(f"{r[f'{ph} layer {i}']:.4f}" for i in range(r["layers"]))
+                    for ph in ("prefill", "decode")}
+        log(f"  {name}: {run_name} and plain runs route alike on {r['all']:.4f} of {r['sets']} "
+            f"(token, layer) top-{k} sets (prefill {r['prefill']:.4f}, by MoE layer "
+            f"{by_layer['prefill']}; decode {r['decode']:.4f}, by MoE layer "
+            f"{by_layer['decode']}); the plain run's router logit gap between its experts "
+            f"ranked {k} and {k + 1}: median {r['gap_median_all']:.4f} over all sets, "
+            f"{_num(r['gap_median_flipped'])} over the {r['flipped']} that differ "
+            f"({_num(r['flipped_below_p10'])} of them below the 10th percentile of all, "
+            f"{r['gap_p10_all']:.4f})")
     for k, f in fid.items():
         log(f"  {name}, {k} vs plain over {steps + 1} steps: mean KL {f['mean_kl']:.3e}; "
             f"greedy agreement {f['greedy_agreement']:.3f}; max |dlogit| "
@@ -453,6 +498,8 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
         check(prof["kernels_per_step"] < prof["unfused"]["kernels_per_step"],
               f"{name}: the fused append takes fewer device kernels a decode step "
               f"({prof['kernels_per_step']:.0f} vs {prof['unfused']['kernels_per_step']:.0f})")
+    if moe:
+        prof["moe_step"] = moe_step_profile(model, params, cfg, tokens, lengths)
     report = {"prefill_s": {"plain": pre_p, "kernels": pre_k}, "device_profile": prof,
               "prefill_profile": pre,
               "decode_ms_per_step": {"plain": step_p * 1e3, "kernels": step_k * 1e3},
@@ -465,6 +512,181 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
         report["captured"] = captured_loop(model, params, cfg, check, tokens, lengths, steps,
                                            feed, lg_k, st_k, step_k)
     return report
+
+
+@contextlib.contextmanager
+def routing_recorder():
+    """Keep the router logits ([B, S, E] f32) and the top-k experts ([B, S,
+    k]) of every ``moe.route`` call, in call order, while the context is
+    open."""
+    from repro_torch.models import moe
+
+    seen, route = [], moe.route
+
+    def recorded(p, cfg, x):
+        out = route(p, cfg, x)
+        seen.append((out[0], out[2]))
+        return out
+
+    moe.route = recorded
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def routing_agreement(ref, other, lengths, layers: int) -> dict:
+    """How alike two runs route, from their records
+    (:func:`routing_recorder`), over the prefill's real tokens
+    (``lengths``) and every decode step: the share of (token, layer) top-k
+    sets that agree, in all, by phase and by phase and MoE layer (the calls
+    cycle through the model's ``layers`` MoE layers; in MoE layer 0 the
+    runs differ only by that layer's attention when the cache it reads is
+    the same); and the gap between the
+    reference run's k-th and (k+1)-th router logit, its median and 10th
+    percentile over all sets beside its median over the sets that differ
+    and the share of those below that percentile (a set that a small
+    difference upstream flips is a near tie)."""
+    import torch
+
+    count = {}  # key -> [agreeing, all]
+    gaps, flipped = [], []
+    for i, ((lg, a), (_, b)) in enumerate(zip(ref, other)):
+        same = (a.sort(-1).values == b.sort(-1).values).all(-1)  # [B, S]
+        top = lg.topk(a.shape[-1] + 1, dim=-1).values
+        gap = top[..., -2] - top[..., -1]
+        if same.shape[1] > 1:  # a prefill call: its real tokens
+            phase = "prefill"
+            real = torch.arange(same.shape[1], device=same.device)[None] < lengths[:, None]
+        else:
+            phase, real = "decode", torch.ones_like(same)
+        n_ok, n = int((same & real).sum()), int(real.sum())
+        for key in ("all", phase, f"{phase} layer {i % layers}"):
+            c = count.setdefault(key, [0, 0])
+            c[0] += n_ok
+            c[1] += n
+        gaps.append(gap[real])
+        flipped.append(gap[real & ~same])
+    gaps, flipped = torch.cat(gaps), torch.cat(flipped)
+    p10 = gaps.quantile(0.1).item()
+    out = {key: ok / n for key, (ok, n) in count.items()}
+    return out | {"sets": count["all"][1], "layers": layers, "flipped": flipped.numel(),
+                  "gap_median_all": gaps.median().item(), "gap_p10_all": p10,
+                  "gap_median_flipped": flipped.median().item() if flipped.numel() else None,
+                  "flipped_below_p10": ((flipped < p10).float().mean().item()
+                                        if flipped.numel() else None)}
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """Each part of the MoE FFN (``MOE_PARTS`` of ``models/moe.py``) inside a
+    ``torch.profiler`` range named ``moe.<part>``."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe
+
+    saved = {n: getattr(moe, n) for n in MOE_PARTS}
+
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with record_function(f"moe.{name}"):
+                return fn(*a, **kw)
+        return call
+
+    for n, fn in saved.items():
+        setattr(moe, n, ranged(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(moe, n, fn)
+
+
+def moe_parts(fn) -> tuple[dict, int]:
+    """One call of ``fn()`` under ``torch.profiler`` with :func:`moe_ranges`:
+    device ms of the expert products (``moe.experts``), of routing, dispatch
+    and combine (the other MoE ranges, the auxiliary loss included), of the
+    attention kernels (K3/K4, the
+    merge, the append) and of the rest, and the count of device kernels.  A
+    kernel belongs to a range if the op that launched it ran inside it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    labels = {f"moe.{n}": ("experts" if n == "experts" else "routing") for n in MOE_PARTS}
+    with moe_ranges(), torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                                            ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    ranges = [(labels[e.name], e.thread, e.time_range.start, e.time_range.end) for e in events
+              if e.device_type == DeviceType.CPU and e.name in labels]
+    us = dict.fromkeys(("all", "experts", "routing", "attention"), 0.0)
+    kernels = 0
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name not in labels:
+            kernels += 1
+            us["all"] += e.time_range.elapsed_us()
+            if "bitdecode" in e.name or "residual_flush" in e.name:
+                us["attention"] += e.time_range.elapsed_us()
+        elif e.device_type == DeviceType.CPU and e.kernels and e.name not in labels:
+            part = next((p for p, th, t0, t1 in ranges if th == e.thread
+                         and t0 <= e.time_range.start and e.time_range.end <= t1), None)
+            if part is not None:
+                us[part] += sum(k.duration for k in e.kernels)
+    us["rest"] = us["all"] - us["experts"] - us["routing"] - us["attention"]
+    return {f"{k}_ms": v / 1e3 for k, v in us.items()}, kernels
+
+
+def moe_step_profile(model, params, cfg, tokens, lengths) -> dict:
+    """One decode step of the MoE model on the kernels, from a fresh
+    prefill, by part (:func:`moe_parts`; the session with the median count
+    of device kernels of :data:`PROFILE_ROUNDS`), beside two bounds of the
+    expert products at 3.35 TB/s: all E experts' weights read (what the
+    step does: capacity 1 over every expert, as in JAX) and only the
+    experts that this step's rows route to; and of the whole step (every
+    weight but the embedding table read once)."""
+    import torch
+
+    with torch.no_grad():
+        logits, state = model.prefill(params, {"tokens": tokens}, tokens.shape[1] + 4,
+                                      lengths=lengths)
+        box = {"state": state, "tok": logits[:, -1].argmax(-1)[:, None]}
+
+        def step():
+            lg, box["state"] = model.decode_step(params, box["state"], box["tok"])
+            box["tok"] = lg[:, -1].argmax(-1)[:, None]
+
+        step()
+        with routing_recorder() as seen:
+            step()
+        torch.cuda.synchronize()
+        rounds = sorted((moe_parts(step) for _ in range(PROFILE_ROUNDS)), key=lambda r: r[1])
+    parts, kernels = rounds[len(rounds) // 2]
+    d, f, e = cfg.d_model, cfg.d_expert, cfg.n_experts
+    expert_bytes = d * 3 * f * 2  # wi [d, 2f] and wo [f, d], bf16
+    routed = [int(t.unique().numel()) for _, t in seen]  # distinct experts a layer
+    weight_bytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    weight_bytes -= params["embed"]["table"].numel() * 2  # only B rows of it are read
+    out = dict(parts, kernels=kernels, routed_experts_per_layer=routed,
+               experts_all_bound_ms=len(routed) * e * expert_bytes / HBM_BYTES_PER_S * 1e3,
+               experts_routed_bound_ms=sum(routed) * expert_bytes / HBM_BYTES_PER_S * 1e3,
+               step_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3)
+    out["step_routed_bound_ms"] = (out["step_bound_ms"] - out["experts_all_bound_ms"]
+                                   + out["experts_routed_bound_ms"])
+    if parts["all_ms"] == 0 or parts["experts_ms"] == 0:
+        log(f"  {cfg.name} decode step by part: the profiler saw no device time there "
+            "(not measured)")
+    else:
+        log(f"  {cfg.name} decode step by part (torch.profiler, one eager step, B="
+            f"{tokens.shape[0]}): {kernels} device kernels, {parts['all_ms']:.3f} ms; expert "
+            f"products {parts['experts_ms']:.3f} ms (bound {out['experts_all_bound_ms']:.3f} "
+            f"ms reading all {e} experts, {out['experts_routed_bound_ms']:.3f} ms reading the "
+            f"{routed} routed a layer); routing + dispatch + combine + aux "
+            f"{parts['routing_ms']:.3f} ms; attention kernels {parts['attention_ms']:.3f} ms; the rest "
+            f"{parts['rest_ms']:.3f} ms; the whole step's bound {out['step_bound_ms']:.3f} ms "
+            f"({out['step_routed_bound_ms']:.3f} reading only routed experts)")
+    return out
 
 
 def captured_loop(model, params, cfg, check, tokens, lengths, steps, feed, lg_k, st_k,
@@ -1359,6 +1581,7 @@ def main() -> int:
     llama = (4, 8, 4, 128, 18, 128, 4, "channel", [14, 15, 16, 16], [108, 80, 2, 52])
     gemma = (4, 16, 1, 256, 11, 128, 4, "channel", [8, 8, 9, 9], [104, 56, 126, 48])
     starcoder = (4, 2, 12, 128, 11, 128, 4, "channel", [8, 8, 9, 9], [104, 56, 126, 48])
+    qwen3 = (4, 4, 16, 128, 11, 128, 4, "channel", [8, 8, 9, 9], [104, 56, 126, 48])
     decode_cases = [  # label, case args, split counts
         ("B=4 4K ctx", (4, 8, 4, 128, 32, 128, 4, "channel", [32, 31, 30, 32], [5, 127, 64, 0]),
          (1, 3, "auto")),
@@ -1373,6 +1596,7 @@ def main() -> int:
         ("llama3-8b decode shape", llama, (1, 3, "auto")),
         ("gemma-7b decode shape g=1 d=256", gemma, (1, 3, "auto")),
         ("starcoder2-3b decode shape g=12", starcoder, (1, 3, "auto")),
+        ("qwen3-moe-235b-a22b decode shape g=16", qwen3, (1, 3, "auto")),
         ("command-r-35b g=8", (4, 8, 8, 128, 18, 128, 4, "channel", [14, 15, 16, 16],
                                [108, 80, 2, 52]), (1, "auto")),
         ("bits=2 block_n=64", (2, 4, 4, 64, 8, 64, 2, "tensor", [8, 5], [17, 64]), (1, 3, "auto")),
@@ -1418,6 +1642,10 @@ def main() -> int:
          "scrambled", (1, 3, "auto")),
         ("starcoder2-3b serve shapes g=12", (*starcoder[:4], 32, *starcoder[5:8], *serve_lens),
          "identity", (1, "auto")),
+        ("qwen3-moe-235b-a22b serve shapes g=16", (*qwen3[:4], 32, *qwen3[5:8], *serve_lens),
+         "scrambled", (1, 3, "auto")),
+        ("qwen3-moe-235b-a22b serve shapes g=16", (*qwen3[:4], 32, *qwen3[5:8], *serve_lens),
+         "identity", (1, "auto")),
         ("bits=2 block_n=64, fewer blocks than splits, an empty row",
          (2, 4, 4, 64, 8, 64, 2, "tensor", [0, 1], [0, 64]), "scrambled", (1, 3, "auto")),
         ("bits=8 block_n=64, full residual", (2, 4, 2, 128, 8, 64, 8, "channel", [8, 6], [64, 3]),
@@ -1449,12 +1677,14 @@ def main() -> int:
 
     # the speculative draft read (draft_bits) of K3 and K4 (a scrambled
     # table) against their plain versions: bits 4 -> 1, 2, 3; 8 -> 2, 4;
-    # 2 -> 1; both K granularities; d 128 and 256; a residual of block_n
-    # tokens or widened by 8 (the draft pass's), with a row whose res_len
-    # runs past block_n; draft_bits = bits is the normal read bit for bit
+    # 2 -> 1; both K granularities; g 4, 1 and 16 (qwen3-moe's) at d 128,
+    # 256 and 128; a residual of block_n tokens or widened by 8 (the draft
+    # pass's), with a row whose res_len runs past block_n; draft_bits = bits
+    # is the normal read bit for bit
     n_draft, draft_fail = 0, []
     for (bits_, dbits), gran, (g_, d_), res_n in itertools.product(
-            DRAFT_PAIRS, ("channel", "tensor"), ((4, 128), (1, 256)), (BLOCK_N, BLOCK_N + 8)):
+            DRAFT_PAIRS, ("channel", "tensor"), ((4, 128), (1, 256), (16, 128)),
+            (BLOCK_N, BLOCK_N + 8)):
         rl = [res_n, 57]
         case = decode_case(2, 4, g_, d_, 6, BLOCK_N, bits_, gran, [6, 4], rl)
         if res_n > BLOCK_N:
@@ -1487,7 +1717,8 @@ def main() -> int:
                 draft_fail.append(f"{name} {what}: draft_bits = bits is not the normal read")
     check(not draft_fail, f"bitdecode and paged_bitdecode draft reads within out 2e-2 / lse "
                           f"1e-3 of their plain versions ({n_draft} calls: bits 4 -> 1/2/3, "
-                          f"8 -> 2/4, 2 -> 1, both K granularities, d 128/256, residual "
+                          f"8 -> 2/4, 2 -> 1, both K granularities, g/d 4/128, 1/256, "
+                          f"16/128, residual "
                           f"{BLOCK_N}/{BLOCK_N + 8} with res_len > block_n), draft_bits = bits "
                           f"bit for bit the normal read (failed: {draft_fail})")
 
@@ -1641,6 +1872,10 @@ def main() -> int:
             hkv = 1 if g == 12 else 2
             flash_case(randn(2, s, g * hkv, d), randn(2, s, hkv, d), v_off(randn(2, s, hkv, d)),
                        causal, "bshd", f"B=2 Hq={g * hkv} Hkv={hkv} S={s}")
+    # qwen3-moe-235b-a22b's prefill: 64 query heads on 4 KV heads (g 16) at
+    # d 128 over the dense loop's 1,200 padded tokens
+    flash_case(randn(4, 1200, 64, 128), randn(4, 1200, 4, 128), v_off(randn(4, 1200, 4, 128)),
+               True, "bshd", "qwen3-moe-235b-a22b prefill shape B=4 Hq=64 Hkv=4 S=1200")
     # head slices of one fused [B, S, Hq + 2 Hkv, d] projection, read through
     # their strides
     qkv = randn(2, 300, 8 + 2 * 2, 128)
@@ -1961,12 +2196,33 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------ 7. MoE
+    name, change = MOE
+    log(f"== 7. {name} at full width, cut to {change['n_layers']} layers: the dense loop and "
+        f"the engine (at {time.perf_counter() - t_start:.1f} s)")
+    t_moe = time.perf_counter()
+    cfg, model, params, n = build_random(name, dev, **change)
+    rep = dense_phase(model, params, cfg, check, dev, FAMILY_PROMPT_LENS, FAMILY_STEPS,
+                      split3=True)
+    sv = serve_phase(model, params, cfg, check, dev, names="ae", profile_replay=False)
+    for k in SERVE_PATH:
+        cnt = sv["launches"].get(k, 0)
+        check(cnt > 0, f"{name}: {k} launched in serve run (a) ({cnt})")
+    family[name] = rep | {"n_params": n, "cut": f"cut to {change['n_layers']} layers",
+                          "serve": sv["report"], "serve_launches": sv["launches"],
+                          "async_launches": sv["async_launches"],
+                          "phase_s": time.perf_counter() - t_moe}
+    log(f"  phase 7 took {family[name]['phase_s']:.1f} s")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -------------------------------------------------------------- the CLI
     log(f"== the serve CLI, async runtime, smoke llama3-8b (at "
         f"{time.perf_counter() - t_start:.1f} s)")
     cli = serve_cli(check)
 
-    # ------------------------------------------------------------ 7. summary
+    # ------------------------------------------------------------ 8. summary
     rows = []
     for name, meta in KERNELS.items():
         st = stats[name]
@@ -2019,6 +2275,10 @@ def main() -> int:
 
 def _ms(x) -> str:
     return "not measured" if x is None else f"{x:.2f} ms"
+
+
+def _num(x) -> str:
+    return "none" if x is None else f"{x:.4f}"
 
 
 def _leaves(tree):

@@ -1,9 +1,9 @@
 """Architecture configuration for the attention-family models the port runs.
 
-A copy of the fields of the JAX package's ``ArchConfig`` that the dense
-decoder path reads, with the JAX defaults.  ``mixer``, ``n_experts``,
-``vision_stub``, ``mrope_sections``, ``qk_norm`` and ``rope`` exist so that a
-config asking for what the port does not run yet is refused by
+A copy of the fields of the JAX package's ``ArchConfig`` that the dense and
+MoE decoder paths read, with the JAX defaults.  ``mixer``, ``vision_stub``,
+``mrope_sections`` and ``rope`` exist so that a config asking for what the
+port does not run yet is refused by
 :class:`repro_torch.models.transformer.DecoderLM`.
 """
 from __future__ import annotations
@@ -37,8 +37,18 @@ class ArchConfig:
     embed_scale: bool = False  # gemma: embeddings * sqrt(d_model)
     rms_plus_one: bool = False  # gemma: RMSNorm scales by (1 + w)
     attn_block_k: int = 512
-    n_experts: int = 0
     vision_stub: bool = False
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    d_expert: int = 0
+    n_shared_experts: int = 0
+    first_dense_layers: int = 0
+    capacity_factor: float = 1.25
+    router_score: str = "softmax"  # softmax | sigmoid
+    router_norm_topk: bool = False
+    aux_loss_weight: float = 1.0e-2
 
     # BitDecoding KV cache
     kv_bits: int = 4
@@ -59,7 +69,8 @@ class ArchConfig:
         return -(-self.vocab // 256) * 256
 
 
-_REGISTRY = ["llama3_8b", "llama2_7b", "gemma_7b", "starcoder2_3b", "command_r_35b"]
+_REGISTRY = ["llama3_8b", "llama2_7b", "gemma_7b", "starcoder2_3b", "command_r_35b",
+             "qwen3_moe_235b_a22b"]
 
 
 def _mod_name(name: str) -> str:

@@ -1,5 +1,5 @@
-"""Model-level attention block: projections (with optional biases) + RoPE +
-the BitDecoding cache.
+"""Model-level attention block: projections (with optional biases and q/k
+RMSNorm) + RoPE + the BitDecoding cache.
 
 Prefill runs blockwise flash attention and builds the quantized cache from
 its K/V; decode appends to the cache and runs the fused low-bit kernel
@@ -27,6 +27,9 @@ def attn_def(cfg) -> dict:
         defs["bq"] = P((hq, hd), "zeros", torch.float32)
         defs["bk"] = P((hkv, hd), "zeros", torch.float32)
         defs["bv"] = P((hkv, hd), "zeros", torch.float32)
+    if cfg.qk_norm:
+        defs["qnorm"] = layers.rmsnorm_def(hd)
+        defs["knorm"] = layers.rmsnorm_def(hd)
     return defs
 
 
@@ -46,6 +49,9 @@ def _qkv(p, cfg, x, positions):
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
+    if cfg.qk_norm:  # over the head dim, before RoPE: the cache holds normed K
+        q = layers.rmsnorm(p["qnorm"], q)
+        k = layers.rmsnorm(p["knorm"], k)
     q = layers.apply_rope(q, positions, theta=cfg.rope_theta)
     k = layers.apply_rope(k, positions, theta=cfg.rope_theta)
     return q, k, v

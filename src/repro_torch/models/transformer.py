@@ -1,12 +1,19 @@
 """Decoder-only LM with the BitDecoding cache: the dense attention family
-(LLaMA-2/3, Gemma, StarCoder2, Command-R): RMSNorm, ``(1 + w)`` RMSNorm or
-LayerNorm with bias; SwiGLU, GeGLU or GELU MLPs, with or without biases;
-sequential or parallel residual; untied, tied or scaled embeddings.
+(LLaMA-2/3, Gemma, StarCoder2, Command-R) and the MoE family (Qwen3-MoE):
+RMSNorm, ``(1 + w)`` RMSNorm or LayerNorm with bias; SwiGLU, GeGLU or GELU
+MLPs, with or without biases, or top-k MoE FFNs (``models/moe.py``);
+optional q/k RMSNorm; sequential or parallel residual; untied, tied or
+scaled embeddings.
 
-Per-layer parameters carry a leading ``layers`` axis, as in the JAX package,
-and the layers run in a Python loop over views of them.  The decode state is
+The layers form stacks of one block kind each, as in the JAX package:
+``[("mlp", n)]`` for a dense model, ``[("mlp", first_dense_layers), ("moe",
+rest)]`` for an MoE model (the first stack only when it has layers),
+``[("none", n)]`` without a FFN.  Per-layer parameters carry a leading
+``layers`` axis (``stack_i``), and the layers run in a Python loop over
+views of them.  The decode state is
 
-    {"caches": [QuantKVCache stacked over layers], "pos": int32 [B]}
+    {"caches": [QuantKVCache stacked over a stack's layers, per stack],
+     "pos": int32 [B]}
 
 and :meth:`DecoderLM.decode_step` updates its caches in place.  The serving
 engine's state (:meth:`DecoderLM.init_paged_decode_state`) has the same shape
@@ -19,7 +26,7 @@ import torch
 from repro_torch.core import qcache
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as mattn
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.family import PagedSpec
 from repro_torch.models.params import init_tree, stack
 
@@ -29,14 +36,10 @@ _LATER = "ROADMAP queue A, item 10 (the other model families)"
 def _check_supported(cfg) -> None:
     if cfg.mixer != "attn":
         raise NotImplementedError(f"mixer={cfg.mixer!r} is not ported yet: {_LATER}")
-    if cfg.n_experts:
-        raise NotImplementedError(f"MoE stacks are not ported yet: {_LATER}")
     if cfg.vision_stub:
         raise NotImplementedError(f"the vision stub is not ported yet: {_LATER}")
     if cfg.mrope_sections:
         raise NotImplementedError(f"M-RoPE is not ported yet: {_LATER}")
-    if cfg.qk_norm:
-        raise NotImplementedError(f"qk_norm is not ported yet: {_LATER}")
     if not cfg.rope:
         raise NotImplementedError(f"attention without RoPE is not ported yet: {_LATER}")
 
@@ -46,12 +49,19 @@ def _layer(tree, i: int):
 
 
 class DecoderLM:
-    """Dense decoder-only LM (attention mixer and MLP, per ``cfg``)."""
+    """Dense or MoE decoder-only LM (attention mixer; MLP or MoE FFN, per
+    ``cfg``)."""
 
     def __init__(self, cfg):
         _check_supported(cfg)
         self.cfg = cfg
-        self.stacks = [("mlp", cfg.n_layers)]
+        if cfg.n_experts:
+            fd = cfg.first_dense_layers
+            self.stacks = ([("mlp", fd)] if fd else []) + [("moe", cfg.n_layers - fd)]
+        elif cfg.d_ff:
+            self.stacks = [("mlp", cfg.n_layers)]
+        else:
+            self.stacks = [("none", cfg.n_layers)]
 
     # ------------------------------------------------------------ params
 
@@ -63,14 +73,14 @@ class DecoderLM:
         cfg = self.cfg
         return layers.apply_norm(cfg.norm, p, x, plus_one=cfg.rms_plus_one)
 
-    def _block_def(self):
+    def _block_def(self, kind):
         cfg = self.cfg
-        defs = {
-            "ln1": self._norm_def(),
-            "attn": mattn.attn_def(cfg),
-            "mlp": layers.mlp_def(cfg.d_model, cfg.d_ff, cfg.act, cfg.attn_bias),
-        }
-        if not cfg.parallel_residual:
+        defs = {"ln1": self._norm_def(), "attn": mattn.attn_def(cfg)}
+        if kind == "mlp":
+            defs["mlp"] = layers.mlp_def(cfg.d_model, cfg.d_ff, cfg.act, cfg.attn_bias)
+        elif kind == "moe":
+            defs["moe"] = moe.moe_def(cfg)
+        if kind != "none" and not cfg.parallel_residual:
             defs["ln2"] = self._norm_def()
         return defs
 
@@ -82,8 +92,8 @@ class DecoderLM:
         }
         if not cfg.tie_embeddings:
             defs["unembed"] = layers.unembed_def(cfg.d_model, cfg.padded_vocab)
-        for i, (_, n) in enumerate(self.stacks):
-            defs[f"stack_{i}"] = stack(self._block_def(), n)
+        for i, (kind, n) in enumerate(self.stacks):
+            defs[f"stack_{i}"] = stack(self._block_def(kind), n)
         return defs
 
     def init(self, gen: torch.Generator, device=None):
@@ -103,16 +113,23 @@ class DecoderLM:
             return layers.tied_unembed(params["embed"], x, self.cfg.vocab)
         return layers.unembed(params["unembed"], x, self.cfg.vocab)
 
-    def _block(self, p, x, attend):
-        """One block around ``attend(h) -> (a, cache)``: ``x + a + f`` with
-        the MLP on the same normed input under ``parallel_residual``, else
-        ``x + a`` and then the MLP over its own norm."""
+    def _ffn(self, p, kind, h):
+        if kind == "moe":  # the auxiliary loss dropped, as JAX's forward paths do
+            return moe.moe_ffn(p["moe"], self.cfg, h)[0]
+        return layers.mlp(p["mlp"], h, self.cfg.act)
+
+    def _block(self, p, kind, x, attend):
+        """One block of ``kind`` around ``attend(h) -> (a, cache)``: under
+        ``parallel_residual`` ``x + a + f`` with the MLP on the same normed
+        input (only an "mlp" block has one there, as in JAX), else ``x + a``
+        and then the FFN (MLP or MoE; none for "none") over its own norm."""
+        parallel = self.cfg.parallel_residual
         h = self._norm(p["ln1"], x)
         a, cache = attend(h)
-        if self.cfg.parallel_residual:
-            return x + a + layers.mlp(p["mlp"], h, self.cfg.act), cache
         x = x + a
-        return x + layers.mlp(p["mlp"], self._norm(p["ln2"], x), self.cfg.act), cache
+        if kind == "none" or (parallel and kind != "mlp"):
+            return x, cache
+        return x + self._ffn(p, kind, h if parallel else self._norm(p["ln2"], x)), cache
 
     # ------------------------------------------------------------ prefill
 
@@ -149,11 +166,11 @@ class DecoderLM:
             prior_len = prior_len.to(device=x.device, dtype=torch.int32)
             positions = prior_len[:, None] + positions
         caches = []
-        for i, (_, n) in enumerate(self.stacks):
+        for i, (kind, n) in enumerate(self.stacks):
             layer_caches = []
             for li in range(n):
                 p = _layer(params[f"stack_{i}"], li)
-                x, cache = self._block(p, x, lambda h: mattn.attn_prefill_cache(
+                x, cache = self._block(p, kind, x, lambda h: mattn.attn_prefill_cache(
                     p["attn"], self.cfg, h, positions, max_seq, impl=impl,
                     quant_impl=quant_impl, lengths=lengths,
                     prior=None if prior is None else (prior[i][0][li], prior[i][1][li]),
@@ -229,11 +246,11 @@ class DecoderLM:
         x = self._embed(params, tokens)
         pos = state["pos"]
         positions = pos[:, None]
-        for i, (_, n) in enumerate(self.stacks):
+        for i, (kind, n) in enumerate(self.stacks):
             stacked = state["caches"][i]
             for li in range(n):
                 p = _layer(params[f"stack_{i}"], li)
-                x, _ = self._block(p, x, lambda h: mattn.attn_decode(
+                x, _ = self._block(p, kind, x, lambda h: mattn.attn_decode(
                     p["attn"], self.cfg, h, positions, stacked.layer(li),
                     impl=impl, quant_impl=quant_impl, num_splits=num_splits,
                     mask=mask, draft_bits=draft_bits,

@@ -5,7 +5,8 @@ from repro_torch.models.transformer import DecoderLM
 
 
 def build_model(cfg):
-    """Only the attention-family ``DecoderLM`` is ported (llama3-8b,
-    llama2-7b, gemma-7b, starcoder2-3b, command-r-35b); it refuses the
-    configs of other families."""
+    """Only ``DecoderLM`` is ported: the attention family (llama3-8b,
+    llama2-7b, gemma-7b, starcoder2-3b, command-r-35b) and the MoE family
+    (qwen3-moe-235b-a22b; dense-then-MoE stacks and shared experts too).
+    It refuses the configs of other families."""
     return DecoderLM(cfg)

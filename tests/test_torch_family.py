@@ -1,15 +1,20 @@
-"""The dense attention family in the port against the JAX package, on the CPU.
+"""The dense attention family and the MoE family in the port against the JAX
+package, on the CPU.
 
 gemma-7b (GeGLU, head_dim 256 at full width, ``(1 + w)`` RMSNorm, scaled
 tied embeddings), starcoder2-3b (LayerNorm with bias, GELU MLP, MLP and QKV
-biases) and command-r-35b (parallel residual, LayerNorm, tied embeddings):
-their smoke configs, JAX-initialized parameters carried over with
-``params_from_jax`` and the port's init carried to JAX, prefill logits and
+biases), command-r-35b (parallel residual, LayerNorm, tied embeddings) and
+qwen3-moe-235b-a22b (top-k MoE FFNs, q/k RMSNorm, GQA): their smoke
+configs, JAX-initialized parameters carried over with ``params_from_jax``
+and the port's init carried to JAX (qwen3's JAX model compiled as
+written: ``jit_as_written``), prefill logits and
 greedy decode steps across a residual flush within the repo's tolerance
 (rtol 2e-2, atol 3e-1); the
 serving engine's bucketed prefill against ``DecoderLM.prefill``; and the new
 layers (LayerNorm, ``(1 + w)`` RMSNorm, GELU) bit for bit against JAX's.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -27,10 +32,16 @@ from repro_torch.models.params import leaves
 from repro_torch.models.zoo import build_model
 from repro_torch.serve import Request, ServeEngine
 
-ARCHS = ["gemma-7b", "starcoder2-3b", "command-r-35b"]
+ARCHS = ["gemma-7b", "starcoder2-3b", "command-r-35b", "qwen3-moe-235b-a22b"]
 MAX_SEQ, PROMPT, STEPS = 256, 48, 20
 FLUSH = 64 - PROMPT - 1  # kv_block 64: the decode step (from 0) that flushes every row
 TOL = dict(rtol=2e-2, atol=3e-1)
+# JAX compiled as the program is written: without it XLA drops bf16 round
+# trips (a bf16 result cast back to f32, as the q/k norm's output is by
+# RoPE), and an MoE router then reads inputs a bf16 ulp off the program's,
+# enough to flip a near-tie top-k choice (ROADMAP C); the dense archs keep
+# jax.jit's default
+jit_as_written = functools.partial(jax.jit, compiler_options={"xla_allow_excess_precision": False})
 
 
 def bits_of(x) -> np.ndarray:
@@ -48,8 +59,10 @@ def _pair(arch, seed=0):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_tree_matches_jax(arch):
     """Leaf for leaf: tied models have no ``unembed``, a parallel residual
-    has no ``ln2``, LayerNorm brings ``b`` and ``attn_bias`` brings the QKV
-    and MLP biases."""
+    has no ``ln2``, LayerNorm brings ``b``, ``attn_bias`` brings the QKV
+    and MLP biases, an MoE stack has ``moe`` (an f32 router and stacked
+    expert weights) in place of ``mlp``, and ``qk_norm`` brings ``qnorm`` /
+    ``knorm``."""
     _, tm, jparams, tparams = _pair(arch)
     paths = [path for path, _ in leaves(tm.param_defs())]
     jpaths = [tuple(getattr(k, "key", k) for k in kp)
@@ -60,7 +73,15 @@ def test_param_tree_matches_jax(arch):
     assert ("ln2" in tparams["stack_0"]) != cfg.parallel_residual
     assert ("b" in tparams["final_norm"]) == (cfg.norm == "ln")
     assert {"bq", "bk", "bv"} <= set(tparams["stack_0"]["attn"]) if cfg.attn_bias else True
-    assert ("bi" in tparams["stack_0"]["mlp"]) == cfg.attn_bias
+    blk = tparams["stack_0"]
+    assert ("bi" in blk.get("mlp", {})) == cfg.attn_bias
+    assert ("mlp" in blk) != bool(cfg.n_experts) and ("moe" in blk) == bool(cfg.n_experts)
+    if cfg.n_experts:
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.d_expert
+        assert blk["moe"]["router"].dtype == torch.float32
+        assert tuple(blk["moe"]["wi"].shape) == (cfg.n_layers, e, d, 2 * f)
+        assert tuple(blk["moe"]["wo"].shape) == (cfg.n_layers, e, f, d)
+    assert ({"qnorm", "knorm"} <= set(blk["attn"])) == cfg.qk_norm
 
 
 def _to_jax(t: torch.Tensor):
@@ -102,13 +123,14 @@ def test_prefill_and_decode_match_jax(arch, init, ragged):
     jkw = {} if lengths is None else {"lengths": jnp.asarray(lengths)}
     tkw = {} if lengths is None else {"lengths": torch.from_numpy(lengths)}
 
-    jl, jstate = jax.jit(lambda p, t: jm.prefill(p, {"tokens": t}, MAX_SEQ, **jkw))(
+    jit = jit_as_written if tm.cfg.n_experts else jax.jit
+    jl, jstate = jit(lambda p, t: jm.prefill(p, {"tokens": t}, MAX_SEQ, **jkw))(
         jparams, jnp.asarray(tokens))
     with torch.no_grad():
         tl, tstate = tm.prefill(tparams, {"tokens": torch.from_numpy(tokens)}, MAX_SEQ, **tkw)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), err_msg="prefill", **TOL)
 
-    step = jax.jit(jm.decode_step)
+    step = jit(jm.decode_step)
     tok = jnp.argmax(jl[:, -1], axis=-1)[:, None].astype(jnp.int32)
     for i in range(STEPS):
         jl, jstate = step(jparams, jstate, tok)

@@ -12,8 +12,11 @@ lse 1e-3), and paged_bitdecode over an identity page table bit for bit
 equal to bitdecode; flash_prefill within its kernel's tolerance (out 3e-2,
 lse 1e-3); the draft read (``draft_bits``) of both decode kernels within
 the same tolerances, and the speculative passes' graphs bit for bit equal
-to their eager bodies.  The plain versions are held against the JAX package in
-test_torch_kernels.py, test_torch_paged.py and test_torch_flash_prefill.py.
+to their eager bodies; the MoE smoke model's kernels against its plain
+versions, its captured step bit for bit equal to the eager one, and its
+routing, dispatch and combine free of host syncs.  The plain versions are
+held against the JAX package in test_torch_kernels.py, test_torch_paged.py
+and test_torch_flash_prefill.py.
 """
 import functools
 
@@ -295,7 +298,8 @@ def test_entry_points_default_to_the_card(cuda):
     assert m.init(torch.Generator().manual_seed(0))["embed"]["table"].is_cuda
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "gemma-7b", "starcoder2-3b", "command-r-35b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "gemma-7b", "starcoder2-3b", "command-r-35b",
+                                  "qwen3-moe-235b-a22b"])
 def test_smoke_model_kernels_match_plain(cuda, arch):
     """Ragged prefill (one full block in row 0) + 30 decode steps (each row
     flushes once) of the smoke model: kernels vs plain versions, same token
@@ -811,6 +815,21 @@ def graph_model():
     return model, model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
 
 
+def _moe_smoke(**change):
+    """The qwen3-moe smoke model (MoE FFNs, q/k norm), block_n 32, and its
+    parameters on the card."""
+    cfg = smoke_config("qwen3-moe-235b-a22b").with_(kv_block=32, **change)
+    model = build_model(cfg)
+    return model, model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+
+@pytest.fixture(scope="module")
+def moe_graph_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return _moe_smoke()
+
+
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 def test_captured_step_equals_eager_bitwise(cuda, graph_model, paged):
     """40 replays of the captured step against 40 eager steps fed the same
@@ -818,9 +837,23 @@ def test_captured_step_equals_eager_bitwise(cuda, graph_model, paged):
     finite flags bit for bit after every step, over a flush on both live
     rows and an idle row.  Capture leaves the state as it found it, and
     records one launch of each of the step's kernels a layer."""
+    _captured_vs_eager(cuda, *graph_model, paged)
+
+
+@pytest.mark.parametrize("dense_first", [False, True], ids=["moe", "dense_first"])
+def test_captured_moe_step_equals_eager_bitwise(cuda, moe_graph_model, dense_first):
+    """The same over a paged state of the MoE smoke model: routing,
+    dispatch and combine replay bit for bit (no host sync, no atomics);
+    and of its dense-then-MoE variant, two stacks with their own pools."""
+    model, params = (_moe_smoke(first_dense_layers=1, d_ff=256) if dense_first
+                     else moe_graph_model)
+    assert len(model.stacks) == 1 + dense_first
+    _captured_vs_eager(cuda, model, params, True)
+
+
+def _captured_vs_eager(cuda, model, params, paged):
     from repro_torch.serve.async_runtime import CapturedDecodeStep
 
-    model, params = graph_model
     with torch.no_grad():
         eager, graphed = (_decode_state(model, params, cuda, paged=paged) for _ in range(2))
         for a, b in zip(_state_fields(eager), _state_fields(graphed)):
@@ -930,6 +963,36 @@ def test_async_dispatch_side_makes_no_host_sync(cuda, graph_model):
         eng.close()
     assert all(r.done for r in reqs) and eng.sched.stats["prefix_hit_blocks"] > 0
     assert eng.stats["cow_copies"] + eng.stats["decoded_tokens"] > 0
+
+
+def test_moe_dispatch_makes_no_host_sync(cuda, moe_graph_model):
+    """``moe_ffn`` at a prefill's and a decode step's shapes (drops
+    included), and the MoE model's prefill and decode step, run under
+    ``torch.cuda.set_sync_debug_mode("error")``: routing, dispatch and
+    combine read no device value on the host."""
+    from repro_torch.models import moe
+
+    model, params = moe_graph_model
+    cfg = model.cfg
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    p = {k: v[0] for k, v in params["stack_0"]["moe"].items()}
+    xs = [randn(gen, (3, 37, cfg.d_model), cuda), randn(gen, (4, 1, cfg.d_model), cuda)]
+    tokens = torch.randint(0, cfg.vocab, (2, 40), device=cuda, generator=gen)
+    lengths = torch.tensor([40, 23], dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        with torch.no_grad():
+            outs = [moe.moe_ffn(p, c, x)[0] for x in xs
+                    for c in (cfg, cfg.with_(capacity_factor=0.5))]
+            logits, state = model.prefill(params, {"tokens": tokens}, 96, lengths=lengths)
+            for _ in range(3):
+                logits, state = model.decode_step(params, state,
+                                                  logits[:, -1].argmax(-1)[:, None])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(bool(torch.isfinite(o.float()).all()) for o in outs)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_capture_failure_raises_and_does_not_fall_back(cuda, graph_model):

@@ -114,10 +114,10 @@ def test_random_init_matches_jax_shapes_and_scales():
             assert path[-2:-1] == ("attn",) and jstd > want, (path, jstd, want)
 
 
-@pytest.mark.parametrize("change", [dict(mixer="mla"), dict(n_experts=8),
+@pytest.mark.parametrize("change", [dict(mixer="mla"), dict(mixer="mamba2"),
                                     dict(vision_stub=True),
                                     dict(mrope_sections=(8, 4, 4)),
-                                    dict(qk_norm=True), dict(rope=False)])
+                                    dict(mixer="xlstm"), dict(rope=False)])
 def test_unported_families_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(smoke_config("llama3-8b").with_(**change))
