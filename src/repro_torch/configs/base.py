@@ -1,7 +1,7 @@
 """Architecture configuration for the attention-family models the port runs.
 
-A copy of the fields of the JAX package's ``ArchConfig`` that the dense and
-MoE decoder paths read, with the JAX defaults.  ``mixer``, ``vision_stub``,
+A copy of the fields of the JAX package's ``ArchConfig`` that the dense,
+MoE and MLA decoder paths read, with the JAX defaults.  ``mixer``, ``vision_stub``,
 ``mrope_sections`` and ``rope`` exist so that a config asking for what the
 port does not run yet is refused by
 :class:`repro_torch.models.transformer.DecoderLM`.
@@ -50,6 +50,14 @@ class ArchConfig:
     router_norm_topk: bool = False
     aux_loss_weight: float = 1.0e-2
 
+    # MLA (DeepSeek)
+    q_lora: int = 0
+    kv_lora: int = 0
+    qk_nope: int = 0
+    qk_rope: int = 0
+    v_head_dim: int = 0
+    mtp: bool = False
+
     # BitDecoding KV cache
     kv_bits: int = 4
     kv_block: int = 128
@@ -70,7 +78,7 @@ class ArchConfig:
 
 
 _REGISTRY = ["llama3_8b", "llama2_7b", "gemma_7b", "starcoder2_3b", "command_r_35b",
-             "qwen3_moe_235b_a22b"]
+             "qwen3_moe_235b_a22b", "deepseek_v3_671b"]
 
 
 def _mod_name(name: str) -> str:

@@ -39,36 +39,40 @@ def inverse_query_transform(o: torch.Tensor) -> torch.Tensor:
 
 def decode_attention(q, cache: QuantKVCache | PagedQuantKVCache, *,
                      sm_scale: float | None = None, impl: str = "auto",
-                     num_splits="auto", draft_bits: int | None = None):
+                     num_splits="auto", draft_bits: int | None = None,
+                     d_v: int | None = None):
     """Low-bit fused decode attention of q [B, 1, h_q, d_k] against the cache;
     returns f32 [B, 1, h_q, d_v].  ``num_splits`` is the in-kernel split-KV
     count ('auto' or an integer).  ``draft_bits`` reads the packed blocks at
     that truncated width (the speculative draft read; None or >= the
-    cache's bits is the normal read).  A paged cache goes through the page
-    table (:func:`_paged_decode_attention`)."""
+    cache's bits is the normal read).  A shared_kv cache (the MLA latent)
+    reads V as the first ``d_v`` channels of K.  A paged cache goes through
+    the page table (:func:`_paged_decode_attention`)."""
     if isinstance(cache, PagedQuantKVCache):
         return _paged_decode_attention(q, cache, sm_scale=sm_scale, impl=impl,
-                                       num_splits=num_splits, draft_bits=draft_bits)
+                                       num_splits=num_splits, draft_bits=draft_bits,
+                                       d_v=d_v)
     qt = query_transform(q, cache.kw.shape[1])
     out = bd_ops.bitdecode_attention(
         qt, cache.kw, cache.k_scale, cache.k_zero, cache.vw, cache.v_scale,
         cache.v_zero, cache.k_res, cache.v_res, cache.pack_blocks, cache.res_len,
         bits=cache.bits, block_n=cache.block_n, sm_scale=sm_scale,
-        k_gran=cache.k_gran, impl=impl, num_splits=num_splits, draft_bits=draft_bits,
+        k_gran=cache.k_gran, shared_kv=cache.shared_kv, d_v=d_v, impl=impl,
+        num_splits=num_splits, draft_bits=draft_bits,
     )
     return inverse_query_transform(out)
 
 
 def _paged_decode_attention(q, cache: PagedQuantKVCache, *, sm_scale, impl,
-                            num_splits, draft_bits=None):
+                            num_splits, draft_bits=None, d_v=None):
     """Paged decode: the page-table walk of kernels/paged_bitdecode."""
     qt = query_transform(q, cache.kw.shape[1])
     out = pg_ops.paged_bitdecode_attention(
         qt, cache.kw, cache.k_scale, cache.k_zero, cache.vw, cache.v_scale,
         cache.v_zero, cache.k_res, cache.v_res, cache.page_table,
         cache.pack_blocks, cache.res_len, bits=cache.bits, block_n=cache.block_n,
-        sm_scale=sm_scale, k_gran=cache.k_gran, impl=impl, num_splits=num_splits,
-        draft_bits=draft_bits,
+        sm_scale=sm_scale, k_gran=cache.k_gran, shared_kv=cache.shared_kv, d_v=d_v,
+        impl=impl, num_splits=num_splits, draft_bits=draft_bits,
     )
     return inverse_query_transform(out)
 
@@ -78,10 +82,10 @@ def decode_append_attention(q, cache: QuantKVCache | PagedQuantKVCache, k_new,
                             draft_bits: int | None = None, **attn_kwargs):
     """The per-token hot path: append the new KV token (residual write +
     flush, in place; ``qcache.append_decode`` or ``qcache.paged_append_decode``
-    by the cache's type) and run fused low-bit decode attention over the
-    updated cache.  Returns ``(out, cache)``.  ``attn_kwargs`` go to
-    :func:`decode_attention`.  The serving engine swaps in a paged state and
-    the model code stays the same.
+    by the cache's type; ``v_new`` None for a shared_kv cache) and run fused
+    low-bit decode attention over the updated cache.  Returns ``(out,
+    cache)``.  ``attn_kwargs`` go to :func:`decode_attention`.  The serving
+    engine swaps in a paged state and the model code stays the same.
 
     The two modes of self-speculative decoding are explicit arguments here
     (the JAX package sets them as trace-time contexts, ``use_draft`` and
@@ -151,30 +155,59 @@ def prefix_suffix_attention(q, k, v, k_prior, v_prior, prior_len, *,
     return out.permute(0, 2, 1, 3, 4).reshape(b, s, h_q, d_v)
 
 
+def padded_head_dim(d_k: int, d_v: int) -> int:
+    """The flash-prefill kernel's head dim for (d_k, d_v): d_k itself when it
+    has an instance and d_v == d_k, else the smallest instance >= both."""
+    if d_k == d_v and d_k in fp_ops.HEAD_DIMS:
+        return d_k
+    fits = [d for d in fp_ops.HEAD_DIMS if d >= max(d_k, d_v)]
+    if not fits:
+        raise ValueError(f"head dims d_k={d_k}, d_v={d_v} exceed the flash-prefill kernel's "
+                         f"{fp_ops.HEAD_DIMS}; use impl='torch'")
+    return fits[0]
+
+
 def blockwise_attention(q, k, v, *, sm_scale: float | None = None, block_k: int = 512,
                         impl: str = "auto"):
     """Causal flash-style attention: q [B, S, h_q, d_k], k/v [B, T, h_kv, d].
 
     ``impl="cuda"`` runs the flash-prefill kernel (``kernels/flash_prefill``)
-    on the model's [B, S, H, d] layout as it is and returns bf16; it needs
-    S == T and d_k == d_v, as the JAX package's Pallas route does.
-    ``impl="torch"`` is the plain loop below, returning f32: it walks KV
-    blocks of ``block_k`` with online-softmax carries and never builds the
-    [S, T] score matrix; products take bf16 operands with f32 accumulation
-    (float32 matmuls of bf16-rounded values).  ``"auto"`` takes the kernel
-    for CUDA tensors and the plain loop for CPU tensors.
+    on the model's [B, S, H, d] layout and returns bf16; it needs S == T.
+    Head dims the kernel has an instance for, with d_k == d_v, go as they
+    are; others (MLA's d_k 192, d_v 128) take the padded route: Q, K and V
+    zero-padded to the smallest instance >= max(d_k, d_v), the caller's
+    ``sm_scale`` (default 1/sqrt(d_k), the unpadded width), the output
+    sliced back to d_v.  Zero channels add exact zeros to every score and
+    to every output channel, so the first d_v channels are the attention
+    of the unpadded inputs.
+    ``impl="torch"`` is the plain loop (:func:`blockwise_attention_plain`),
+    returning f32.  ``"auto"`` takes the kernel for CUDA tensors and the
+    plain loop for CPU tensors.
     """
+    s, d_k, t, d_v = q.shape[1], q.shape[-1], v.shape[1], v.shape[-1]
+    if sm_scale is None:
+        sm_scale = 1.0 / (d_k**0.5)
     if _build.resolve_impl(impl, q, k, v) == "cuda":
-        if q.shape[1] != k.shape[1]:
-            raise ValueError(f"the flash-prefill kernel needs S == T, got {q.shape[1]} "
-                             f"queries over {k.shape[1]} keys; use impl='torch'")
-        return fp_ops.flash_prefill_attention(q, k, v, sm_scale=sm_scale, layout="bshd",
-                                              impl="cuda")
+        if s != t:
+            raise ValueError(f"the flash-prefill kernel needs S == T, got {s} "
+                             f"queries over {t} keys; use impl='torch'")
+        width = padded_head_dim(d_k, d_v)
+        if width != d_k or width != d_v:
+            q, k, v = (torch.nn.functional.pad(x, (0, width - x.shape[-1])) for x in (q, k, v))
+        out = fp_ops.flash_prefill_attention(q, k, v, sm_scale=sm_scale, layout="bshd",
+                                             impl="cuda")
+        return out[..., :d_v]
+    return blockwise_attention_plain(q, k, v, sm_scale=sm_scale, block_k=block_k)
+
+
+def blockwise_attention_plain(q, k, v, *, sm_scale: float, block_k: int = 512):
+    """The plain version of :func:`blockwise_attention`, returning f32: it
+    walks KV blocks of ``block_k`` with online-softmax carries and never
+    builds the [S, T] score matrix; products take bf16 operands with f32
+    accumulation (float32 matmuls of bf16-rounded values)."""
     b, s, h_q, d_k = q.shape
     _, t, h_kv, d_v = v.shape
     g = h_q // h_kv
-    if sm_scale is None:
-        sm_scale = 1.0 / (d_k**0.5)
     # [B, h_kv, S*g, d]: rows ordered (s, g) so a row's position is row // g
     qg = (q.to(torch.bfloat16).float().reshape(b, s, h_kv, g, d_k)
           .permute(0, 2, 1, 3, 4).reshape(b, h_kv, s * g, d_k))

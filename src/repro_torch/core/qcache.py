@@ -22,6 +22,11 @@ sequences in shared page pools and walks them through a page table; the
 serving engine (``repro_torch.serve``) decides which page holds which block.
 Its append (:func:`paged_append_decode`) follows the same conventions: in
 place, one launch, the flush destinations computed on the device.
+
+``shared_kv`` (the MLA latent cache) keeps one quantized stream: the V side
+(``vw``, ``v_scale``, ``v_zero``, ``v_res``) is ``None``, the flush and the
+append write K alone, and the decode reads V as the first ``d_v`` channels
+of dequantized K.
 """
 from __future__ import annotations
 
@@ -44,17 +49,18 @@ class QuantKVCache:
     kw: torch.Tensor        # int32 [B, H, nb, npr, d_k]
     k_scale: torch.Tensor   # [B, H, nb, d_k] (channel) or [B, H, nb, block_n]
     k_zero: torch.Tensor
-    vw: torch.Tensor        # int32 [B, H, nb, npr, d_v]
-    v_scale: torch.Tensor   # [B, H, nb, block_n]
-    v_zero: torch.Tensor
+    vw: torch.Tensor | None       # int32 [B, H, nb, npr, d_v]; None when shared_kv
+    v_scale: torch.Tensor | None  # [B, H, nb, block_n]
+    v_zero: torch.Tensor | None
     k_res: torch.Tensor     # bf16 [B, H, block_n, d_k]
-    v_res: torch.Tensor     # bf16 [B, H, block_n, d_v]
+    v_res: torch.Tensor | None    # bf16 [B, H, block_n, d_v]
     pack_blocks: torch.Tensor  # int32 [B]
     res_len: torch.Tensor      # int32 [B]
     arrive: torch.Tensor       # int32 [B]: the append kernel's counter, zero between launches
     bits: int
     block_n: int
     k_gran: str
+    shared_kv: bool = False
 
     @property
     def length(self) -> torch.Tensor:
@@ -63,52 +69,62 @@ class QuantKVCache:
     def layer(self, i: int) -> "QuantKVCache":
         """Layer ``i`` of a cache stacked over layers, as views: in-place
         updates of the returned cache land in the stacked tensors."""
-        return dataclasses.replace(self, **{f: getattr(self, f)[i] for f in _FIELDS})
+        return dataclasses.replace(self, **_map_fields(self, _FIELDS, lambda t: t[i]))
+
+
+def _map_fields(cache, fields, fn) -> dict:
+    """``fn`` of each tensor field of ``cache`` (the V side of a shared_kv
+    cache is None and stays so)."""
+    return {f: fn(getattr(cache, f)) for f in fields if getattr(cache, f) is not None}
 
 
 def stack_caches(caches: list[QuantKVCache]) -> QuantKVCache:
     """Stack per-layer caches along a new leading layer axis."""
-    return dataclasses.replace(
-        caches[0], **{f: torch.stack([getattr(c, f) for c in caches]) for f in _FIELDS}
-    )
+    return dataclasses.replace(caches[0], **{
+        f: torch.stack([getattr(c, f) for c in caches])
+        for f in _FIELDS if getattr(caches[0], f) is not None})
 
 
-def init_cache(batch: int, h_kv: int, d: int, max_seq: int, *, bits: int = 4,
-               block_n: int = 128, k_gran: str = "channel",
-               device=None) -> QuantKVCache:
+def init_cache(batch: int, h_kv: int, d: int, max_seq: int, *, d_v: int | None = None,
+               bits: int = 4, block_n: int = 128, k_gran: str = "channel",
+               shared_kv: bool = False, device=None) -> QuantKVCache:
     """Allocate an empty cache with capacity >= max_seq tokens: bf16 params
-    and a bf16 residual, K and V of head width ``d``, on ``device`` (the card
-    unless given)."""
+    and a bf16 residual, K of head width ``d`` and V of ``d_v`` (default
+    ``d``), on ``device`` (the card unless given).  ``shared_kv``: K alone
+    (the V side is None)."""
     device = resolve_device(device)
     nb = max(1, -(-max_seq // block_n))
     npr = layout.words_per_block(block_n, bits)
     kp = d if k_gran == "channel" else block_n
+    d_v = d if d_v is None else d_v
     bf16 = torch.bfloat16
 
     def z(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
+    zv = (lambda shape, dtype: None) if shared_kv else z  # the V side
     return QuantKVCache(
         kw=z((batch, h_kv, nb, npr, d), torch.int32),
         k_scale=z((batch, h_kv, nb, kp), bf16),
         k_zero=z((batch, h_kv, nb, kp), bf16),
-        vw=z((batch, h_kv, nb, npr, d), torch.int32),
-        v_scale=z((batch, h_kv, nb, block_n), bf16),
-        v_zero=z((batch, h_kv, nb, block_n), bf16),
+        vw=zv((batch, h_kv, nb, npr, d_v), torch.int32),
+        v_scale=zv((batch, h_kv, nb, block_n), bf16),
+        v_zero=zv((batch, h_kv, nb, block_n), bf16),
         k_res=z((batch, h_kv, block_n, d), bf16),
-        v_res=z((batch, h_kv, block_n, d), bf16),
+        v_res=zv((batch, h_kv, block_n, d_v), bf16),
         pack_blocks=z((batch,), torch.int32),
         res_len=z((batch,), torch.int32),
         arrive=z((batch,), torch.int32),
-        bits=bits, block_n=block_n, k_gran=k_gran,
+        bits=bits, block_n=block_n, k_gran=k_gran, shared_kv=shared_kv,
     )
 
 
 def append_decode(cache: QuantKVCache, k_new, v_new, *, quant_impl: str = "auto",
                   mask=None) -> QuantKVCache:
-    """Append one decoded token per sequence (k_new/v_new: [B, H, 1, d]) and
-    commit the residual block of every row it fills, in place: one launch
-    of the flush kernel's append mode on the card.
+    """Append one decoded token per sequence (k_new/v_new: [B, H, 1, d];
+    v_new None when shared_kv) and commit the residual block of every row
+    it fills, in place: one launch of the flush kernel's append mode on the
+    card.
 
     quant_impl: 'auto' | 'cuda' | 'torch', forwarded to
     ``residual_flush.ops.append_flush``.  ``mask`` ([B] bool, optional):
@@ -117,14 +133,15 @@ def append_decode(cache: QuantKVCache, k_new, v_new, *, quant_impl: str = "auto"
         cache.kw, cache.k_scale, cache.k_zero, cache.vw, cache.v_scale, cache.v_zero,
         cache.k_res, cache.v_res, k_new, v_new, cache.pack_blocks, cache.res_len,
         cache.arrive, mask=mask, bits=cache.bits, block_n=cache.block_n,
-        k_gran=cache.k_gran, impl=quant_impl,
+        k_gran=cache.k_gran, shared_kv=cache.shared_kv, impl=quant_impl,
     )
     return cache
 
 
 def _quantize_full_region(cache: QuantKVCache, k, v, n_full: int, quant_impl: str):
     """Quantize + pack the first ``n_full`` blocks of a prefill straight into
-    the packed fields (in place): one launch for K and V on the card."""
+    the packed fields (in place): one launch for K and V on the card, or
+    for K alone when shared_kv."""
     if not n_full:
         return
     n = n_full * cache.block_n
@@ -132,6 +149,10 @@ def _quantize_full_region(cache: QuantKVCache, k, v, n_full: int, quant_impl: st
     def head(*fields):
         return tuple(getattr(cache, f)[:, :, :n_full] for f in fields)
 
+    if cache.shared_kv:
+        kvq_ops.quantize_kv(k[:, :, :n], cache.bits, cache.k_gran, block_n=cache.block_n,
+                            impl=quant_impl, out=head("kw", "k_scale", "k_zero"))
+        return
     kvq_ops.quantize_kv_pair(
         k[:, :, :n], v[:, :, :n], cache.bits, cache.k_gran, block_n=cache.block_n,
         out_k=head("kw", "k_scale", "k_zero"), out_v=head("vw", "v_scale", "v_zero"),
@@ -139,11 +160,16 @@ def _quantize_full_region(cache: QuantKVCache, k, v, n_full: int, quant_impl: st
     )
 
 
+def _residuals(cache, k, v):
+    """(residual buffer, new rows) pairs: K's, and V's unless shared_kv."""
+    return [(cache.k_res, k)] + ([] if cache.shared_kv else [(cache.v_res, v)])
+
+
 def prefill(cache: QuantKVCache, k, v, *, lengths=None,
             quant_impl: str = "auto") -> QuantKVCache:
-    """Fill the cache (in place) from a prefill's k/v [B, H, L, d]: the
-    first ``L - L % block_n`` tokens are quantized into packed blocks, the
-    tail goes to the residual.
+    """Fill the cache (in place) from a prefill's k/v [B, H, L, d] (v None
+    when shared_kv): the first ``L - L % block_n`` tokens are quantized into
+    packed blocks, the tail goes to the residual.
 
     ``lengths`` ([B] int32, optional) marks a ragged batch right-padded to
     L: sequence b keeps ``lengths[b] // block_n`` packed blocks and its
@@ -161,13 +187,13 @@ def prefill(cache: QuantKVCache, k, v, *, lengths=None,
         lo = (lengths // block_n) * block_n
         idx = torch.clamp(lo[:, None].long() + torch.arange(block_n, device=k.device),
                           max=L - 1)  # [B, block_n]; rows >= res_len are unread
-        for res_buf, x in ((cache.k_res, k), (cache.v_res, v)):
+        for res_buf, x in _residuals(cache, k, v):
             gather = idx[:, None, :, None].expand(b, h, block_n, x.shape[-1])
             res_buf.copy_(torch.gather(x, 2, gather))
         cache.pack_blocks.copy_(lengths // block_n)
         cache.res_len.copy_(lengths % block_n)
         return cache
-    for res_buf, x in ((cache.k_res, k), (cache.v_res, v)):
+    for res_buf, x in _residuals(cache, k, v):
         res_buf.zero_()
         res_buf[:, :, :res] = x[:, :, n_full * block_n:]
     cache.pack_blocks.fill_(n_full)
@@ -199,20 +225,21 @@ def widen_residual(cache, extra: int, *, multiple: int = 1):
     def pad(res):
         return torch.nn.functional.pad(res, (0, 0, 0, width - n))
 
-    return dataclasses.replace(cache, k_res=pad(cache.k_res), v_res=pad(cache.v_res))
+    return dataclasses.replace(cache, **_map_fields(cache, ("k_res", "v_res"), pad))
 
 
 def draft_append(cache, k_new, v_new):
-    """The draft pass's append (k_new/v_new: [B, H, 1, d]), in place: write
-    each row's token at its ``res_len`` and add 1 to ``res_len``.  No flush,
-    no pool, ``pack_blocks`` or table write: the caller widened the residual
-    (:func:`widen_residual`), and the draft state is thrown away after the
-    verify pass.  The row index stays on the device (a scatter), so the
-    append captures into a CUDA graph.  Dense and paged caches alike."""
-    b, h, _, d = k_new.shape
-    idx = cache.res_len.long()[:, None, None, None].expand(b, h, 1, d)
-    cache.k_res.scatter_(2, idx, k_new.to(cache.k_res.dtype))
-    cache.v_res.scatter_(2, idx, v_new.to(cache.v_res.dtype))
+    """The draft pass's append (k_new/v_new: [B, H, 1, d]; v_new None when
+    shared_kv), in place: write each row's token at its ``res_len`` and add
+    1 to ``res_len``.  No flush, no pool, ``pack_blocks`` or table write:
+    the caller widened the residual (:func:`widen_residual`), and the draft
+    state is thrown away after the verify pass.  The row index stays on the
+    device (a scatter), so the append captures into a CUDA graph.  Dense
+    and paged caches alike."""
+    b, h = k_new.shape[:2]
+    for res, new in _residuals(cache, k_new, v_new):
+        idx = cache.res_len.long()[:, None, None, None].expand(b, h, 1, new.shape[-1])
+        res.scatter_(2, idx, new.to(res.dtype))
     cache.res_len.add_(1)
     return cache
 
@@ -252,11 +279,11 @@ class PagedQuantKVCache:
     kw: torch.Tensor        # int32 [P, H, npr, d_k]
     k_scale: torch.Tensor   # [P, H, d_k] (channel) or [P, H, block_n]
     k_zero: torch.Tensor
-    vw: torch.Tensor        # int32 [P, H, npr, d_v]
-    v_scale: torch.Tensor   # [P, H, block_n]
-    v_zero: torch.Tensor
+    vw: torch.Tensor | None       # int32 [P, H, npr, d_v]; None when shared_kv
+    v_scale: torch.Tensor | None  # [P, H, block_n]
+    v_zero: torch.Tensor | None
     k_res: torch.Tensor     # bf16 [B, H, block_n, d_k]
-    v_res: torch.Tensor     # bf16 [B, H, block_n, d_v]
+    v_res: torch.Tensor | None    # bf16 [B, H, block_n, d_v]
     page_table: torch.Tensor   # int32 [B, nb_max]
     pack_blocks: torch.Tensor  # int32 [B]
     res_len: torch.Tensor      # int32 [B]
@@ -264,6 +291,7 @@ class PagedQuantKVCache:
     bits: int
     block_n: int
     k_gran: str
+    shared_kv: bool = False
 
     @property
     def length(self) -> torch.Tensor:
@@ -275,13 +303,13 @@ class PagedQuantKVCache:
 
     def layer(self, i: int) -> "PagedQuantKVCache":
         """Layer ``i`` of a cache stacked over layers, as views."""
-        return dataclasses.replace(self, **{f: getattr(self, f)[i] for f in _PAGED_FIELDS})
+        return dataclasses.replace(self, **_map_fields(self, _PAGED_FIELDS, lambda t: t[i]))
 
 
 def init_paged_cache(n_pages: int, batch: int, h_kv: int, d_k: int, nb_max: int, *,
                      d_v: int | None = None, bits: int = 4, block_n: int = 128,
-                     k_gran: str = "channel", layers: int | None = None,
-                     device=None) -> PagedQuantKVCache:
+                     k_gran: str = "channel", shared_kv: bool = False,
+                     layers: int | None = None, device=None) -> PagedQuantKVCache:
     """Allocate empty page pools for ``batch`` decode slots on ``device`` (the
     card unless given).
 
@@ -289,6 +317,8 @@ def init_paged_cache(n_pages: int, batch: int, h_kv: int, d_k: int, nb_max: int,
     per-slot scratch pages.  ``nb_max`` is the page-table width.  The fresh
     table points every entry at its slot's scratch page.  ``layers`` stacks
     the cache over that many layers, with one page table shared by all.
+    ``shared_kv`` allocates the MLA latent layout: K's pools and residual
+    alone.
     """
     if n_pages <= batch:
         raise ValueError(f"n_pages={n_pages} must exceed batch={batch} (the first "
@@ -303,30 +333,31 @@ def init_paged_cache(n_pages: int, batch: int, h_kv: int, d_k: int, nb_max: int,
     def z(shape, dtype):
         return torch.zeros((*lead, *shape), dtype=dtype, device=device)
 
+    zv = (lambda shape, dtype: None) if shared_kv else z  # the V side
     table = torch.arange(batch, dtype=torch.int32, device=device)[:, None].repeat(1, nb_max)
     return PagedQuantKVCache(
         kw=z((n_pages, h_kv, npr, d_k), torch.int32),
         k_scale=z((n_pages, h_kv, kp), bf16),
         k_zero=z((n_pages, h_kv, kp), bf16),
-        vw=z((n_pages, h_kv, npr, d_v), torch.int32),
-        v_scale=z((n_pages, h_kv, block_n), bf16),
-        v_zero=z((n_pages, h_kv, block_n), bf16),
+        vw=zv((n_pages, h_kv, npr, d_v), torch.int32),
+        v_scale=zv((n_pages, h_kv, block_n), bf16),
+        v_zero=zv((n_pages, h_kv, block_n), bf16),
         k_res=z((batch, h_kv, block_n, d_k), bf16),
-        v_res=z((batch, h_kv, block_n, d_v), bf16),
+        v_res=zv((batch, h_kv, block_n, d_v), bf16),
         page_table=table.expand(*lead, batch, nb_max),
         pack_blocks=z((batch,), torch.int32),
         res_len=z((batch,), torch.int32),
         arrive=z((batch,), torch.int32),
-        bits=bits, block_n=block_n, k_gran=k_gran,
+        bits=bits, block_n=block_n, k_gran=k_gran, shared_kv=shared_kv,
     )
 
 
 def paged_append_decode(cache: PagedQuantKVCache, k_new, v_new, *,
                         quant_impl: str = "auto", mask=None) -> PagedQuantKVCache:
-    """Append one decoded token per sequence (k_new/v_new: [B, H, 1, d]) to
-    the residual and commit every residual it fills through the page table
-    into the pools, in place: one launch of the paged flush kernel's append
-    mode on the card.
+    """Append one decoded token per sequence (k_new/v_new: [B, H, 1, d];
+    v_new None when shared_kv) to the residual and commit every residual it
+    fills through the page table into the pools, in place: one launch of
+    the paged flush kernel's append mode on the card.
 
     The flush destination of row ``b`` is ``page_table[b, pack_blocks[b]]``
     when its residual filled, else its scratch page ``b``, clamped to
@@ -337,7 +368,7 @@ def paged_append_decode(cache: PagedQuantKVCache, k_new, v_new, *,
         cache.kw, cache.k_scale, cache.k_zero, cache.vw, cache.v_scale, cache.v_zero,
         cache.k_res, cache.v_res, k_new, v_new, cache.page_table, cache.pack_blocks,
         cache.res_len, cache.arrive, mask=mask, bits=cache.bits, block_n=cache.block_n,
-        k_gran=cache.k_gran, impl=quant_impl,
+        k_gran=cache.k_gran, shared_kv=cache.shared_kv, impl=quant_impl,
     )
     return cache
 
@@ -365,11 +396,14 @@ def _index(x, device) -> torch.Tensor:
 
 def copy_pages(cache: PagedQuantKVCache, src, dst) -> PagedQuantKVCache:
     """Copy-on-write primitive, in place: pool page ``dst[i]`` becomes a
-    bitwise replica of ``src[i]`` in all six pool fields and every stacked
-    layer.  ``dst`` entries are pairwise distinct and disjoint from ``src``."""
+    bitwise replica of ``src[i]`` in every pool field (K's three alone when
+    shared_kv) and every stacked layer.  ``dst`` entries are pairwise
+    distinct and disjoint from ``src``."""
     src, dst = (_index(x, cache.kw.device) for x in (src, dst))
     for f in _PAGED_POOL_FIELDS:
         pool = getattr(cache, f)
+        if pool is None:
+            continue
         ax = _page_axis(pool, f)
         pool.index_copy_(ax, dst, pool.index_select(ax, src))
     return cache
@@ -383,7 +417,10 @@ def dequant_prior(cache: PagedQuantKVCache, pages):
     Returns ``(k, v)`` shaped ``[*lead, B, J * block_n, H, d]`` (lead = the
     cache's stacking dims, e.g. the layer axis) in natural token order: the
     layout ``core.attention.prefix_suffix_attention`` takes.  Pool K is
-    stored after RoPE, so the prior needs no position re-applied."""
+    stored after RoPE, so the prior needs no position re-applied.  A
+    shared_kv cache (the MLA latent pools) returns ``(latent, None)``: the
+    model's up-projections make the per-head K and V from the latent
+    (``models.mla.mla_prefill_cache``)."""
 
     idx = _index(pages, cache.kw.device)
 
@@ -400,6 +437,8 @@ def dequant_prior(cache: PagedQuantKVCache, pages):
 
     k = quantizer.unpack_and_dequantize(gather("kw"), gather("k_scale"),
                                         gather("k_zero"), cache.bits, cache.k_gran)
+    if cache.shared_kv:
+        return to_prior(k), None
     v = quantizer.unpack_and_dequantize(gather("vw"), gather("v_scale"),
                                         gather("v_zero"), cache.bits, "tensor")
     return to_prior(k), to_prior(v)

@@ -9,7 +9,9 @@
 // multiply-adds per dequantized element, far below the card's
 // operations-per-byte balance.  What stands between the kernel and that
 // bound is latency (dependent loads, few warps) and the dequantization's
-// instructions, not the products.
+// instructions, not the products.  The MLA decode (shared_kv, g = 128 on a
+// 576-wide latent, 4 bits) does ~970 operations a byte it reads: there the
+// products bound it.
 // Design (bitdecode_body.cuh): the row's packed blocks and residual are cut
 // into units of a few KB and spread over num_splits CTAs of 4 warps; each
 // warp keeps its next unit's words, scales and zeros in flight with cp.async
@@ -19,14 +21,20 @@
 // the shapes alone, so a launch can be captured in a CUDA graph; which units
 // a warp takes is read from the row's own pack_blocks and res_len on the
 // device.  The warps of a CTA merge in shared memory; the splits merge in
-// bitdecode_merge_kernel, the call's only other launch.
+// bitdecode_merge_kernel, the call's only other launch.  The shared_kv mode
+// (the MLA latent cache: V the first d_v channels of K, d_k 160 / 576, g up
+// to 128) puts query-row tiles and V chunks on the grid's third axis
+// (bitdecode_body.cuh).
+//
+// Replaces also: the `shared_kv` branches of `_body` (kernel.py:191-192,
+// 203-204).
 #include "bitdecode_body.cuh"
 
-template <int BITS, int W, int DK, int DV, int NT, bool KCH>
+template <int BITS, int W, int DK, int DV, int NT, bool KCH, bool SH>
 __global__ void __launch_bounds__(BD_THREADS) bitdecode_kernel(const BdArgs a) {
   // block j of row (b, h) is cell (b * H + h) * nb + j of [B, H, nb, ...]
   const long long row = (long long)blockIdx.x * a.nb;
-  bitdecode_body<BITS, W, DK, DV, NT, KCH>(a, [row](int j) { return row + j; });
+  bitdecode_body<BITS, W, DK, DV, NT, KCH, SH>(a, [row](int j) { return row + j; });
 }
 
 // Merge of the splits' partials o [S, rows, dv], lse [S, rows] (rows =
@@ -62,48 +70,46 @@ extern "C" int bitdecode_launch(
     const void* q, const void* kw, const void* ks, const void* kz, const void* vw,
     const void* vs, const void* vz, const void* k_res, const void* v_res,
     const void* pack_blocks, const void* res_len, void* out, void* lse, int B, int H, int g,
-    int dk, int dv, int nb, int block_n, int res_n, int bits, int k_channel, int num_splits,
-    int draft_shift, float sm_scale, void* stream) {
+    int dk, int dv, int nb, int block_n, int res_n, int bits, int k_channel, int shared,
+    int num_splits, int draft_shift, float sm_scale, void* stream) {
   if (B * H == 0) return 0;
-  if (dv != dk || draft_shift < 0 || draft_shift >= bits) return (int)cudaErrorInvalidValue;
+  int n_vc = 1;
+  const int gz = bd_grid_z(g, dk, dv, shared, &n_vc);
+  if (gz == 0 || draft_shift < 0 || draft_shift >= bits) return (int)cudaErrorInvalidValue;
   const BdArgs a{(const bf16*)q, (const int32_t*)kw, (const bf16*)ks, (const bf16*)kz,
                  (const int32_t*)vw, (const bf16*)vs, (const bf16*)vz, (const bf16*)k_res,
                  (const bf16*)v_res, (const int32_t*)pack_blocks, (const int32_t*)res_len,
                  (float*)out, (float*)lse, B, H, g, nb, block_n, res_n, num_splits, sm_scale,
-                 draft_shift};
-  const dim3 grid(B * H, num_splits);
+                 draft_shift, dv, n_vc};
+  const dim3 grid(B * H, num_splits, gz);
   return (int)bd_dispatch(
-      bits, bd_unit_rows(block_n, bits), dk, g > 8 ? 2 : 1, k_channel,
-      [&](auto bi, auto w, auto d, auto nt, auto kch) {
-        constexpr int BI = decltype(bi)::value, WW = decltype(w)::value;
-        constexpr int D = decltype(d)::value, NT = decltype(nt)::value;
-        constexpr bool KCH = decltype(kch)::value;
-        constexpr int SMEM = BdShape<BI, WW, D, D, NT>::SMEM;
+      bits, bd_unit_rows(block_n, bits), dk, g > 8 ? 2 : 1, k_channel, shared,
+      [&](auto bi, auto w, auto dk, auto dv, auto nt, auto kch, auto sh) {
+        BD_INSTANCE_CONSTANTS
         static bool done = false;
-        cudaError_t err = bd_allow_smem(bitdecode_kernel<BI, WW, D, D, NT, KCH>, SMEM, &done);
+        cudaError_t err =
+            bd_allow_smem(bitdecode_kernel<BI, WW, DK, DV, NT, KCH, SH>, SMEM, &done);
         if (err != cudaSuccess) return err;
-        bitdecode_kernel<BI, WW, D, D, NT, KCH>
+        bitdecode_kernel<BI, WW, DK, DV, NT, KCH, SH>
             <<<grid, BD_THREADS, SMEM, (cudaStream_t)stream>>>(a);
         return cudaGetLastError();
       });
 }
 
-// CTAs of the instance for (g, d, block_n, bits, k_channel) resident on one SM (what
-// the wrapper's "auto" split count fills), or minus a CUDA error.
-extern "C" int bitdecode_ctas_per_sm(int g, int d, int block_n, int bits, int k_channel) {
+// CTAs of the instance for (g, d, block_n, bits, k_channel, shared) resident on one SM
+// (what the wrapper's "auto" split count fills), or minus a CUDA error.
+extern "C" int bitdecode_ctas_per_sm(int g, int d, int block_n, int bits, int k_channel,
+                                     int shared) {
   int n = 0;
   const cudaError_t err = bd_dispatch(
-      bits, bd_unit_rows(block_n, bits), d, g > 8 ? 2 : 1, k_channel,
-      [&](auto bi, auto w, auto dd, auto nt, auto kch) {
-        constexpr int BI = decltype(bi)::value, WW = decltype(w)::value;
-        constexpr int D = decltype(dd)::value, NT = decltype(nt)::value;
-        constexpr bool KCH = decltype(kch)::value;
-        constexpr int SMEM = BdShape<BI, WW, D, D, NT>::SMEM;
+      bits, bd_unit_rows(block_n, bits), d, g > 8 ? 2 : 1, k_channel, shared,
+      [&](auto bi, auto w, auto dk, auto dv, auto nt, auto kch, auto sh) {
+        BD_INSTANCE_CONSTANTS
         static bool done = false;
-        cudaError_t e = bd_allow_smem(bitdecode_kernel<BI, WW, D, D, NT, KCH>, SMEM, &done);
+        cudaError_t e = bd_allow_smem(bitdecode_kernel<BI, WW, DK, DV, NT, KCH, SH>, SMEM, &done);
         if (e != cudaSuccess) return e;
         return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, bitdecode_kernel<BI, WW, D, D, NT, KCH>, BD_THREADS, SMEM);
+            &n, bitdecode_kernel<BI, WW, DK, DV, NT, KCH, SH>, BD_THREADS, SMEM);
       });
   return err == cudaSuccess ? n : -(int)err;
 }

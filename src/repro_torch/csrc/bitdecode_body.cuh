@@ -43,6 +43,18 @@
 // runtime argument of the same instances: every packed word is ANDed with
 // a mask that keeps each code's top bits (draft_keep), residual tokens are
 // read as they are.
+//
+// The grid's third axis cuts a row's query rows into tiles of G = 8 * NT
+// (g > 16: the MLA decode's g = n_heads = 128) and, in the shared_kv mode,
+// its V channels into chunks of DV.  shared_kv (the MLA latent cache, the
+// JAX kernels' `shared_kv`) has no V words: V is the first d_v channels of
+// K, so a chunk's V^T fragments are dequantized from the staged K words'
+// channels vb .. vb + DV - 1 with K's per-channel scale and zero, the same
+// bf16(fmaf(code, scale, zero)) QK^T takes (and the same draft mask), and
+// the residual's V from the staged K residual.  Each chunk's CTA recomputes
+// the QK^T and the softmax over all DK channels (its K words come from L2
+// after the first chunk's read): f32 accumulators for all 512 channels of
+// 16 rows would not fit a warp's registers.
 #pragma once
 
 #include <type_traits>
@@ -53,6 +65,7 @@
 #define BD_THREADS (32 * BD_WARPS)
 #define BD_STAGES 2
 #define BD_RES_TOKENS 8
+#define BD_LATENT_DV 128  // V channels a CTA of the shared_kv mode takes
 #define MASK_VALUE (-1e37f)
 
 // ------------------------------------------------------------ PTX
@@ -122,20 +135,22 @@ struct BdArgs {
   const int32_t* kw;      // dense [B, H, nb, npr, DK], paged [P, H, npr, DK]
   const bf16* ks;         // [.., kp]
   const bf16* kz;
-  const int32_t* vw;      // [.., npr, DV]
+  const int32_t* vw;      // [.., npr, dv]; null when shared_kv
   const bf16* vs;         // [.., block_n]
   const bf16* vz;
   const bf16* k_res;      // [B, H, res_n, DK]
-  const bf16* v_res;      // [B, H, res_n, DV]
+  const bf16* v_res;      // [B, H, res_n, dv]; null when shared_kv
   const int32_t* pack_blocks;  // [B]
   const int32_t* res_len;      // [B]
-  float* out;             // [S, B, H, g, DV] (S = num_splits; the result when S == 1)
+  float* out;             // [S, B, H, g, dv] (S = num_splits; the result when S == 1)
   float* lse;             // [S, B, H, g]
   int B, H, g, nb, block_n, res_n, num_splits;
   float sm_scale;
   // the speculative draft read: each code read as its top BITS - draft_shift
   // bits (0: the normal read; see draft_keep)
   int draft_shift;
+  int dv;    // the output's channels: DV, or a multiple of it when shared_kv
+  int n_vc;  // V chunks of DV a row (dv / DV): the grid's third axis is tile * n_vc + chunk
 };
 
 // The mask a packed word is ANDed with before its codes are taken: every
@@ -155,7 +170,7 @@ __device__ __forceinline__ uint32_t draft_keep(int draft_shift) {
   return keep;
 }
 
-template <int BITS, int W, int DK, int DV, int NT>
+template <int BITS, int W, int DK, int DV, int NT, bool SH = false>
 struct BdShape {
   static constexpr int R = 32 / BITS;     // codes a word
   static constexpr int SUB = 8 / W;       // fragment rows sharing a word row
@@ -171,15 +186,16 @@ struct BdShape {
   static constexpr int VRLD = DV + 8;     // residual V, bf16
   static constexpr int QLD = DK + 16;     // Q, bf16
   static constexpr int KP = DK > 128 ? DK : 128;  // K params a block (per channel or token)
-  // one stage (bytes): a packed unit or a residual unit
+  // one stage (bytes): a packed unit or a residual unit (no V words, V
+  // params or V residual when shared_kv)
   static constexpr int OFF_VW = 4 * W * KLD;
-  static constexpr int OFF_KS = OFF_VW + 4 * W * VLD;
+  static constexpr int OFF_KS = OFF_VW + (SH ? 0 : 4 * W * VLD);
   static constexpr int OFF_KZ = OFF_KS + 2 * KP;
   static constexpr int OFF_VS = OFF_KZ + 2 * KP;
-  static constexpr int OFF_VZ = OFF_VS + 2 * 128;
-  static constexpr int PACKED = OFF_VZ + 2 * 128;
+  static constexpr int OFF_VZ = OFF_VS + (SH ? 0 : 2 * 128);
+  static constexpr int PACKED = OFF_VZ + (SH ? 0 : 2 * 128);
   static constexpr int OFF_VR = 2 * BD_RES_TOKENS * KRLD;
-  static constexpr int RESID = OFF_VR + 2 * BD_RES_TOKENS * VRLD;
+  static constexpr int RESID = OFF_VR + (SH ? 0 : 2 * BD_RES_TOKENS * VRLD);
   static constexpr int STAGE = ((PACKED > RESID ? PACKED : RESID) + 127) / 128 * 128;
   static constexpr int RING = BD_WARPS * BD_STAGES * STAGE;
   // a warp's P^T fragments between the softmax and PV, [tile][nt][2][lane]
@@ -254,14 +270,14 @@ __device__ __forceinline__ void q_fragments(const bf16* q_s, int kc, int gam, in
 
 // A packed unit: W word rows (unit `qg` of its block) staged at `st`; K's
 // params per channel (KCH) or per token; every word read through `keep`
-// (draft_keep).
-template <int BITS, int W, int DK, int DV, int NT, bool KCH>
+// (draft_keep).  SH: V is K's channels vb .. vb + DV - 1.
+template <int BITS, int W, int DK, int DV, int NT, bool KCH, bool SH>
 __device__ __forceinline__ void packed_unit(const unsigned char* st, const bf16* q_s,
                                             uint32_t* pbuf, int qg, int npr, uint32_t keep,
-                                            float sm_scale,
+                                            float sm_scale, int vb,
                                             float (&m_run)[NT][2], float (&l_run)[NT][2],
                                             float (&o)[DV / 16][NT][4]) {
-  using S = BdShape<BITS, W, DK, DV, NT>;
+  using S = BdShape<BITS, W, DK, DV, NT, SH>;
   const int lane = threadIdx.x & 31, gam = lane >> 2, tig = lane & 3;
   const int32_t* kw_s = reinterpret_cast<const int32_t*>(st);
   const int32_t* vw_s = reinterpret_cast<const int32_t*>(st + S::OFF_VW);
@@ -350,8 +366,10 @@ __device__ __forceinline__ void packed_unit(const unsigned char* st, const bf16*
   const int subv = (2 * tig) / W;
   const int r0 = (2 * tig) % W, r1 = (2 * tig + 1) % W;
   const int tok_v0 = qg * W + r0 + npr * 2 * subv, tok_v1 = qg * W + r1 + npr * 2 * subv;
-  const int32_t* v0 = vw_s + r0 * S::VLD + 4 * gam;
-  const int32_t* v1 = vw_s + r1 * S::VLD + 4 * gam;
+  constexpr int VLD = SH ? S::KLD : S::VLD;
+  const int32_t* vsrc = SH ? kw_s + vb : vw_s;
+  const int32_t* v0 = vsrc + r0 * VLD + 4 * gam;
+  const int32_t* v1 = vsrc + r1 * VLD + 4 * gam;
   const int pre = 2 * BITS * subv;
 #pragma unroll 1
   for (int j = 0; j < S::MT; ++j) {
@@ -360,12 +378,14 @@ __device__ __forceinline__ void packed_unit(const unsigned char* st, const bf16*
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int r = 0; r < 2; ++r) pb[nt][r] = pbuf[((j * NT + nt) * 2 + r) * 32 + lane];
-    float vsc[2][2], vzc[2][2];  // [e][h]
+    float vsc[2][2], vzc[2][2];  // [e][h]: V's per-token params (not SH)
+    if constexpr (!SH) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int kk = npr * (2 * S::SUB * j + h);
-      vsc[0][h] = bf_at(vs_s + tok_v0 + kk), vzc[0][h] = bf_at(vz_s + tok_v0 + kk);
-      vsc[1][h] = bf_at(vs_s + tok_v1 + kk), vzc[1][h] = bf_at(vz_s + tok_v1 + kk);
+      for (int h = 0; h < 2; ++h) {
+        const int kk = npr * (2 * S::SUB * j + h);
+        vsc[0][h] = bf_at(vs_s + tok_v0 + kk), vzc[0][h] = bf_at(vz_s + tok_v0 + kk);
+        vsc[1][h] = bf_at(vs_s + tok_v1 + kk), vzc[1][h] = bf_at(vz_s + tok_v1 + kk);
+      }
     }
     const int sh0 = pre + BITS * (2 * S::SUB * j), sh1 = sh0 + BITS;
 #pragma unroll
@@ -376,18 +396,27 @@ __device__ __forceinline__ void packed_unit(const unsigned char* st, const bf16*
                               static_cast<uint32_t>(a4.z) & keep, static_cast<uint32_t>(a4.w) & keep};
       const uint32_t w1[4] = {static_cast<uint32_t>(b4.x) & keep, static_cast<uint32_t>(b4.y) & keep,
                               static_cast<uint32_t>(b4.z) & keep, static_cast<uint32_t>(b4.w) & keep};
+      float csc[4], czc[4];  // SH: K's params of channels vb + 32 mp + 4 gam .. + 3
+      if constexpr (SH) {
+        const uint2 s2 = *reinterpret_cast<const uint2*>(ks_s + vb + 32 * mp + 4 * gam);
+        const uint2 z2 = *reinterpret_cast<const uint2*>(kz_s + vb + 32 * mp + 4 * gam);
+        csc[0] = bf_lo(s2.x), csc[1] = bf_hi(s2.x), csc[2] = bf_lo(s2.y), csc[3] = bf_hi(s2.y);
+        czc[0] = bf_lo(z2.x), czc[1] = bf_hi(z2.x), czc[2] = bf_lo(z2.y), czc[3] = bf_hi(z2.y);
+      }
+      // the code of word `w` at `shift`, dequantized: token side e, code h,
+      // channel c of the thread's four
+      auto dv_at = [&](uint32_t w, int shift, int e, int h, int c) {
+        if constexpr (SH) return deq<BITS>(w, shift, csc[c], czc[c]);
+        else return deq<BITS>(w, shift, vsc[e][h], vzc[e][h]);
+      };
 #pragma unroll
       for (int x = 0; x < 2; ++x) {
         const int cl = 2 * x, ch = 2 * x + 1;
         const uint32_t a[4] = {
-            pack_bf16(deq<BITS>(w0[cl], sh0, vsc[0][0], vzc[0][0]),
-                      deq<BITS>(w1[cl], sh0, vsc[1][0], vzc[1][0])),
-            pack_bf16(deq<BITS>(w0[ch], sh0, vsc[0][0], vzc[0][0]),
-                      deq<BITS>(w1[ch], sh0, vsc[1][0], vzc[1][0])),
-            pack_bf16(deq<BITS>(w0[cl], sh1, vsc[0][1], vzc[0][1]),
-                      deq<BITS>(w1[cl], sh1, vsc[1][1], vzc[1][1])),
-            pack_bf16(deq<BITS>(w0[ch], sh1, vsc[0][1], vzc[0][1]),
-                      deq<BITS>(w1[ch], sh1, vsc[1][1], vzc[1][1]))};
+            pack_bf16(dv_at(w0[cl], sh0, 0, 0, cl), dv_at(w1[cl], sh0, 1, 0, cl)),
+            pack_bf16(dv_at(w0[ch], sh0, 0, 0, ch), dv_at(w1[ch], sh0, 1, 0, ch)),
+            pack_bf16(dv_at(w0[cl], sh1, 0, 1, cl), dv_at(w1[cl], sh1, 1, 1, cl)),
+            pack_bf16(dv_at(w0[ch], sh1, 0, 1, ch), dv_at(w1[ch], sh1, 1, 1, ch))};
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) mma_bf16(o[2 * mp + x][nt], a, pb[nt][0], pb[nt][1]);
       }
@@ -398,13 +427,14 @@ __device__ __forceinline__ void packed_unit(const unsigned char* st, const bf16*
 
 // A residual unit: bf16 tokens t0 .. t0 + 7 staged at `st`, of which the
 // first `valid` are unmasked.  The tile's rows gamma + 8 repeat rows gamma
-// with their scores masked, so their p is 0 against finite values.
-template <int BITS, int W, int DK, int DV, int NT>
+// with their scores masked, so their p is 0 against finite values.  SH: V
+// is the K residual's channels vb .. vb + DV - 1.
+template <int BITS, int W, int DK, int DV, int NT, bool SH>
 __device__ __forceinline__ void residual_unit(const unsigned char* st, const bf16* q_s,
-                                              int valid, float sm_scale, float (&m_run)[NT][2],
-                                              float (&l_run)[NT][2],
+                                              int valid, float sm_scale, int vb,
+                                              float (&m_run)[NT][2], float (&l_run)[NT][2],
                                               float (&o)[DV / 16][NT][4]) {
-  using S = BdShape<BITS, W, DK, DV, NT>;
+  using S = BdShape<BITS, W, DK, DV, NT, SH>;
   const int lane = threadIdx.x & 31, gam = lane >> 2, tig = lane & 3;
   const bf16* kr_s = reinterpret_cast<const bf16*>(st);
   const bf16* vr_s = reinterpret_cast<const bf16*>(st + S::OFF_VR);
@@ -431,11 +461,12 @@ __device__ __forceinline__ void residual_unit(const unsigned char* st, const bf1
 
   uint32_t pb[NT][2];
   p_fragments<NT>(s[0], pb);
-  const bf16* vt = vr_s + 4 * gam;
+  constexpr int VRLD = SH ? S::KRLD : S::VRLD;
+  const bf16* vt = (SH ? kr_s + vb : vr_s) + 4 * gam;
 #pragma unroll
   for (int mp = 0; mp < DV / 32; ++mp) {
-    const uint2 u0 = *reinterpret_cast<const uint2*>(vt + (2 * tig) * S::VRLD + 32 * mp);
-    const uint2 u1 = *reinterpret_cast<const uint2*>(vt + (2 * tig + 1) * S::VRLD + 32 * mp);
+    const uint2 u0 = *reinterpret_cast<const uint2*>(vt + (2 * tig) * VRLD + 32 * mp);
+    const uint2 u1 = *reinterpret_cast<const uint2*>(vt + (2 * tig + 1) * VRLD + 32 * mp);
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       const uint32_t w0 = x ? u0.y : u0.x, w1 = x ? u1.y : u1.x;
@@ -449,15 +480,19 @@ __device__ __forceinline__ void residual_unit(const unsigned char* st, const bf1
 
 // ------------------------------------------------------------ the CTA
 
-// blockIdx.x = b * H + h, blockIdx.y = split.  `a.nb` is the width of the
-// block axis (the dense cache's blocks, or the page table's columns).
-template <int BITS, int W, int DK, int DV, int NT, bool KCH, class CellOf>
+// blockIdx.x = b * H + h, blockIdx.y = split, blockIdx.z = query-row tile
+// * n_vc + V chunk.  `a.nb` is the width of the block axis (the dense
+// cache's blocks, or the page table's columns).
+template <int BITS, int W, int DK, int DV, int NT, bool KCH, bool SH, class CellOf>
 __device__ __forceinline__ void bitdecode_body(const BdArgs& a, CellOf cell_of) {
-  using S = BdShape<BITS, W, DK, DV, NT>;
+  using S = BdShape<BITS, W, DK, DV, NT, SH>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gam = lane >> 2, tig = lane & 3;
   const int bh = blockIdx.x, split = blockIdx.y, b = bh / a.H;
+  // this CTA's query rows [row0, row0 + gl) and V channels [vb, vb + DV)
+  const int vc = blockIdx.z % a.n_vc, row0 = (blockIdx.z / a.n_vc) * S::G;
+  const int gl = min(S::G, a.g - row0), vb = vc * DV;
   const int npr = a.block_n * BITS / 32, upb = npr / W;
   const int kp = KCH ? DK : a.block_n;
   const uint32_t keep = draft_keep<BITS>(a.draft_shift);
@@ -469,7 +504,7 @@ __device__ __forceinline__ void bitdecode_body(const BdArgs& a, CellOf cell_of) 
   uint32_t* pbuf = reinterpret_cast<uint32_t*>(smem + S::Q_BYTES + warp * S::PBUF);
   unsigned char* ring = smem + S::Q_BYTES + BD_WARPS * S::PBUF;
   unsigned char* mine = ring + warp * BD_STAGES * S::STAGE;
-  const size_t base = ((size_t)split * a.B * a.H + bh) * a.g;
+  const size_t base = ((size_t)split * a.B * a.H + bh) * a.g + row0;  // the tile's first row
 
   // Q's rows (>= g zero) in registers while the lengths load
   constexpr int QCH = (S::G * DK / 8 + BD_THREADS - 1) / BD_THREADS;
@@ -478,8 +513,8 @@ __device__ __forceinline__ void bitdecode_body(const BdArgs& a, CellOf cell_of) 
   for (int k = 0; k < QCH; ++k) {
     const int i = tid + k * BD_THREADS, r = i / (DK / 8), c = i % (DK / 8);
     qv[k] = make_uint4(0u, 0u, 0u, 0u);
-    if (i < S::G * DK / 8 && r < a.g)
-      qv[k] = *reinterpret_cast<const uint4*>(a.q + ((size_t)bh * a.g + r) * DK + 8 * c);
+    if (i < S::G * DK / 8 && r < gl)
+      qv[k] = *reinterpret_cast<const uint4*>(a.q + ((size_t)bh * a.g + row0 + r) * DK + 8 * c);
   }
 
   // this warp's units, from the row's own lengths; a CTA with none writes
@@ -491,8 +526,9 @@ __device__ __forceinline__ void bitdecode_body(const BdArgs& a, CellOf cell_of) 
   const int n_w = a.num_splits * BD_WARPS, wg = split * BD_WARPS + warp;
   const int lo = wg * n_u / n_w, hi = (wg + 1) * n_u / n_w;
   if (split * BD_WARPS * n_u / n_w == (split + 1) * BD_WARPS * n_u / n_w) {
-    for (int i = tid; i < a.g * DV; i += BD_THREADS) a.out[base * DV + i] = 0.f;
-    if (tid < a.g) a.lse[base + tid] = MASK_VALUE + logf(1e-30f);
+    for (int i = tid; i < gl * DV; i += BD_THREADS)
+      a.out[(base + i / DV) * a.dv + vb + i % DV] = 0.f;
+    if (vc == 0 && tid < gl) a.lse[base + tid] = MASK_VALUE + logf(1e-30f);
     return;
   }
 
@@ -504,25 +540,27 @@ __device__ __forceinline__ void bitdecode_body(const BdArgs& a, CellOf cell_of) 
       const int blk = u / upb, qg = u - blk * upb;
       const long long cell = cell_of(blk);
       const int32_t* kw = a.kw + (cell * npr + qg * W) * DK;
-      const int32_t* vw = a.vw + (cell * npr + qg * W) * DV;
 #pragma unroll
       for (int k = 0; k < (W * DK / 4 + 31) / 32; ++k) {
         const int c = lane + 32 * k, r = c / (DK / 4), cc = c % (DK / 4);
         if (c < W * DK / 4) cp_async16(st + 4 * (r * S::KLD + 4 * cc), kw + r * DK + 4 * cc);
       }
+      for (int c = lane; c < kp / 8; c += 32) {
+        cp_async16(st + S::OFF_KS + 16 * c, a.ks + cell * kp + 8 * c);
+        cp_async16(st + S::OFF_KZ + 16 * c, a.kz + cell * kp + 8 * c);
+      }
+      if constexpr (!SH) {
+        const int32_t* vw = a.vw + (cell * npr + qg * W) * DV;
 #pragma unroll
-      for (int k = 0; k < (W * DV / 4 + 31) / 32; ++k) {
-        const int c = lane + 32 * k, r = c / (DV / 4), cc = c % (DV / 4);
-        if (c < W * DV / 4)
-          cp_async16(st + S::OFF_VW + 4 * (r * S::VLD + 4 * cc), vw + r * DV + 4 * cc);
-      }
-      if (lane < kp / 8) {
-        cp_async16(st + S::OFF_KS + 16 * lane, a.ks + cell * kp + 8 * lane);
-        cp_async16(st + S::OFF_KZ + 16 * lane, a.kz + cell * kp + 8 * lane);
-      }
-      if (lane < a.block_n / 8) {
-        cp_async16(st + S::OFF_VS + 16 * lane, a.vs + cell * a.block_n + 8 * lane);
-        cp_async16(st + S::OFF_VZ + 16 * lane, a.vz + cell * a.block_n + 8 * lane);
+        for (int k = 0; k < (W * DV / 4 + 31) / 32; ++k) {
+          const int c = lane + 32 * k, r = c / (DV / 4), cc = c % (DV / 4);
+          if (c < W * DV / 4)
+            cp_async16(st + S::OFF_VW + 4 * (r * S::VLD + 4 * cc), vw + r * DV + 4 * cc);
+        }
+        if (lane < a.block_n / 8) {
+          cp_async16(st + S::OFF_VS + 16 * lane, a.vs + cell * a.block_n + 8 * lane);
+          cp_async16(st + S::OFF_VZ + 16 * lane, a.vz + cell * a.block_n + 8 * lane);
+        }
       }
     } else {
       const size_t t0 = (size_t)bh * a.res_n + (size_t)(u - n_pk) * BD_RES_TOKENS;
@@ -532,11 +570,14 @@ __device__ __forceinline__ void bitdecode_body(const BdArgs& a, CellOf cell_of) 
         if (c < BD_RES_TOKENS * DK / 8)
           cp_async16(st + 2 * (r * S::KRLD + 8 * cc), a.k_res + (t0 + r) * DK + 8 * cc);
       }
+      if constexpr (!SH) {
 #pragma unroll
-      for (int k = 0; k < (BD_RES_TOKENS * DV / 8 + 31) / 32; ++k) {
-        const int c = lane + 32 * k, r = c / (DV / 8), cc = c % (DV / 8);
-        if (c < BD_RES_TOKENS * DV / 8)
-          cp_async16(st + S::OFF_VR + 2 * (r * S::VRLD + 8 * cc), a.v_res + (t0 + r) * DV + 8 * cc);
+        for (int k = 0; k < (BD_RES_TOKENS * DV / 8 + 31) / 32; ++k) {
+          const int c = lane + 32 * k, r = c / (DV / 8), cc = c % (DV / 8);
+          if (c < BD_RES_TOKENS * DV / 8)
+            cp_async16(st + S::OFF_VR + 2 * (r * S::VRLD + 8 * cc),
+                       a.v_res + (t0 + r) * DV + 8 * cc);
+        }
       }
     }
   };
@@ -571,11 +612,12 @@ __device__ __forceinline__ void bitdecode_body(const BdArgs& a, CellOf cell_of) 
     __syncwarp();
     const unsigned char* st = mine + ((u - lo) % BD_STAGES) * S::STAGE;
     if (u < n_pk) {
-      packed_unit<BITS, W, DK, DV, NT, KCH>(st, q_s, pbuf, u % upb, npr, keep, a.sm_scale,
-                                            m_run, l_run, o);
+      packed_unit<BITS, W, DK, DV, NT, KCH, SH>(st, q_s, pbuf, u % upb, npr, keep, a.sm_scale,
+                                                vb, m_run, l_run, o);
     } else {
       const int t0 = (u - n_pk) * BD_RES_TOKENS;
-      residual_unit<BITS, W, DK, DV, NT>(st, q_s, rl - t0, a.sm_scale, m_run, l_run, o);
+      residual_unit<BITS, W, DK, DV, NT, SH>(st, q_s, rl - t0, a.sm_scale, vb, m_run, l_run,
+                                             o);
     }
     __syncwarp();  // the stage is free for unit u + BD_STAGES
   }
@@ -607,7 +649,7 @@ __device__ __forceinline__ void bitdecode_body(const BdArgs& a, CellOf cell_of) 
     }
   }
   __syncthreads();
-  if (tid < a.g) {
+  if (tid < gl) {
     float mx = m_s[tid];
     for (int w = 1; w < BD_WARPS; ++w) mx = fmaxf(mx, m_s[w * S::G + tid]);
     float l = 0.f;
@@ -617,15 +659,15 @@ __device__ __forceinline__ void bitdecode_body(const BdArgs& a, CellOf cell_of) 
       l += l_s[w * S::G + tid] * wt;
     }
     lt_s[tid] = fmaxf(l, 1e-30f);
-    a.lse[base + tid] = mx + logf(fmaxf(l, 1e-30f));
+    if (vc == 0) a.lse[base + tid] = mx + logf(fmaxf(l, 1e-30f));  // the same in every chunk
   }
   __syncthreads();
-  for (int i = tid; i < a.g * DV; i += BD_THREADS) {
+  for (int i = tid; i < gl * DV; i += BD_THREADS) {
     const int gi = i / DV, c = i - gi * DV;
     float acc = 0.f;
 #pragma unroll
     for (int w = 0; w < BD_WARPS; ++w) acc += acc_s[(w * S::G + gi) * DV + c] * w_s[w * S::G + gi];
-    a.out[base * DV + i] = acc / lt_s[gi];
+    a.out[(base + gi) * a.dv + vb + c] = acc / lt_s[gi];
   }
 }
 
@@ -633,8 +675,8 @@ __device__ __forceinline__ void bitdecode_body(const BdArgs& a, CellOf cell_of) 
 
 // Calls f(bits, W, DK, NT) as integral constants for every (bits, W, d,
 // NT) the kernels have: bits 2, 4, 8 with block_n 32, 64, 128; d 32, 64,
-// 128, 256 (DV = DK); NT 1 (g <= 8) or 2 (g <= 16); W as bd_unit_rows
-// picks it.
+// 128, 256; NT 1 (g <= 8) or 2 (g > 8, in tiles of 16 rows); W as
+// bd_unit_rows picks it.
 template <class F>
 static cudaError_t bd_dispatch_shape(int bits, int w, int d, int nt, F&& f) {
 #define BD_CASE(BI, WW, DD, NN)                                                              \
@@ -653,18 +695,60 @@ static cudaError_t bd_dispatch_shape(int bits, int w, int d, int nt, F&& f) {
   return cudaErrorInvalidValue;
 }
 
-// The same with K's params per channel (k_channel) or per token as a fifth
-// constant, KCH.
+// The shared_kv instances, what the MLA configs use: the latent widths DK
+// 160 (the smoke config) and 576, bits 2, 4, 8 at W 4 (block_n 64 and 128),
+// NT 1 and 2; K's params per channel.
 template <class F>
-static cudaError_t bd_dispatch(int bits, int w, int d, int nt, int k_channel, F&& f) {
+static cudaError_t bd_dispatch_latent(int bits, int w, int d, int nt, F&& f) {
+#define BD_CASE(BI, DD, NN)                                                                \
+  if (bits == BI && w == 4 && d == DD && nt == NN)                                         \
+    return f(std::integral_constant<int, BI>{}, std::integral_constant<int, 4>{},         \
+             std::integral_constant<int, DD>{}, std::integral_constant<int, NN>{});
+#define BD_CASES_D(DD, NN) BD_CASE(2, DD, NN) BD_CASE(4, DD, NN) BD_CASE(8, DD, NN)
+  BD_CASES_D(160, 1) BD_CASES_D(160, 2) BD_CASES_D(576, 1) BD_CASES_D(576, 2)
+#undef BD_CASES_D
+#undef BD_CASE
+  return cudaErrorInvalidValue;
+}
+
+// Calls f(bits, W, DK, DV, NT, KCH, SH) as constants: the split K/V
+// instances (DV = DK, K's params per channel or per token, KCH) or, with
+// `shared`, the shared_kv ones (DV = BD_LATENT_DV, KCH).
+template <class F>
+static cudaError_t bd_dispatch(int bits, int w, int d, int nt, int k_channel, int shared, F&& f) {
+  using DVL = std::integral_constant<int, BD_LATENT_DV>;
+  if (shared) {
+    if (!k_channel) return cudaErrorInvalidValue;
+    return bd_dispatch_latent(bits, w, d, nt, [&](auto bi, auto ww, auto dd, auto nn) {
+      return f(bi, ww, dd, DVL{}, nn, std::true_type{}, std::true_type{});
+    });
+  }
   if (k_channel)
-    return bd_dispatch_shape(bits, w, d, nt,
-                             [&](auto bi, auto ww, auto dd, auto nn) {
-                               return f(bi, ww, dd, nn, std::true_type{});
-                             });
+    return bd_dispatch_shape(bits, w, d, nt, [&](auto bi, auto ww, auto dd, auto nn) {
+      return f(bi, ww, dd, dd, nn, std::true_type{}, std::false_type{});
+    });
   return bd_dispatch_shape(bits, w, d, nt, [&](auto bi, auto ww, auto dd, auto nn) {
-    return f(bi, ww, dd, nn, std::false_type{});
+    return f(bi, ww, dd, dd, nn, std::false_type{}, std::false_type{});
   });
+}
+
+// The constants of the instance in a bd_dispatch callback whose parameters
+// are (bi, w, dk, dv, nt, kch, sh), and its shared memory.
+#define BD_INSTANCE_CONSTANTS                                                              \
+  constexpr int BI = decltype(bi)::value, WW = decltype(w)::value;                         \
+  constexpr int DK = decltype(dk)::value, DV = decltype(dv)::value;                        \
+  constexpr int NT = decltype(nt)::value;                                                  \
+  constexpr bool KCH = decltype(kch)::value, SH = decltype(sh)::value;                     \
+  constexpr int SMEM = BdShape<BI, WW, DK, DV, NT, SH>::SMEM;
+
+// The launch shape's checks and its grid's third axis: query-row tiles of
+// 8 * NT times V chunks of DV (shared_kv: d_v / BD_LATENT_DV, d_v <= d_k).
+// Returns 0 for shapes the kernels do not take.
+static int bd_grid_z(int g, int dk, int dv, int shared, int* n_vc) {
+  if (shared ? (dv % BD_LATENT_DV != 0 || dv > dk) : dv != dk) return 0;
+  *n_vc = shared ? dv / BD_LATENT_DV : 1;
+  const int rows = g > 8 ? 16 : 8;
+  return (g + rows - 1) / rows * *n_vc;
 }
 
 // Raise the instance's dynamic shared memory limit once; `done` is the

@@ -50,12 +50,19 @@
 //  * The paged destinations of one launch are pairwise distinct (callers
 //    point rows that do not flush at their own scratch page), so no two CTAs
 //    write one page; the page is read while the tile comes in.
+//  * shared_kv (the MLA latent cache, the JAX kernels' `shared_kv`): the
+//    grid's tensor axis holds K alone, and a row's counter counts
+//    H * groups arrivals.  Per-channel K takes any head dim that is a
+//    multiple of 8 up to 576 (the latents 160 and 576): the channel
+//    statistics reduce one shared-memory slot a chunk row of the staging
+//    pass, whatever the lanes of a chunk; the 128 x 576 bf16 tile (147 KB)
+//    fits the opt-in shared memory.  Per-token statistics keep the warp
+//    rule (d / 8 a power of two up to 32).
 #include "common.cuh"
 
 namespace {
 
 constexpr int FL_THREADS = 256;
-constexpr int FL_WARPS = FL_THREADS / 32;
 constexpr int FL_GROUPS = 4;  // word-row groups a (b, h, tensor), at most (flush_launch)
 constexpr int FL_BATCH = 8;   // 16-byte loads a thread has in flight
 
@@ -74,7 +81,12 @@ struct FlushArgs {
   int32_t* res_len;     // append
   int32_t* arrive;      // append: [B] counter, zero between launches
   int H, n_cells, block_n, d[2], k_channel, groups, nb_max, table_ld, paged;
+  int tensors;  // 2: K and V; 1: K alone (shared_kv)
 };
+
+// Chunk rows whose channel partials the statistics combine in shared memory
+// (the `part` slots): one a chunk row of the staging pass.
+__host__ __device__ inline int part_slots(int d) { return FL_THREADS / (d >> 3); }
 
 // arrive on a row's counter: release-ordered after this thread's reads of
 // the lengths; the count before it is only waited for where it is used
@@ -91,17 +103,19 @@ __global__ void __launch_bounds__(FL_THREADS) residual_flush_kernel(const FlushA
   __shared__ int s_full, s_cell, s_at, s_step;
   constexpr int CPW = 32 / BITS;  // codes a word
   constexpr int QMAX = (1 << BITS) - 1;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   int idx = blockIdx.x;
   const int grp = idx % a.groups;
   idx /= a.groups;
-  const int t = idx & 1;  // 0: K, 1: V
-  const int bh = idx >> 1, b = bh / a.H, h = bh - b * a.H;
+  const int t = idx % a.tensors;  // 0: K, 1: V
+  const int bh = idx / a.tensors, b = bh / a.H, h = bh - b * a.H;
   const int block_n = a.block_n, d = t ? a.d[1] : a.d[0];
   const int npr = block_n / CPW;
   const bool channel = t == 0 && a.k_channel;
-  // a thread's 8-channel chunk of a token row (the same in every pass)
-  const int C = d >> 3, ch = tid % C;
+  // a thread's 8-channel chunk of a token row (the same in every pass); the
+  // threads past the last whole chunk row stage nothing
+  const int C = d >> 3, ch = tid % C, per_pass = FL_THREADS / C;
+  const bool stager = tid < per_pass * C;
 
   // append: the new token's chunk, loaded before the lengths are known
   uint4 nv = make_uint4(0u, 0u, 0u, 0u);
@@ -119,7 +133,7 @@ __global__ void __launch_bounds__(FL_THREADS) residual_flush_kernel(const FlushA
 
   // thread 0 reads the lengths (append) or full / dest (flush); in append
   // mode it arrives on the row's counter at once, and the last of the row's
-  // H * 2 * groups CTAs to arrive writes the new lengths when it is done
+  // H * tensors * groups CTAs to arrive writes the new lengths when it is done
   int old = 0, pb0 = 0, rl1 = 0;
   if (tid == 0) {
     int full, cell = 0, at = 0, step = 0;
@@ -146,7 +160,7 @@ __global__ void __launch_bounds__(FL_THREADS) residual_flush_kernel(const FlushA
   const bool full = s_full != 0;
   const int at = s_at, step = s_step;
   auto finish = [&]() {
-    if (APPEND && tid == 0 && old == a.H * 2 * a.groups - 1) {
+    if (APPEND && tid == 0 && old == a.H * a.tensors * a.groups - 1) {
       __threadfence();  // the other CTAs' reads of the lengths came first
       a.pack_blocks[b] = pb0 + full;
       a.res_len[b] = full ? 0 : rl1;
@@ -171,14 +185,14 @@ __global__ void __launch_bounds__(FL_THREADS) residual_flush_kernel(const FlushA
   }
   const int rows = channel ? block_n : CPW * nr;
 
+  const int slots = part_slots(d);
   bf16* tile = reinterpret_cast<bf16*>(fl_smem);  // [rows, d]
-  float* part = reinterpret_cast<float*>(tile + (size_t)block_n * d);  // [2, warps, d]
-  float* s_sm = part + 2 * FL_WARPS * d;  // [d] or [rows]
+  float* part = reinterpret_cast<float*>(tile + (size_t)block_n * d);  // [2, slots, d]
+  float* s_sm = part + 2 * slots * d;  // [d] or [rows]
   float* z_sm = s_sm + max(d, block_n);
 
   // staging: chunk `ch` of local rows j, j + per_pass, ...; a thread issues
   // up to FL_BATCH 16-byte loads before it uses one
-  const int per_pass = FL_THREADS / C;
   auto token_of = [&](int j) { return channel ? j : (j / nr) * npr + i0 + j % nr; };
   float mn[8], mx[8];
 #pragma unroll
@@ -191,7 +205,7 @@ __global__ void __launch_bounds__(FL_THREADS) residual_flush_kernel(const FlushA
 #pragma unroll
     for (int p = 0; p < FL_BATCH; ++p) {
       const int j = j0 + p * per_pass + tid / C, tok = token_of(j);
-      if (j >= rows) continue;
+      if (j >= rows || !stager) continue;
       u[p] = APPEND && step && tok == at  // the new token, not its residual row
                  ? nv
                  : *reinterpret_cast<const uint4*>(res + (long long)tok * d + ch * 8);
@@ -200,7 +214,7 @@ __global__ void __launch_bounds__(FL_THREADS) residual_flush_kernel(const FlushA
     for (int p = 0; p < FL_BATCH; ++p) {
       const int j = j0 + p * per_pass + tid / C;
       float tmn = INFINITY, tmx = -INFINITY;
-      if (j < rows) {
+      if (j < rows && stager) {
         float f[8];
         *reinterpret_cast<uint4*>(tile + (size_t)j * d + ch * 8) = u[p];
         bf16x8_to_float(u[p], f);
@@ -222,28 +236,21 @@ __global__ void __launch_bounds__(FL_THREADS) residual_flush_kernel(const FlushA
     }
   }
   if (APPEND && a.paged && tid == 0) s_cell = min(max(page, 0), a.n_cells - 1) * a.H + h;
-  if (channel) {  // lanes of one chunk within the warp, then across warps
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      for (int o = C; o < 32; o <<= 1) {
-        mn[e] = fminf(mn[e], __shfl_xor_sync(0xffffffffu, mn[e], o));
-        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], o));
-      }
-    }
-    if (lane < C) {
+  if (channel) {  // each chunk row's partials into its slot, then across the slots
+    const int slot = tid / C;
+    if (stager) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        part[warp * d + lane * 8 + e] = mn[e];
-        part[(FL_WARPS + warp) * d + lane * 8 + e] = mx[e];
+        part[slot * d + ch * 8 + e] = mn[e];
+        part[(slots + slot) * d + ch * 8 + e] = mx[e];
       }
     }
     __syncthreads();
     for (int c = tid; c < d; c += FL_THREADS) {
-      float cmn = part[c], cmx = part[FL_WARPS * d + c];
-#pragma unroll
-      for (int w = 1; w < FL_WARPS; ++w) {
+      float cmn = part[c], cmx = part[slots * d + c];
+      for (int w = 1; w < slots; ++w) {
         cmn = fminf(cmn, part[w * d + c]);
-        cmx = fmaxf(cmx, part[(FL_WARPS + w) * d + c]);
+        cmx = fmaxf(cmx, part[(slots + w) * d + c]);
       }
       commit_params(cmn, cmx, QMAX, s_sm + c, z_sm + c);
     }
@@ -280,7 +287,8 @@ __global__ void __launch_bounds__(FL_THREADS) residual_flush_kernel(const FlushA
 }
 
 size_t flush_smem_bytes(int block_n, int dmax) {
-  return (size_t)block_n * dmax * sizeof(bf16) + 2 * FL_WARPS * dmax * sizeof(float) +
+  return (size_t)block_n * dmax * sizeof(bf16) +
+         2 * (size_t)part_slots(dmax) * dmax * sizeof(float) +
          2 * (size_t)(dmax > block_n ? dmax : block_n) * sizeof(float);
 }
 
@@ -325,7 +333,10 @@ cudaError_t flush_dispatch(int bits, const FlushArgs& a, int units, int npr, siz
   }
 }
 
-bool flush_head_dim_ok(int d) {  // 8-channel chunks, a power of two of them up to a warp
+// 8-channel chunks, a power of two of them up to a warp; per-channel K any
+// multiple of 8 up to 576
+bool flush_head_dim_ok(int d, bool channel) {
+  if (channel && d >= 8 && d <= 576 && d % 8 == 0) return true;
   return d >= 8 && d <= 256 && (d & (d - 1)) == 0;
 }
 
@@ -342,9 +353,10 @@ extern "C" int residual_flush_launch(
     const void* dest, const void* table, void* pack_blocks, void* res_len, void* arrive,
     long long k_sb, long long k_sh, long long v_sb, long long v_sh, int B, int H, int n_cells,
     int block_n, int dk, int dv, int bits, int k_channel, int nb_max, int table_ld, int append,
-    int paged, void* stream) {
+    int paged, int shared_kv, void* stream) {
   if (B * H == 0) return 0;
-  if (!flush_head_dim_ok(dk) || !flush_head_dim_ok(dv) || (block_n * bits) % 32 != 0)
+  if (!flush_head_dim_ok(dk, k_channel) || (!shared_kv && !flush_head_dim_ok(dv, false)) ||
+      (block_n * bits) % 32 != 0)
     return (int)cudaErrorInvalidValue;
   FlushArgs a = {};
   a.w[0] = (int32_t*)kw;
@@ -377,8 +389,10 @@ extern "C" int residual_flush_launch(
   a.nb_max = nb_max;
   a.table_ld = table_ld;
   a.paged = paged;
-  const int units = B * H * 2, npr = block_n * bits / 32;
-  const size_t smem = flush_smem_bytes(block_n, dk > dv ? dk : dv);
+  a.tensors = shared_kv ? 1 : 2;
+  const int units = B * H * a.tensors, npr = block_n * bits / 32;
+  const int dmax = shared_kv || dk > dv ? dk : dv;
+  const size_t smem = flush_smem_bytes(block_n, dmax);
   const cudaStream_t st = (cudaStream_t)stream;
   return (int)(append ? flush_dispatch<true>(bits, a, units, npr, smem, st)
                       : flush_dispatch<false>(bits, a, units, npr, smem, st));

@@ -41,11 +41,11 @@ _SIGNATURES = {
     # K alone or K and V: the tensors, then a host array of their strides
     "kv_quant": ("kv_quant_launch", [_P] * 9 + [_I] * 9 + [_P]),
     # both modes of both caches: one entry point, counted as dense or paged
-    "residual_flush": ("residual_flush_launch", [_P] * 17 + [_L] * 4 + [_I] * 12 + [_P]),
-    "bitdecode": ("bitdecode_launch", [_P] * 13 + [_I] * 12 + [_F, _P]),
+    "residual_flush": ("residual_flush_launch", [_P] * 17 + [_L] * 4 + [_I] * 13 + [_P]),
+    "bitdecode": ("bitdecode_launch", [_P] * 13 + [_I] * 13 + [_F, _P]),
     "bitdecode_merge": ("bitdecode_merge_launch", [_P] * 4 + [_I] * 3 + [_P]),
-    "paged_residual_flush": ("residual_flush_launch", [_P] * 17 + [_L] * 4 + [_I] * 12 + [_P]),
-    "paged_bitdecode": ("paged_bitdecode_launch", [_P] * 14 + [_I] * 13 + [_F, _P]),
+    "paged_residual_flush": ("residual_flush_launch", [_P] * 17 + [_L] * 4 + [_I] * 13 + [_P]),
+    "paged_bitdecode": ("paged_bitdecode_launch", [_P] * 14 + [_I] * 14 + [_F, _P]),
     "flash_prefill": ("flash_prefill_launch", [_P] * 5 + [_I] * 5 + [_L] * 12
                       + [_I, _F, _I, _P]),
 }
@@ -94,7 +94,7 @@ def build() -> ctypes.CDLL:
     lib.repro_error_string.restype = ctypes.c_char_p
     lib.flash_prefill_smem_bytes.argtypes = [ctypes.c_int]
     lib.flash_prefill_smem_bytes.restype = ctypes.c_int
-    lib.bitdecode_ctas_per_sm.argtypes = [ctypes.c_int] * 5
+    lib.bitdecode_ctas_per_sm.argtypes = [ctypes.c_int] * 6
     lib.bitdecode_ctas_per_sm.restype = ctypes.c_int
     _lib = lib
     build_seconds = time.perf_counter() - t0

@@ -11,6 +11,11 @@ sizes the splits from the cache's capacity and the CTAs the card holds at
 once (:func:`auto_num_splits`).
 The split count depends on the shapes alone, never on the lengths, so a
 row's result depends only on its own data and the launch shape.
+
+The grid's third axis holds a row's query-row tiles (16 rows where g > 8)
+and, in the ``shared_kv`` mode (the MLA latent cache: V is the first
+``d_v`` channels of K), its V chunks of :data:`LATENT_DV` channels
+(:func:`grid_tiles`).
 """
 from __future__ import annotations
 
@@ -29,6 +34,12 @@ WAVES = 2              # "auto": at most this many waves of resident CTAs
 HEAD_DIMS = (32, 64, 128, 256)
 BLOCK_NS = (32, 64, 128)
 MAX_G = 16
+# shared_kv instances: the MLA latent widths (smoke config, full width), V
+# chunks of LATENT_DV channels a CTA, K's params per channel, W = 4, g up to
+# LATENT_MAX_G (deepseek-v3's 128 query heads on one latent head)
+LATENT_DIMS = (160, 576)
+LATENT_DV = 128
+LATENT_MAX_G = 128
 
 
 def sm_count(device) -> int:
@@ -50,37 +61,55 @@ def work_units(nb: int, block_n: int, bits: int, res_n: int) -> int:
     return nb * (block_n * bits // 32 // unit_rows(block_n, bits)) + -(-res_n // RES_TOKENS)
 
 
-def auto_num_splits(b: int, h_kv: int, units: int, *, ctas: int) -> int:
+def grid_tiles(g: int, d_v: int, shared_kv: bool) -> int:
+    """CTAs a (row, split) takes: query-row tiles (8 rows for g <= 8, else
+    16) times V chunks (``d_v / LATENT_DV`` when shared_kv)."""
+    rows = 16 if g > 8 else 8
+    return -(-g // rows) * (d_v // LATENT_DV if shared_kv else 1)
+
+
+def auto_num_splits(b: int, h_kv: int, units: int, *, ctas: int, tiles: int = 1) -> int:
     """Splits that give each warp of a full row about UNITS_PER_WARP of its
-    ``units``, within WAVES waves of the card's ``ctas`` resident CTAs.  A
-    CTA whose share of a shorter row is empty writes its empty partial and
-    leaves at once, so rows of unequal length balance over the card."""
+    ``units``, within WAVES waves of the card's ``ctas`` resident CTAs, a
+    (row, split) taking ``tiles`` CTAs (:func:`grid_tiles`).  A CTA whose
+    share of a shorter row is empty writes its empty partial and leaves at
+    once, so rows of unequal length balance over the card."""
     want = -(-units // (WARPS * UNITS_PER_WARP))
-    return max(1, min(want, WAVES * ctas // (b * h_kv), _MAX_SPLITS))
+    return max(1, min(want, WAVES * ctas // (b * h_kv * tiles), _MAX_SPLITS))
 
 
 def check_kernel_shapes(*, g: int, d_k: int, d_v: int, block_n: int, bits: int, npr: int,
-                        res_n: int) -> None:
+                        res_n: int, shared_kv: bool = False, k_gran: str = "channel") -> None:
     """Raise ValueError for what the kernel has no instance for."""
     if npr * 32 != block_n * bits:
         raise ValueError(f"{npr} packed word rows do not match bits={bits}, block_n={block_n}")
     if bits not in (2, 4, 8) or block_n not in BLOCK_NS:
         raise ValueError(f"the CUDA decode kernel takes bits 2, 4 or 8 and block_n in "
                          f"{BLOCK_NS}, got bits={bits}, block_n={block_n}")
-    if d_k not in HEAD_DIMS or d_v != d_k:
+    if shared_kv:
+        if (d_k not in LATENT_DIMS or d_v % LATENT_DV or not 0 < d_v <= d_k
+                or k_gran != "channel" or unit_rows(block_n, bits) != 4):
+            raise ValueError(f"the CUDA decode kernel's shared_kv mode takes per-channel K "
+                             f"of width {LATENT_DIMS}, d_v a multiple of {LATENT_DV} up to "
+                             f"d_k and 4-row units, got d_k={d_k}, d_v={d_v}, {k_gran}, "
+                             f"bits={bits}, block_n={block_n}")
+    elif d_k not in HEAD_DIMS or d_v != d_k:
         raise ValueError(f"the CUDA decode kernel takes d_k = d_v in {HEAD_DIMS}, got "
                          f"d_k={d_k}, d_v={d_v}")
-    if not 1 <= g <= MAX_G:
-        raise ValueError(f"the CUDA decode kernel takes 1 to {MAX_G} query rows per KV head, "
-                         f"got g={g}")
+    max_g = LATENT_MAX_G if shared_kv else MAX_G
+    if not 1 <= g <= max_g:
+        raise ValueError(f"the CUDA decode kernel takes 1 to {max_g} query rows per KV head"
+                         f"{' (shared_kv)' if shared_kv else ''}, got g={g}")
     if res_n % RES_TOKENS:
         raise ValueError(f"the residual's length {res_n} is not a multiple of {RES_TOKENS}")
 
 
 @functools.lru_cache(maxsize=None)
-def ctas_per_sm(g: int, d: int, block_n: int, bits: int, k_channel: bool) -> int:
+def ctas_per_sm(g: int, d: int, block_n: int, bits: int, k_channel: bool,
+                shared_kv: bool = False) -> int:
     """CTAs of the kernel's instance that one SM holds at once."""
-    n = _build.build().bitdecode_ctas_per_sm(g, d, block_n, bits, int(k_channel))
+    n = _build.build().bitdecode_ctas_per_sm(g, d, block_n, bits, int(k_channel),
+                                             int(shared_kv))
     if n <= 0:
         raise RuntimeError(f"bitdecode occupancy query failed (cudaError {-n})")
     return n
@@ -88,14 +117,17 @@ def ctas_per_sm(g: int, d: int, block_n: int, bits: int, k_channel: bool) -> int
 
 def resolve_num_splits(num_splits, b: int, h_kv: int, units: int, device, *, g: int = 1,
                        d: int = 128, block_n: int = 128, bits: int = 4,
-                       k_channel: bool = True) -> int:
+                       k_channel: bool = True, shared_kv: bool = False,
+                       d_v: int | None = None) -> int:
     """The kernel's split count: an explicit integer as given, ``"auto"``
-    from the card's SMs and the instance's occupancy (1 off the card)."""
+    from the card's SMs, the instance's occupancy and the CTAs a (row,
+    split) takes (1 off the card)."""
     if num_splits in (None, "auto"):
         if torch.device(device).type != "cuda":
             return 1
-        ctas = sm_count(device) * ctas_per_sm(g, d, block_n, bits, k_channel)
-        return auto_num_splits(b, h_kv, units, ctas=ctas)
+        ctas = sm_count(device) * ctas_per_sm(g, d, block_n, bits, k_channel, shared_kv)
+        tiles = grid_tiles(g, d if d_v is None else d_v, shared_kv)
+        return auto_num_splits(b, h_kv, units, ctas=ctas, tiles=tiles)
     s = int(num_splits)
     if s < 1:
         raise ValueError(f"num_splits must be >= 1, got {num_splits}")
@@ -121,10 +153,10 @@ def draft_shift(bits: int, draft_bits: int | None) -> int:
 
 def launch_decode(name: str, q, arrays, ints, *, d_v: int, num_splits: int, sm_scale: float,
                   shift: int = 0):
-    """Launch kernel ``name`` (its C entry point takes q, ``arrays``, out,
-    lse, B, H, g, ``ints``, num_splits, the draft shift, sm_scale, stream)
-    and, with more than one split, the merge.  Returns (out [B, H, g, d_v]
-    f32, lse [B, H, g] f32)."""
+    """Launch kernel ``name`` (its C entry point takes q, ``arrays`` (None a
+    null pointer), out, lse, B, H, g, ``ints``, num_splits, the draft
+    shift, sm_scale, stream) and, with more than one split, the merge.
+    Returns (out [B, H, g, d_v] f32, lse [B, H, g] f32)."""
     b, h, g, _ = q.shape
     dev = q.device
     out = torch.empty((b, h, g, d_v), dtype=torch.float32, device=dev)
@@ -135,7 +167,8 @@ def launch_decode(name: str, q, arrays, ints, *, d_v: int, num_splits: int, sm_s
         o_part = torch.empty((num_splits, b, h, g, d_v), dtype=torch.float32, device=dev)
         l_part = torch.empty((num_splits, b, h, g), dtype=torch.float32, device=dev)
     stream = _build.stream_of(q)
-    _build.launch(name, q.data_ptr(), *(t.data_ptr() for t in arrays), o_part.data_ptr(),
+    _build.launch(name, q.data_ptr(), *(t if t is None else t.data_ptr() for t in arrays),
+                  o_part.data_ptr(),
                   l_part.data_ptr(), b, h, g, *ints, num_splits, shift, float(sm_scale), stream)
     if num_splits > 1:
         merge_cuda(o_part, l_part, out, lse)
@@ -160,27 +193,42 @@ def query_operand(q):
     return q if q.data_ptr() % 16 == 0 else q.clone()
 
 
+def cache_operands(tensors, what: str, shared_kv: bool):
+    """The packed arrays and residuals (K's words, scale, zero, V's, K's
+    residual, V's) as the kernel reads them; the V side None when
+    ``shared_kv``."""
+    kw, ks, kz, vw, vs, vz, k_res, v_res = tensors
+    if shared_kv:
+        vw = vs = vz = v_res = None
+    if any(t is not None and t.dtype != torch.bfloat16 for t in (ks, vs, k_res, v_res)):
+        raise ValueError("the CUDA decode kernel takes bf16 params and residuals")
+    return [None if t is None else kernel_operand(t, what)
+            for t in (kw, ks, kz, vw, vs, vz, k_res, v_res)]
+
+
 def bitdecode_cuda(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, pack_blocks,
                    res_len, *, bits: int, block_n: int, sm_scale: float, k_gran: str,
-                   num_splits, draft_bits: int | None = None):
+                   num_splits, draft_bits: int | None = None, shared_kv: bool = False,
+                   d_v: int | None = None):
     """The kernel (and merge) on CUDA tensors: (out, lse).  ``draft_bits``
     below ``bits`` reads every packed code at that width (the runtime
-    shift of ``csrc/bitdecode_body.cuh``)."""
+    shift of ``csrc/bitdecode_body.cuh``).  ``shared_kv`` reads V as the
+    first ``d_v`` channels of K (the V-side arguments are ignored)."""
     b, h, g, d_k = q.shape
     nb, npr = kw.shape[2], kw.shape[3]
-    d_v, res_n = vw.shape[-1], k_res.shape[2]
+    d_v = d_v if shared_kv else vw.shape[-1]
+    res_n = k_res.shape[2]
     check_kernel_shapes(g=g, d_k=d_k, d_v=d_v, block_n=block_n, bits=bits, npr=npr,
-                        res_n=res_n)
-    if any(t.dtype != torch.bfloat16 for t in (k_scale, v_scale, k_res, v_res)):
-        raise ValueError("the CUDA decode kernel takes bf16 params and residuals")
-    arrays = [kernel_operand(t, "cache arrays") for t in (kw, k_scale, k_zero, vw, v_scale,
-                                                         v_zero, k_res, v_res)]
+                        res_n=res_n, shared_kv=shared_kv, k_gran=k_gran)
+    arrays = cache_operands((kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res),
+                            "cache arrays", shared_kv)
     arrays += [pack_blocks.to(torch.int32).contiguous(), res_len.to(torch.int32).contiguous()]
+    k_channel = k_gran == "channel"
     splits = resolve_num_splits(num_splits, b, h, work_units(nb, block_n, bits, res_n),
                                 q.device, g=g, d=d_k, block_n=block_n, bits=bits,
-                                k_channel=k_gran == "channel")
+                                k_channel=k_channel, shared_kv=shared_kv, d_v=d_v)
     return launch_decode("bitdecode", query_operand(q), arrays,
-                         (d_k, d_v, nb, block_n, res_n, bits, int(k_gran == "channel")),
+                         (d_k, d_v, nb, block_n, res_n, bits, int(k_channel), int(shared_kv)),
                          d_v=d_v, num_splits=splits, sm_scale=sm_scale,
                          shift=draft_shift(bits, draft_bits))
 
@@ -199,10 +247,10 @@ def bitdecode_attention(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res,
     ``draft_bits`` (the speculative draft read: each packed code read at
     its top ``draft_bits`` bits, against the scale times 2^(bits -
     draft_bits)) runs in the kernel too; ``draft_bits >= bits`` is the
-    normal read.  ``shared_kv`` (MLA latent cache) exists in the plain
-    version only: on CUDA tensors it raises unless the caller asks for
-    ``impl='torch'``.  The plain version resolves ``num_splits="auto"`` to 1
-    (splitting multiplies its work); explicit integers are honoured.
+    normal read.  ``shared_kv`` (MLA latent cache): V is the first ``d_v``
+    channels of dequantized K (and of the K residual); the V-side
+    arguments are ignored.  The plain version resolves ``num_splits="auto"``
+    to 1 (splitting multiplies its work); explicit integers are honoured.
     """
     d_k = q.shape[-1]
     if sm_scale is None:
@@ -211,9 +259,8 @@ def bitdecode_attention(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res,
         draft_bits = None  # a full-fidelity read is the normal path
     impl = _build.resolve_impl(impl, q, kw, k_scale, k_zero, vw, v_scale, v_zero,
                                k_res, v_res, pack_blocks, res_len)
-    if impl == "cuda" and shared_kv:
-        raise ValueError("shared_kv has no CUDA kernel; pass impl='torch' for the plain "
-                         "version")
+    if shared_kv and d_v is None:
+        raise ValueError("shared_kv requires d_v")
     if impl == "torch":
         out, lse = _ref.bitdecode_attention_ref(
             q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res,
@@ -227,5 +274,6 @@ def bitdecode_attention(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res,
             q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res,
             pack_blocks, res_len, bits=bits, block_n=block_n, sm_scale=sm_scale,
             k_gran=k_gran, num_splits=num_splits, draft_bits=draft_bits,
+            shared_kv=shared_kv, d_v=d_v,
         )
     return (out, lse) if return_lse else out

@@ -20,28 +20,30 @@ from repro_torch.kernels.paged_bitdecode import ref as _ref
 def paged_bitdecode_cuda(q, kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool,
                          v_zero_pool, k_res, v_res, page_table, pack_blocks, res_len, *,
                          bits: int, block_n: int, sm_scale: float, k_gran: str, num_splits,
-                         draft_bits: int | None = None):
-    """The kernel (and merge) on CUDA tensors: (out, lse); ``draft_bits`` as
-    in ``bitdecode.ops.bitdecode_cuda``."""
+                         draft_bits: int | None = None, shared_kv: bool = False,
+                         d_v: int | None = None):
+    """The kernel (and merge) on CUDA tensors: (out, lse); ``draft_bits`` and
+    ``shared_kv`` as in ``bitdecode.ops.bitdecode_cuda``."""
     b, h, g, d_k = q.shape
     n_pages, _, npr, _ = kw_pool.shape
     nb_max = page_table.shape[1]
-    d_v, res_n = vw_pool.shape[-1], k_res.shape[2]
+    d_v = d_v if shared_kv else vw_pool.shape[-1]
+    res_n = k_res.shape[2]
     bd_ops.check_kernel_shapes(g=g, d_k=d_k, d_v=d_v, block_n=block_n, bits=bits, npr=npr,
-                               res_n=res_n)
-    if any(t.dtype != torch.bfloat16 for t in (k_scale_pool, v_scale_pool, k_res, v_res)):
-        raise ValueError("the CUDA decode kernel takes bf16 params and residuals")
-    arrays = [bd_ops.kernel_operand(t, "pools and residuals") for t in (
-        kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool, k_res, v_res)]
+                               res_n=res_n, shared_kv=shared_kv, k_gran=k_gran)
+    arrays = bd_ops.cache_operands((kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool,
+                                    v_zero_pool, k_res, v_res), "pools and residuals",
+                                   shared_kv)
     arrays += [page_table.to(torch.int32).contiguous(), pack_blocks.to(torch.int32).contiguous(),
                res_len.to(torch.int32).contiguous()]
     units = bd_ops.work_units(nb_max, block_n, bits, res_n)
+    k_channel = k_gran == "channel"
     splits = bd_ops.resolve_num_splits(num_splits, b, h, units, q.device, g=g, d=d_k,
-                                       block_n=block_n, bits=bits,
-                                       k_channel=k_gran == "channel")
+                                       block_n=block_n, bits=bits, k_channel=k_channel,
+                                       shared_kv=shared_kv, d_v=d_v)
     return bd_ops.launch_decode(
         "paged_bitdecode", bd_ops.query_operand(q), arrays,
-        (d_k, d_v, nb_max, n_pages, block_n, res_n, bits, int(k_gran == "channel")),
+        (d_k, d_v, nb_max, n_pages, block_n, res_n, bits, int(k_channel), int(shared_kv)),
         d_v=d_v, num_splits=splits, sm_scale=sm_scale,
         shift=bd_ops.draft_shift(bits, draft_bits))
 
@@ -59,11 +61,10 @@ def paged_bitdecode_attention(q, kw_pool, k_scale_pool, k_zero_pool, vw_pool,
 
     q: [B, H_kv, g, d_k] (query-transformed); see ref.py for the shapes.
     impl: 'cuda' | 'torch' | 'auto' (the kernel for CUDA tensors).
-    ``draft_bits`` (the speculative draft read) runs in the kernel as in
-    the dense wrapper; ``shared_kv`` (MLA latent pools) exists in the plain
-    version only: on CUDA tensors it raises unless the caller asks for
-    ``impl='torch'``.  The plain version resolves ``num_splits="auto"`` to
-    1; explicit integers are honoured.
+    ``draft_bits`` (the speculative draft read) and ``shared_kv`` (MLA
+    latent pools: V is the first ``d_v`` channels of K) run in the kernel
+    as in the dense wrapper.  The plain version resolves
+    ``num_splits="auto"`` to 1; explicit integers are honoured.
     """
     d_k = q.shape[-1]
     if sm_scale is None:
@@ -73,9 +74,8 @@ def paged_bitdecode_attention(q, kw_pool, k_scale_pool, k_zero_pool, vw_pool,
     impl = _build.resolve_impl(impl, q, kw_pool, k_scale_pool, k_zero_pool, vw_pool,
                                v_scale_pool, v_zero_pool, k_res, v_res, page_table,
                                pack_blocks, res_len)
-    if impl == "cuda" and shared_kv:
-        raise ValueError("shared_kv has no CUDA kernel; pass impl='torch' for the plain "
-                         "version")
+    if shared_kv and d_v is None:
+        raise ValueError("shared_kv requires d_v")
     if impl == "torch":
         out, lse = _ref.paged_bitdecode_attention_ref(
             q, kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool,
@@ -89,5 +89,6 @@ def paged_bitdecode_attention(q, kw_pool, k_scale_pool, k_zero_pool, vw_pool,
             q, kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool,
             k_res, v_res, page_table, pack_blocks, res_len, bits=bits, block_n=block_n,
             sm_scale=sm_scale, k_gran=k_gran, num_splits=num_splits, draft_bits=draft_bits,
+            shared_kv=shared_kv, d_v=d_v,
         )
     return (out, lse) if return_lse else out

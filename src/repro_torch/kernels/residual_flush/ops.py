@@ -9,7 +9,8 @@ decode append around it, dense and paged: one CUDA kernel with two modes
   rows it fills, lengths), one launch, nothing read on the host.
 
 Both modes count their launches under ``residual_flush`` (dense) and
-``paged_residual_flush`` (paged).
+``paged_residual_flush`` (paged).  ``shared_kv`` (the MLA latent cache)
+flushes and appends K alone: the V-side arguments are None.
 """
 from __future__ import annotations
 
@@ -18,26 +19,43 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.residual_flush import ref as _ref
 
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the kernel's 8-channel chunks: d / 8 divides a warp
+# head dims: any of these; per-channel K also multiples of 8 up to MAX_CHANNEL_DIM
+# (the MLA latents 160 and 576), whose 8-channel chunks do not divide a warp
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+MAX_CHANNEL_DIM = 576
 
 
-def _check_flush_args(arrays, b, h, npr, bits, block_n):
-    """``arrays``: kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res."""
+def _head_dim_ok(d: int, channel: bool) -> bool:
+    return d in HEAD_DIMS or (channel and d % 8 == 0 and 8 <= d <= MAX_CHANNEL_DIM)
+
+
+def _check_flush_args(arrays, b, h, npr, bits, block_n, k_gran):
+    """``arrays``: kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res;
+    the V side None when shared_kv."""
     kw, vw, k_res, v_res = arrays[0], arrays[3], arrays[6], arrays[7]
+    shared = vw is None
     if (tuple(k_res.shape) != (b, h, block_n, kw.shape[-1])
-            or tuple(v_res.shape) != (b, h, block_n, vw.shape[-1])):
+            or not shared and tuple(v_res.shape) != (b, h, block_n, vw.shape[-1])):
         raise ValueError("residual buffers must be [B, H, block_n, d]")
     if npr * 32 != block_n * bits:
         raise ValueError(f"packed words do not match bits={bits}, block_n={block_n}")
-    if any(not t.is_contiguous() for t in arrays):
+    present = [t for t in arrays if t is not None]
+    if any(not t.is_contiguous() for t in present):
         raise ValueError("the CUDA flush writes the cache in place: arrays must be contiguous")
-    if tuple(arrays[i].dtype for i in (1, 4, 6, 7)) != (torch.bfloat16,) * 4:
+    if any(arrays[i] is not None and arrays[i].dtype != torch.bfloat16 for i in (1, 4, 6, 7)):
         raise ValueError("the CUDA flush takes bf16 params and bf16 residuals")
-    if kw.shape[-1] not in HEAD_DIMS or vw.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"the CUDA flush takes head dims {HEAD_DIMS}, got "
-                         f"{kw.shape[-1]} / {vw.shape[-1]}; use impl='torch'")
-    if any(t.data_ptr() % 16 for t in (k_res, v_res)):
+    if (not _head_dim_ok(kw.shape[-1], k_gran == "channel")
+            or not shared and vw.shape[-1] not in HEAD_DIMS):
+        raise ValueError(f"the CUDA flush takes head dims {HEAD_DIMS} (and multiples of 8 up "
+                         f"to {MAX_CHANNEL_DIM} for per-channel K), got {kw.shape[-1]} / "
+                         f"{None if shared else vw.shape[-1]}; use impl='torch'")
+    if any(t is not None and t.data_ptr() % 16 for t in (k_res, v_res)):
         raise ValueError("the CUDA flush reads the residuals in 16-byte chunks: align them")
+
+
+def _v_side(shared_kv: bool, *tensors):
+    """The V-side arguments as the kernel takes them: None when shared_kv."""
+    return (None,) * len(tensors) if shared_kv else tensors
 
 
 def _ints(*tensors):
@@ -62,11 +80,15 @@ def _launch(name, arrays, *, b, h, n_cells, block_n, bits, k_gran, k_new=None, v
             mask=None, full=None, dest=None, table=None, lengths=(None, None, None)):
     """One launch of the kernel: mode "append" when ``k_new`` is given,
     else mode "flush" (``full``/``dest``)."""
-    d_k, d_v = arrays[0].shape[-1], arrays[3].shape[-1]
+    shared = arrays[3] is None
+    d_k = arrays[0].shape[-1]
+    d_v = d_k if shared else arrays[3].shape[-1]
     strides = (0, 0, 0, 0)
     if k_new is not None:
         k_new, k_sb, k_sh = _new_token(k_new, b, h, d_k)
-        v_new, v_sb, v_sh = _new_token(v_new, b, h, d_v)
+        v_sb = v_sh = 0
+        if not shared:
+            v_new, v_sb, v_sh = _new_token(v_new, b, h, d_v)
         strides = (k_sb, k_sh, v_sb, v_sh)
         if mask is not None:
             mask = mask.to(torch.bool).contiguous()
@@ -84,10 +106,10 @@ def _launch(name, arrays, *, b, h, n_cells, block_n, bits, k_gran, k_new=None, v
         return None if t is None else t.data_ptr()
 
     _build.launch(
-        name, *(t.data_ptr() for t in arrays), ptr(k_new), ptr(v_new), ptr(mask), ptr(full),
-        ptr(dest), ptr(table), *map(ptr, lengths), *strides, b, h, n_cells, block_n, d_k, d_v,
-        bits, int(k_gran == "channel"), nb_max, table_ld, int(k_new is not None),
-        int(name == "paged_residual_flush"), _build.stream_of(arrays[0]),
+        name, *map(ptr, arrays), ptr(k_new), ptr(None if shared else v_new), ptr(mask),
+        ptr(full), ptr(dest), ptr(table), *map(ptr, lengths), *strides, b, h, n_cells, block_n,
+        d_k, d_v, bits, int(k_gran == "channel"), nb_max, table_ld, int(k_new is not None),
+        int(name == "paged_residual_flush"), int(shared), _build.stream_of(arrays[0]),
     )
 
 
@@ -95,12 +117,14 @@ def _launch(name, arrays, *, b, h, n_cells, block_n, bits, k_gran, k_new=None, v
 
 
 def residual_flush_cuda(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res,
-                        full, dest_block, *, bits: int, block_n: int, k_gran: str):
+                        full, dest_block, *, bits: int, block_n: int, k_gran: str,
+                        shared_kv: bool = False):
     """Launch mode "flush": programs of rows with ``full[b] == 0`` return at
     once.  Updates the packed arrays in place."""
     b, h, nb, npr, _ = kw.shape
-    arrays = (kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res)
-    _check_flush_args(arrays, b, h, npr, bits, block_n)
+    arrays = (kw, k_scale, k_zero, *_v_side(shared_kv, vw, v_scale, v_zero), k_res,
+              *_v_side(shared_kv, v_res))
+    _check_flush_args(arrays, b, h, npr, bits, block_n, k_gran)
     _launch("residual_flush", arrays, b=b, h=h, n_cells=nb, block_n=block_n, bits=bits,
             k_gran=k_gran, full=full, dest=dest_block)
     return kw, k_scale, k_zero, vw, v_scale, v_zero
@@ -108,28 +132,31 @@ def residual_flush_cuda(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res,
 
 def residual_flush(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res,
                    full, dest_block, *, bits: int, block_n: int, k_gran: str,
-                   impl: str = "auto"):
+                   shared_kv: bool = False, impl: str = "auto"):
     """Commit the bf16 residual of every sequence with ``full[b] != 0`` into
-    packed block ``dest_block[b]`` (clamped to ``nb - 1``), in place.
+    packed block ``dest_block[b]`` (clamped to ``nb - 1``), in place; K
+    alone when ``shared_kv``.
 
     Neither path reads ``full`` on the host.  impl: 'cuda' | 'torch' |
     'auto' (the kernel for CUDA tensors).
     """
     args = (kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, full, dest_block)
     fn = residual_flush_cuda if _build.resolve_impl(impl, *args) == "cuda" else _ref.residual_flush_ref
-    return fn(*args, bits=bits, block_n=block_n, k_gran=k_gran)
+    return fn(*args, bits=bits, block_n=block_n, k_gran=k_gran, shared_kv=shared_kv)
 
 
 def paged_residual_flush_cuda(kw_pool, k_scale_pool, k_zero_pool, vw_pool,
                               v_scale_pool, v_zero_pool, k_res, v_res, full,
-                              dest_page, *, bits: int, block_n: int, k_gran: str):
+                              dest_page, *, bits: int, block_n: int, k_gran: str,
+                              shared_kv: bool = False):
     """Launch mode "flush" on the pools: programs of rows with
     ``full[b] == 0`` return at once.  Updates the pools in place."""
     n_pages, h, npr, _ = kw_pool.shape
     b = k_res.shape[0]
-    arrays = (kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool,
-              v_zero_pool, k_res, v_res)
-    _check_flush_args(arrays, b, h, npr, bits, block_n)
+    arrays = (kw_pool, k_scale_pool, k_zero_pool,
+              *_v_side(shared_kv, vw_pool, v_scale_pool, v_zero_pool), k_res,
+              *_v_side(shared_kv, v_res))
+    _check_flush_args(arrays, b, h, npr, bits, block_n, k_gran)
     _launch("paged_residual_flush", arrays, b=b, h=h, n_cells=n_pages, block_n=block_n,
             bits=bits, k_gran=k_gran, full=full, dest=dest_page)
     return kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool
@@ -138,18 +165,19 @@ def paged_residual_flush_cuda(kw_pool, k_scale_pool, k_zero_pool, vw_pool,
 def paged_residual_flush(kw_pool, k_scale_pool, k_zero_pool, vw_pool,
                          v_scale_pool, v_zero_pool, k_res, v_res, full,
                          dest_page, *, bits: int, block_n: int, k_gran: str,
-                         impl: str = "auto"):
+                         shared_kv: bool = False, impl: str = "auto"):
     """Paged face: commit the bf16 residual of every sequence with
     ``full[b] != 0`` into pool page ``min(dest_page[b], P - 1)`` of the shared
-    ``[P, H, ...]`` pools, in place.  ``dest_page`` entries must be pairwise
-    distinct: callers point rows that do not flush at their own scratch page
-    (pool pages ``[0, B)``).  Neither path reads ``full`` on the host.
+    ``[P, H, ...]`` pools, in place; K alone when ``shared_kv``.
+    ``dest_page`` entries must be pairwise distinct: callers point rows that
+    do not flush at their own scratch page (pool pages ``[0, B)``).  Neither
+    path reads ``full`` on the host.
     impl: 'cuda' | 'torch' | 'auto' (the kernel for CUDA tensors)."""
     args = (kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool,
             v_zero_pool, k_res, v_res, full, dest_page)
     fn = (paged_residual_flush_cuda if _build.resolve_impl(impl, *args) == "cuda"
           else _ref.paged_residual_flush_ref)
-    return fn(*args, bits=bits, block_n=block_n, k_gran=k_gran)
+    return fn(*args, bits=bits, block_n=block_n, k_gran=k_gran, shared_kv=shared_kv)
 
 
 # ------------------------------------------------------------ mode "append"
@@ -157,13 +185,14 @@ def paged_residual_flush(kw_pool, k_scale_pool, k_zero_pool, vw_pool,
 
 def append_flush_cuda(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, k_new,
                       v_new, pack_blocks, res_len, arrive, *, mask=None, bits: int,
-                      block_n: int, k_gran: str):
+                      block_n: int, k_gran: str, shared_kv: bool = False):
     """Launch mode "append" on a dense cache: one launch updates residual,
     packed blocks and lengths in place; ``arrive`` ([B] int32, zero) is the
     kernel's counter and comes back zero."""
     b, h, nb, npr, _ = kw.shape
-    arrays = (kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res)
-    _check_flush_args(arrays, b, h, npr, bits, block_n)
+    arrays = (kw, k_scale, k_zero, *_v_side(shared_kv, vw, v_scale, v_zero), k_res,
+              *_v_side(shared_kv, v_res))
+    _check_flush_args(arrays, b, h, npr, bits, block_n, k_gran)
     _launch("residual_flush", arrays, b=b, h=h, n_cells=nb, block_n=block_n, bits=bits,
             k_gran=k_gran, k_new=k_new, v_new=v_new, mask=mask,
             lengths=(pack_blocks, res_len, arrive))
@@ -172,31 +201,34 @@ def append_flush_cuda(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, k_
 
 def append_flush(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, k_new, v_new,
                  pack_blocks, res_len, arrive, *, mask=None, bits: int, block_n: int,
-                 k_gran: str, impl: str = "auto"):
+                 k_gran: str, shared_kv: bool = False, impl: str = "auto"):
     """A dense cache's decode append, in place: write one token per sequence
     (k_new/v_new [B, H, 1, d]) into residual row ``min(res_len[b],
     block_n - 1)``, commit the residual of every row it fills into packed
     block ``min(pack_blocks[b], nb - 1)``, then ``pack_blocks += full`` and
     ``res_len = full ? 0 : res_len + step``.  ``mask`` ([B] bool, optional):
-    rows with ``False`` keep everything unchanged.
+    rows with ``False`` keep everything unchanged.  ``shared_kv``: K alone
+    (``v_new`` and the V side None).
     impl: 'cuda' | 'torch' | 'auto' (the kernel for CUDA tensors)."""
     args = (kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, k_new, v_new,
             pack_blocks, res_len, arrive)
     fn = (append_flush_cuda if _build.resolve_impl(impl, *args, mask) == "cuda"
           else _ref.append_flush_ref)
-    return fn(*args, mask=mask, bits=bits, block_n=block_n, k_gran=k_gran)
+    return fn(*args, mask=mask, bits=bits, block_n=block_n, k_gran=k_gran,
+              shared_kv=shared_kv)
 
 
 def paged_append_flush_cuda(kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool,
                             v_zero_pool, k_res, v_res, k_new, v_new, page_table,
                             pack_blocks, res_len, arrive, *, mask=None, bits: int,
-                            block_n: int, k_gran: str):
+                            block_n: int, k_gran: str, shared_kv: bool = False):
     """Launch mode "append" on the pools, through the page table."""
     n_pages, h, npr, _ = kw_pool.shape
     b = k_res.shape[0]
-    arrays = (kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool,
-              k_res, v_res)
-    _check_flush_args(arrays, b, h, npr, bits, block_n)
+    arrays = (kw_pool, k_scale_pool, k_zero_pool,
+              *_v_side(shared_kv, vw_pool, v_scale_pool, v_zero_pool), k_res,
+              *_v_side(shared_kv, v_res))
+    _check_flush_args(arrays, b, h, npr, bits, block_n, k_gran)
     _launch("paged_residual_flush", arrays, b=b, h=h, n_cells=n_pages, block_n=block_n,
             bits=bits, k_gran=k_gran, k_new=k_new, v_new=v_new, mask=mask, table=page_table,
             lengths=(pack_blocks, res_len, arrive))
@@ -206,7 +238,7 @@ def paged_append_flush_cuda(kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale
 def paged_append_flush(kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool,
                        v_zero_pool, k_res, v_res, k_new, v_new, page_table, pack_blocks,
                        res_len, arrive, *, mask=None, bits: int, block_n: int, k_gran: str,
-                       impl: str = "auto"):
+                       shared_kv: bool = False, impl: str = "auto"):
     """A paged cache's decode append, in place: as :func:`append_flush`, the
     rows it fills committed into pool page ``page_table[b,
     clamp(pack_blocks[b], 0, nb_max - 1)]`` (clamped to ``P - 1``).
@@ -215,4 +247,5 @@ def paged_append_flush(kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool
             k_res, v_res, k_new, v_new, page_table, pack_blocks, res_len, arrive)
     fn = (paged_append_flush_cuda if _build.resolve_impl(impl, *args, mask) == "cuda"
           else _ref.paged_append_flush_ref)
-    return fn(*args, mask=mask, bits=bits, block_n=block_n, k_gran=k_gran)
+    return fn(*args, mask=mask, bits=bits, block_n=block_n, k_gran=k_gran,
+              shared_kv=shared_kv)

@@ -9,7 +9,8 @@ token per sequence into its residual, flushes the rows it fills and updates
 the lengths: the op sequence that the CUDA kernel's append mode does in one
 launch.  Unlike the JAX oracle, everything here updates the cache's tensors
 in place.  Nothing reads ``full`` on the host, so these run without a device
-synchronisation on the card as well.
+synchronisation on the card as well.  ``shared_kv`` (the MLA latent cache)
+flushes and appends K alone; the V-side arguments are None there.
 """
 from __future__ import annotations
 
@@ -18,11 +19,20 @@ import torch
 from repro_torch.core import quantizer
 
 
+def _sides(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, k_gran, shared_kv):
+    """((words, scale, zero), residual, granularity) of K, and of V unless
+    ``shared_kv``."""
+    sides = [((kw, k_scale, k_zero), k_res, k_gran)]
+    return sides if shared_kv else sides + [((vw, v_scale, v_zero), v_res, "tensor")]
+
+
 def residual_flush_ref(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res,
-                       full, dest_block, *, bits: int, block_n: int, k_gran: str):
+                       full, dest_block, *, bits: int, block_n: int, k_gran: str,
+                       shared_kv: bool = False):
     """kw: int32 [B, H, nb, npr, d_k]; k_res: bf16 [B, H, block_n, d_k];
-    full/dest_block: int32 [B].  Writes the six packed arrays in place and
-    returns them; rows with ``full[b] == 0`` keep their contents."""
+    full/dest_block: int32 [B].  Writes the six packed arrays (three when
+    ``shared_kv``) in place and returns them; rows with ``full[b] == 0``
+    keep their contents."""
     if k_res.shape[2] != block_n:
         raise ValueError(f"residual holds {k_res.shape[2]} rows, block_n={block_n}")
     param_dtype = k_scale.dtype
@@ -35,10 +45,8 @@ def residual_flush_ref(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res,
         sel = keep.view(-1, *([1] * (new.ndim - 1)))
         dst[rows, :, blk] = torch.where(sel, new.to(dst.dtype), dst[rows, :, blk])
 
-    for (w_dst, s_dst, z_dst), res, gran in (
-        ((kw, k_scale, k_zero), k_res, k_gran),
-        ((vw, v_scale, v_zero), v_res, "tensor"),
-    ):
+    for (w_dst, s_dst, z_dst), res, gran in _sides(kw, k_scale, k_zero, vw, v_scale, v_zero,
+                                                   k_res, v_res, k_gran, shared_kv):
         w, s, z = quantizer.quantize_and_pack(res, bits, gran, param_dtype=param_dtype)
         commit(w_dst, w)
         commit(s_dst, s)
@@ -48,7 +56,8 @@ def residual_flush_ref(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res,
 
 def paged_residual_flush_ref(kw_pool, k_scale_pool, k_zero_pool, vw_pool,
                              v_scale_pool, v_zero_pool, k_res, v_res, full,
-                             dest_page, *, bits: int, block_n: int, k_gran: str):
+                             dest_page, *, bits: int, block_n: int, k_gran: str,
+                             shared_kv: bool = False):
     """Paged face: commit the residual of every sequence with ``full[b] != 0``
     into pool page ``min(dest_page[b], P - 1)``, in place.
 
@@ -67,10 +76,9 @@ def paged_residual_flush_ref(kw_pool, k_scale_pool, k_zero_pool, vw_pool,
         sel = keep.view(-1, *([1] * (new.ndim - 1)))
         pool[dest] = torch.where(sel, new.to(pool.dtype), pool[dest])
 
-    for (w_dst, s_dst, z_dst), res, gran in (
-        ((kw_pool, k_scale_pool, k_zero_pool), k_res, k_gran),
-        ((vw_pool, v_scale_pool, v_zero_pool), v_res, "tensor"),
-    ):
+    for (w_dst, s_dst, z_dst), res, gran in _sides(kw_pool, k_scale_pool, k_zero_pool, vw_pool,
+                                                   v_scale_pool, v_zero_pool, k_res, v_res,
+                                                   k_gran, shared_kv):
         w, s, z = quantizer.quantize_and_pack(res, bits, gran, param_dtype=param_dtype)
         commit(w_dst, w)
         commit(s_dst, s)
@@ -84,11 +92,14 @@ def append_residual(k_res, v_res, res_len, k_new, v_new, mask=None):
     ``(res_len_after, full)``.
 
     ``mask`` ([B] bool, optional) freezes sequences: a ``False`` row keeps
-    its residual and ``res_len`` unchanged."""
+    its residual and ``res_len`` unchanged.  ``v_res`` None (shared_kv):
+    K alone."""
     block_n = k_res.shape[2]
     rows = torch.arange(k_new.shape[0], device=k_new.device)
     at = torch.clamp(res_len.long(), max=block_n - 1)
     for res, new in ((k_res, k_new), (v_res, v_new)):
+        if res is None:  # shared_kv: no V residual
+            continue
         new = new[:, :, 0].to(res.dtype)  # [B, H, d]
         if mask is not None:
             new = torch.where(mask[:, None, None], new, res[rows, :, at])
@@ -105,7 +116,8 @@ def _commit_lengths(pack_blocks, res_len, rl, full):
 
 def append_flush_ref(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, k_new,
                      v_new, pack_blocks, res_len, arrive=None, *, mask=None, bits: int,
-                     block_n: int, k_gran: str, flush=residual_flush_ref):
+                     block_n: int, k_gran: str, shared_kv: bool = False,
+                     flush=residual_flush_ref):
     """A dense cache's decode append, in place: the new token (k_new/v_new
     [B, H, 1, d]) into the residual, the rows it fills flushed into block
     ``pack_blocks[b]`` by ``flush``, then ``pack_blocks += full`` and
@@ -113,9 +125,10 @@ def append_flush_ref(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, k_n
     counter) is not used.  ``flush`` takes :func:`residual_flush_ref`'s
     arguments; passing the kernel's flush mode gives the unfused op sequence
     the fused kernel replaces."""
-    rl, full = append_residual(k_res, v_res, res_len, k_new, v_new, mask)
+    rl, full = append_residual(k_res, None if shared_kv else v_res, res_len, k_new, v_new,
+                               mask)
     flush(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, full.to(torch.int32),
-          pack_blocks, bits=bits, block_n=block_n, k_gran=k_gran)
+          pack_blocks, bits=bits, block_n=block_n, k_gran=k_gran, shared_kv=shared_kv)
     _commit_lengths(pack_blocks, res_len, rl, full)
     return kw, k_scale, k_zero, vw, v_scale, v_zero
 
@@ -123,18 +136,21 @@ def append_flush_ref(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, k_n
 def paged_append_flush_ref(kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool,
                            v_zero_pool, k_res, v_res, k_new, v_new, page_table,
                            pack_blocks, res_len, arrive=None, *, mask=None, bits: int,
-                           block_n: int, k_gran: str, flush=paged_residual_flush_ref):
+                           block_n: int, k_gran: str, shared_kv: bool = False,
+                           flush=paged_residual_flush_ref):
     """A paged cache's decode append, in place: as :func:`append_flush_ref`,
     the destination of row ``b`` being ``page_table[b, clamp(pack_blocks[b],
     0, nb_max - 1)]`` when its residual filled, else its scratch page ``b``,
     clamped to ``[0, P - 1]``."""
     b, nb_max = page_table.shape
-    rl, full = append_residual(k_res, v_res, res_len, k_new, v_new, mask)
+    rl, full = append_residual(k_res, None if shared_kv else v_res, res_len, k_new, v_new,
+                               mask)
     rows = torch.arange(b, device=rl.device)
     blk = torch.clamp(pack_blocks.long(), 0, nb_max - 1)
     dest = torch.where(full, page_table[rows, blk], rows.to(torch.int32))
     dest = torch.clamp(dest, 0, kw_pool.shape[0] - 1)
     flush(kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool, k_res,
-          v_res, full.to(torch.int32), dest, bits=bits, block_n=block_n, k_gran=k_gran)
+          v_res, full.to(torch.int32), dest, bits=bits, block_n=block_n, k_gran=k_gran,
+          shared_kv=shared_kv)
     _commit_lengths(pack_blocks, res_len, rl, full)
     return kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool

@@ -112,7 +112,7 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.family not in (None, "attn"):
+    if args.family not in (None, "attn", "mla"):
         raise _unported(f"the {args.family} cache family", "10")
     if args.dense:
         raise _unported("the exact-length shim (--dense)", "10")

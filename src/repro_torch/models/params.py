@@ -62,6 +62,20 @@ def leaves(defs, prefix=()):
         yield from leaves(v, (*prefix, k))
 
 
+# elements of one float32 draw at most: a larger slice (deepseek-v3's 256
+# experts of one layer, 7.5 G elements) is drawn one sub-slice at a time
+_MAX_DRAW = 1 << 31
+
+
+def _draw(sl: torch.Tensor, std: float, gen: torch.Generator) -> None:
+    if sl.numel() > _MAX_DRAW and sl.dim() > 1:
+        for part in sl:
+            _draw(part, std, gen)
+        return
+    noise = torch.randn(sl.shape, generator=gen, dtype=torch.float32, device=gen.device)
+    sl.copy_(noise.mul_(std))
+
+
 def _init_leaf(p: P, gen: torch.Generator, device) -> torch.Tensor:
     out = torch.empty(p.shape, dtype=p.dtype, device=device)
     if p.init in ("zeros", "ones"):
@@ -69,8 +83,7 @@ def _init_leaf(p: P, gen: torch.Generator, device) -> torch.Tensor:
     # drawn one leading slice (layer) at a time, on the generator's device, so
     # a stacked leaf never needs a full float32 copy of itself
     for sl in out if out.dim() >= 3 else [out]:
-        noise = torch.randn(sl.shape, generator=gen, dtype=torch.float32, device=gen.device)
-        sl.copy_(noise * p.std)
+        _draw(sl, p.std, gen)
     return out
 
 

@@ -1,9 +1,9 @@
 """Decoder-only LM with the BitDecoding cache: the dense attention family
-(LLaMA-2/3, Gemma, StarCoder2, Command-R) and the MoE family (Qwen3-MoE):
-RMSNorm, ``(1 + w)`` RMSNorm or LayerNorm with bias; SwiGLU, GeGLU or GELU
-MLPs, with or without biases, or top-k MoE FFNs (``models/moe.py``);
-optional q/k RMSNorm; sequential or parallel residual; untied, tied or
-scaled embeddings.
+(LLaMA-2/3, Gemma, StarCoder2, Command-R), the MoE family (Qwen3-MoE) and
+MLA (DeepSeek-V3: ``models/mla.py``, a latent ``shared_kv`` cache): RMSNorm,
+``(1 + w)`` RMSNorm or LayerNorm with bias; SwiGLU, GeGLU or GELU MLPs, with
+or without biases, or top-k MoE FFNs (``models/moe.py``); optional q/k
+RMSNorm; sequential or parallel residual; untied, tied or scaled embeddings.
 
 The layers form stacks of one block kind each, as in the JAX package:
 ``[("mlp", n)]`` for a dense model, ``[("mlp", first_dense_layers), ("moe",
@@ -26,15 +26,15 @@ import torch
 from repro_torch.core import qcache
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as mattn
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, mla, moe
 from repro_torch.models.family import PagedSpec
-from repro_torch.models.params import init_tree, stack
+from repro_torch.models.params import P, init_tree, stack
 
 _LATER = "ROADMAP queue A, item 10 (the other model families)"
 
 
 def _check_supported(cfg) -> None:
-    if cfg.mixer != "attn":
+    if cfg.mixer not in ("attn", "mla"):
         raise NotImplementedError(f"mixer={cfg.mixer!r} is not ported yet: {_LATER}")
     if cfg.vision_stub:
         raise NotImplementedError(f"the vision stub is not ported yet: {_LATER}")
@@ -49,12 +49,16 @@ def _layer(tree, i: int):
 
 
 class DecoderLM:
-    """Dense or MoE decoder-only LM (attention mixer; MLP or MoE FFN, per
-    ``cfg``)."""
+    """Dense, MoE or MLA decoder-only LM (attention or MLA mixer; MLP or MoE
+    FFN, per ``cfg``)."""
 
     def __init__(self, cfg):
         _check_supported(cfg)
         self.cfg = cfg
+        self.mla = cfg.mixer == "mla"
+        # the mixer's prefill and decode: the same arguments for both kinds
+        self._prefill_attn = mla.mla_prefill_cache if self.mla else mattn.attn_prefill_cache
+        self._decode_attn = mla.mla_decode if self.mla else mattn.attn_decode
         if cfg.n_experts:
             fd = cfg.first_dense_layers
             self.stacks = ([("mlp", fd)] if fd else []) + [("moe", cfg.n_layers - fd)]
@@ -75,7 +79,8 @@ class DecoderLM:
 
     def _block_def(self, kind):
         cfg = self.cfg
-        defs = {"ln1": self._norm_def(), "attn": mattn.attn_def(cfg)}
+        defs = {"ln1": self._norm_def(),
+                "attn": mla.mla_def(cfg) if self.mla else mattn.attn_def(cfg)}
         if kind == "mlp":
             defs["mlp"] = layers.mlp_def(cfg.d_model, cfg.d_ff, cfg.act, cfg.attn_bias)
         elif kind == "moe":
@@ -94,6 +99,9 @@ class DecoderLM:
             defs["unembed"] = layers.unembed_def(cfg.d_model, cfg.padded_vocab)
         for i, (kind, n) in enumerate(self.stacks):
             defs[f"stack_{i}"] = stack(self._block_def(kind), n)
+        if cfg.mtp:  # the multi-token-prediction head: JAX's loss reads it, no forward path
+            defs["mtp"] = {"norm": layers.norm_def(cfg.norm, cfg.d_model),
+                           "proj": P((cfg.d_model, cfg.d_model))}
         return defs
 
     def init(self, gen: torch.Generator, device=None):
@@ -151,8 +159,10 @@ class DecoderLM:
         divergent suffix of each prompt, ``prior`` is a per-stack list of
         ``(k_prior, v_prior)`` (``[layers, B, T, H, d]``, dequantized shared
         pages; ``qcache.dequant_prior``) whose first ``prior_len[b]`` tokens
-        the suffix attends.  Positions start at ``prior_len``, the caches
-        hold suffix content only, and ``pos`` counts ``prior_len + lengths``.
+        the suffix attends; for MLA the pair is ``(latent, None)`` and each
+        layer expands the latent through its own up-projections.  Positions
+        start at ``prior_len``, the caches hold suffix content only, and
+        ``pos`` counts ``prior_len + lengths``.
         """
         if prior is not None and (lengths is None or prior_len is None):
             raise ValueError("suffix prefill needs lengths and prior_len")
@@ -170,10 +180,11 @@ class DecoderLM:
             layer_caches = []
             for li in range(n):
                 p = _layer(params[f"stack_{i}"], li)
-                x, cache = self._block(p, kind, x, lambda h: mattn.attn_prefill_cache(
+                layer_prior = None if prior is None else tuple(
+                    None if part is None else part[li] for part in prior[i])
+                x, cache = self._block(p, kind, x, lambda h: self._prefill_attn(
                     p["attn"], self.cfg, h, positions, max_seq, impl=impl,
-                    quant_impl=quant_impl, lengths=lengths,
-                    prior=None if prior is None else (prior[i][0][li], prior[i][1][li]),
+                    quant_impl=quant_impl, lengths=lengths, prior=layer_prior,
                     prior_len=prior_len,
                 ))
                 layer_caches.append(cache)
@@ -194,20 +205,30 @@ class DecoderLM:
         """Empty caches and positions on ``device`` (the card unless given)."""
         cfg = self.cfg
         device = resolve_device(device)
-        caches = []
-        for _, n in self.stacks:
-            one = [qcache.init_cache(
+
+        def one():
+            if self.mla:
+                return mla.mla_init_cache(cfg, batch_size, max_seq, device=device)
+            return qcache.init_cache(
                 batch_size, cfg.n_kv_heads, cfg.head_dim, max_seq, bits=cfg.kv_bits,
-                block_n=cfg.kv_block, k_gran=cfg.kv_gran, device=device,
-            ) for _ in range(n)]
-            caches.append(qcache.stack_caches(one))
+                block_n=cfg.kv_block, k_gran=cfg.kv_gran, device=device)
+
+        caches = [qcache.stack_caches([one() for _ in range(n)]) for _, n in self.stacks]
         return {"caches": caches,
                 "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device)}
 
     def paged_spec(self) -> PagedSpec:
-        """Declared cache family (``models/family.py``): split K/V pools,
-        suffix prefill supported (prefix sharing)."""
+        """Declared cache family (``models/family.py``): split K/V pools, or
+        for MLA one shared_kv latent pool of width kv_lora + qk_rope whose
+        first kv_lora channels are V; suffix prefill supported (prefix
+        sharing)."""
         cfg = self.cfg
+        if self.mla:
+            return PagedSpec(
+                paged=True, block_n=cfg.kv_block, n_kv_heads=1,
+                d_k=cfg.kv_lora + cfg.qk_rope, d_v=cfg.kv_lora, shared_kv=True,
+                page_layers=sum(n for _, n in self.stacks), supports_prior=True,
+            )
         return PagedSpec(
             paged=True, block_n=cfg.kv_block, n_kv_heads=cfg.n_kv_heads,
             d_k=cfg.head_dim, d_v=cfg.head_dim,
@@ -222,11 +243,15 @@ class DecoderLM:
         layers) the engine fills from its host mirror."""
         cfg = self.cfg
         device = resolve_device(device)
-        caches = [qcache.init_paged_cache(
-            n_pages, batch_size, cfg.n_kv_heads, cfg.head_dim, nb_max,
-            bits=cfg.kv_bits, block_n=cfg.kv_block, k_gran=cfg.kv_gran,
-            layers=n, device=device,
-        ) for _, n in self.stacks]
+        if self.mla:
+            caches = [mla.mla_init_paged_cache(cfg, n_pages, batch_size, nb_max, layers=n,
+                                               device=device) for _, n in self.stacks]
+        else:
+            caches = [qcache.init_paged_cache(
+                n_pages, batch_size, cfg.n_kv_heads, cfg.head_dim, nb_max,
+                bits=cfg.kv_bits, block_n=cfg.kv_block, k_gran=cfg.kv_gran,
+                layers=n, device=device,
+            ) for _, n in self.stacks]
         return {"caches": caches,
                 "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device)}
 
@@ -250,7 +275,7 @@ class DecoderLM:
             stacked = state["caches"][i]
             for li in range(n):
                 p = _layer(params[f"stack_{i}"], li)
-                x, _ = self._block(p, kind, x, lambda h: mattn.attn_decode(
+                x, _ = self._block(p, kind, x, lambda h: self._decode_attn(
                     p["attn"], self.cfg, h, positions, stacked.layer(li),
                     impl=impl, quant_impl=quant_impl, num_splits=num_splits,
                     mask=mask, draft_bits=draft_bits,

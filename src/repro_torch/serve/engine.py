@@ -198,9 +198,8 @@ class ServeEngine:
         if paged is False:
             raise _unported("the exact-length shim (paged=False)", "10")
         spec = model.paged_spec() if hasattr(model, "paged_spec") else None
-        if (spec is None or not spec.paged or spec.shared_kv or spec.side_state
-                or spec.exact_prefill):
-            raise _unported("serving a cache family other than split K/V attention", "10")
+        if spec is None or not spec.paged or spec.side_state or spec.exact_prefill:
+            raise _unported("serving a cache family other than attention or MLA", "10")
         if preempt_policy not in ("youngest", "fewest_pages"):
             raise ValueError(f"unknown preempt_policy {preempt_policy!r}")
         self.model = model
@@ -266,15 +265,19 @@ class ServeEngine:
         self.state = model.init_paged_decode_state(
             slots, n_pages=self.n_pages, nb_max=self.nb_max, device=self.device)
         first = self.state["caches"][0]
-        if first.kw.shape[-1] != spec.d_k or first.vw.shape[-1] != spec.d_v:
+        # a shared_kv (latent) pool has no V side: its V width is the declared one
+        d_v = spec.d_v if first.vw is None else first.vw.shape[-1]
+        if (first.kw.shape[-1] != spec.d_k or d_v != spec.d_v
+                or bool(first.shared_kv) != bool(spec.shared_kv)):
             raise ValueError(
                 "paged_spec() disagrees with init_paged_decode_state: declared "
-                f"(d_k={spec.d_k}, d_v={spec.d_v}) vs allocated "
-                f"(d_k={first.kw.shape[-1]}, d_v={first.vw.shape[-1]})")
+                f"(d_k={spec.d_k}, d_v={spec.d_v}, shared_kv={spec.shared_kv}) vs allocated "
+                f"(d_k={first.kw.shape[-1]}, d_v={d_v}, shared_kv={first.shared_kv})")
         # one page across every paged layer, measured from the pools
         self.kv_page_bytes = sum(
             getattr(pc, f).numel() * getattr(pc, f).element_size()
             for pc in self.state["caches"] for f in qcache._PAGED_POOL_FIELDS
+            if getattr(pc, f) is not None
         ) // self.n_pages
         self.pool = pg.PagePool(self.n_pages, n_scratch=slots,
                                 page_bytes=self.kv_page_bytes, metrics=self.metrics)

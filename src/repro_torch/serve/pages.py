@@ -334,11 +334,15 @@ def adopt_prefill(paged_caches: list, dense_caches: list, *, slot_ids: list[int]
             ridx, bidx, pidx = _ints(rows, dev), _ints(blks, dev), _ints(pages, dev)
             for f in _qc._PAGED_POOL_FIELDS:
                 pool, dn = getattr(pc, f), getattr(dc, f)
+                if pool is None:  # shared_kv: no V-side pools
+                    continue
                 # dn [L, m, H, nb, ...]; indices at dims 1 and 3 -> [N, L, H, ...]
                 pool[:, pidx] = dn[:, ridx, :, bidx].movedim(0, 1).to(pool.dtype)
         sidx, rrow = _ints(slot_ids, dev), _ints(range(len(slot_ids)), dev)
-        pc.k_res[:, sidx] = dc.k_res[:, rrow].to(pc.k_res.dtype)
-        pc.v_res[:, sidx] = dc.v_res[:, rrow].to(pc.v_res.dtype)
+        for f in ("k_res", "v_res"):
+            buf = getattr(pc, f)
+            if buf is not None:
+                buf[:, sidx] = getattr(dc, f)[:, rrow].to(buf.dtype)
         pc.pack_blocks[:, sidx] = _ints(pack, dev).to(torch.int32)
         pc.res_len[:, sidx] = _ints(res, dev).to(torch.int32)
     return paged_caches

@@ -94,14 +94,15 @@ class DraftPass(CapturedPass):
     def _buffers(self) -> list[torch.Tensor]:
         own = [self.tok0, self.drafts, self.dstate["pos"]]
         for c in self.dstate["caches"]:
-            own += [c.k_res, c.v_res, c.res_len]
+            own += [t for t in (c.k_res, c.v_res, c.res_len) if t is not None]
         return own
 
     def _body(self) -> None:
         for dc, c in zip(self.dstate["caches"], self.state["caches"]):
             n = c.k_res.shape[-2]
             dc.k_res[..., :n, :].copy_(c.k_res)
-            dc.v_res[..., :n, :].copy_(c.v_res)
+            if c.v_res is not None:  # shared_kv: K's residual alone
+                dc.v_res[..., :n, :].copy_(c.v_res)
             dc.res_len.copy_(c.res_len)
         self.dstate["pos"].copy_(self.state["pos"])
         tok = self.tok0[:, None]

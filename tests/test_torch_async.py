@@ -594,7 +594,7 @@ def test_serve_cli_async_runtime_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--family", "mla"], "10"), (["--dense"], "10"), (["--splitkv", "always"], "11"),
+    (["--dense"], "10"), (["--splitkv", "always"], "11"),
     (["--family", "hybrid"], "10"), (["--family", "xlstm"], "10"),
     (["--splitkv", "never"], "11"), (["--dense", "--spec-k", "2"], "10"),
 ])

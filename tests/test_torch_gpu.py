@@ -14,7 +14,10 @@ lse 1e-3); the draft read (``draft_bits``) of both decode kernels within
 the same tolerances, and the speculative passes' graphs bit for bit equal
 to their eager bodies; the MoE smoke model's kernels against its plain
 versions, its captured step bit for bit equal to the eager one, and its
-routing, dispatch and combine free of host syncs.  The plain versions are
+routing, dispatch and combine free of host syncs; the MLA latent cache's
+shared_kv modes of K2-K5 (bit for bit / within the decode tolerances), K6's
+padded route, the deepseek-v3 smoke model's kernels against its plain
+versions, its captured step and its freedom from host syncs.  The plain versions are
 held against the JAX package in test_torch_kernels.py, test_torch_paged.py
 and test_torch_flash_prefill.py.
 """
@@ -220,22 +223,137 @@ def test_bitdecode_kernel_matches_plain(cuda, case, num_splits):
 
 
 def test_plain_only_options_raise_on_the_card(cuda):
-    """shared_kv has no kernel: on the card it needs impl='torch', and
-    'auto' raises instead of falling back.  draft_bits has one: it launches
-    the kernel."""
+    """shared_kv at a width with no kernel instance (d_k 128): on the card it
+    needs impl='torch', and 'auto' raises instead of falling back.  The MLA
+    widths and draft_bits have kernels: they launch."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     args = _decode_args(gen, cuda, *DECODE_CASES[2])
     shared = args[:8] + [None] + args[9:]  # V is read from K: no V residual
     call = functools.partial(bd_ops.bitdecode_attention, *shared, bits=4, block_n=128,
                              k_gran="channel", shared_kv=True, d_v=64)
     for impl in ("auto", "cuda"):
-        with pytest.raises(ValueError, match="no CUDA kernel"):
+        with pytest.raises(ValueError, match="shared_kv mode takes"):
             call(impl=impl)
     assert torch.isfinite(call(impl="torch")).all()
+    _build.launches.clear()
+    q, kq, k_res, pb, rl = _latent_args(gen, cuda, 4, 160, 64, 4, [2, 1], [3, 4])
+    bd_ops.bitdecode_attention(q, *kq, None, None, None, k_res, None, pb, rl, bits=4,
+                               block_n=64, shared_kv=True, d_v=128, num_splits=1)
+    assert dict(_build.launches) == {"bitdecode": 1}
     _build.launches.clear()
     bd_ops.bitdecode_attention(*args, bits=4, block_n=128, k_gran="channel", draft_bits=2,
                                num_splits=1)
     assert dict(_build.launches) == {"bitdecode": 1}
+
+
+# ------------------------------------------ the shared_kv (MLA latent) mode
+
+# (B, g, d_k, d_v, block_n, bits, pack_blocks, res_len): the smoke config's
+# latent (160 / 128, g 4, block_n 64) and deepseek-v3's (576 / 512, g 128)
+LATENT_CASES = [
+    (2, 4, 160, 128, 64, 4, [4, 1], [37, 0]),
+    (2, 4, 160, 128, 64, 2, [0, 4], [5, 64]),
+    (2, 12, 160, 128, 64, 8, [3, 4], [64, 1]),
+    (4, 128, 576, 512, 128, 4, [4, 3, 1, 0], [0, 100, 127, 9]),
+    (2, 128, 576, 512, 128, 2, [2, 4], [128, 33]),
+    (2, 16, 576, 512, 128, 8, [4, 2], [16, 1]),
+]
+LATENT_SCALE = 1.0 / 192**0.5  # MLA's 1 / sqrt(qk_nope + qk_rope) at full width
+
+
+def _latent_args(gen, device, g, d, block_n, bits, pb, rl, b=2, nb=4, res_n=None):
+    """q [B, 1, g, d], the packed latent (words, scale, zero; per channel),
+    its residual [B, 1, res_n, d] and the lengths.  Per-channel offsets keep
+    the output (V = K's first channels) O(1)."""
+    off = 2.0 * torch.randn(d, generator=gen, device=device)
+    lat = (randn(gen, (b, 1, nb * block_n, d), device) + off).to(torch.bfloat16)
+    kq = kq_ops.quantize_kv(lat, bits, "channel", block_n=block_n, impl="torch")
+    q = randn(gen, (b, 1, g, d), device)
+    k_res = (randn(gen, (b, 1, res_n or block_n, d), device) + off).to(torch.bfloat16)
+    ints = functools.partial(torch.tensor, dtype=torch.int32, device=device)
+    return q, list(kq), k_res, ints(pb), ints(rl)
+
+
+@pytest.mark.parametrize("case", LATENT_CASES)
+def test_shared_kv_decode_kernels_match_plain(cuda, case):
+    """K3 and K4 (a scrambled table) in the shared_kv mode against their
+    plain versions (out 2e-2, lse 1e-3) at split counts 1, 3 and auto; K4 on
+    an identity table equals K3 bit for bit; the draft read 4 -> 2 bits
+    against its plain version."""
+    b, g, dk, dv, block_n, bits, pb, rl = case
+    gen = torch.Generator(device=cuda).manual_seed(g + dk + bits)
+    q, kq, k_res, pbt, rlt = _latent_args(gen, cuda, g, dk, block_n, bits, pb, rl, b=b)
+    order = torch.randperm(b * 4, generator=gen, device=cuda)
+    pools = [torch.empty_like(p).index_copy_(0, order, p) for p in _pools(kq)]
+    tables = {"scrambled": order.reshape(b, 4).to(torch.int32),
+              "identity": torch.arange(b * 4, dtype=torch.int32, device=cuda).reshape(b, 4)}
+    kw = dict(bits=bits, block_n=block_n, shared_kv=True, d_v=dv, sm_scale=LATENT_SCALE,
+              return_lse=True)
+
+    def dense(**x):
+        return bd_ops.bitdecode_attention(q, *kq, None, None, None, k_res, None, pbt, rlt,
+                                          **kw, **x)
+
+    def paged(table, pool=pools, **x):
+        return pg_ops.paged_bitdecode_attention(q, *pool, None, None, None, k_res, None,
+                                                table, pbt, rlt, **kw, **x)
+
+    draft = [2] if bits == 4 else []
+    for db in [None] + draft:
+        out_r, lse_r = dense(impl="torch", num_splits=1, draft_bits=db)
+        for ns in (1, 3, "auto"):
+            for name, call in (("dense", dense), ("paged", functools.partial(
+                    paged, tables["scrambled"]))):
+                out_k, lse_k = call(impl="cuda", num_splits=ns, draft_bits=db)
+                _assert_decode_close(out_k, lse_k, out_r, lse_r, pb, rl)
+        for ns in (1, 3):
+            d_out = dense(impl="cuda", num_splits=ns, draft_bits=db)
+            p_out = paged(tables["identity"], _pools(kq), impl="cuda", num_splits=ns,
+                          draft_bits=db)
+            assert torch.equal(d_out[0], p_out[0]) and torch.equal(d_out[1], p_out[1])
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("d", [160, 576])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_shared_kv_flush_kernels_match_plain_bitwise(cuda, paged, d, bits):
+    """K2 / K5 in the shared_kv mode (K alone, per channel, at the MLA
+    latent widths), mode "flush" once with mixed ``full`` and then mode
+    "append" over 2 * block_n + 5 steps (row 1 masked every third step),
+    every array and length equal to the plain version's after each call."""
+    b, block_n = 3, 128
+    gen = torch.Generator(device=cuda).manual_seed(d + bits)
+    lat = randn(gen, (b, 1, 6 * block_n, d), cuda)
+    kq = list(kq_ops.quantize_kv(lat, bits, "channel", block_n=block_n, impl="torch"))
+    arrays = (_pools(kq) if paged else kq)
+    k_res = randn(gen, (b, 1, block_n, d), cuda)
+    kw = dict(bits=bits, block_n=block_n, k_gran="channel", shared_kv=True)
+    flush = rf_ops.paged_residual_flush if paged else rf_ops.residual_flush
+    full = torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda)
+    dest = torch.tensor([7, 1, 40] if paged else [0, 1, 9], dtype=torch.int32, device=cuda)
+    twin = [x.clone() for x in arrays]
+    flush(*arrays, None, None, None, k_res, None, full, dest, impl="cuda", **kw)
+    flush(*twin, None, None, None, k_res, None, full, dest, impl="torch", **kw)
+    for x, y in zip(arrays, twin):
+        assert torch.equal(x, y)
+
+    ints = functools.partial(torch.tensor, dtype=torch.int32, device=cuda)
+    lens = [ints([0, 1, 0]), ints([5, 100, 127]), ints([0, 0, 0])]
+    if paged:
+        lens = [(b + torch.randperm(3 * b * 2 - b, generator=gen, device=cuda)[:b * 4]
+                 ).reshape(b, 4).to(torch.int32)] + lens
+    twin_a, twin_l = [x.clone() for x in arrays + [k_res]], [x.clone() for x in lens]
+    state_a = arrays + [k_res]
+    append = rf_ops.paged_append_flush if paged else rf_ops.append_flush
+    for step in range(2 * block_n + 5):
+        k_new = randn(gen, (b, 1, 1, d), cuda)
+        mask = torch.tensor([True, step % 3 != 1, True], device=cuda)
+        for arr, ln, impl in ((state_a, lens, "cuda"), (twin_a, twin_l, "torch")):
+            append(*arr[:3], None, None, None, arr[3], None, k_new, None, *ln, mask=mask,
+                   impl=impl, **kw)
+        for i, (x, y) in enumerate(zip(state_a + lens, twin_a + twin_l)):
+            assert torch.equal(x, y), f"field {i} differs after step {step}"
+    assert (lens[-3] >= 2).all() and not lens[-1].any()
 
 
 # ---------------------------------------------- the speculative draft read
@@ -335,6 +453,98 @@ def test_smoke_model_kernels_match_plain(cuda, arch):
     assert torch.equal(ct.pack_blocks, ck.pack_blocks) and torch.equal(ct.res_len, ck.res_len)
     for f in ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero"):
         np.testing.assert_array_equal(bits_of(getattr(ck, f)[0]), bits_of(getattr(ct, f)[0]))
+
+
+@pytest.mark.parametrize("moe_layer", [True, False], ids=["smoke", "mla_only"])
+def test_mla_smoke_model_kernels_match_plain(cuda, moe_layer):
+    """The deepseek-v3 smoke model (MLA: the latent through K1-K3 in the
+    shared_kv mode, the prefill through K6's padded route; a dense layer,
+    then an MoE layer) as the test above: kernels vs plain versions over a
+    ragged prefill and 30 decode steps fed the plain run's tokens, the
+    logits within rtol 2e-2 / atol 3e-1, layer 0's latent cache bit for
+    bit.  Its one MoE layer is the last, so a step's logits depend on that
+    step's routing alone: a row whose top-k set there differs between the
+    runs (a near tie of the router flipped by rounding-level differences,
+    as a plain run split three ways flips them; ROADMAP C) is not held to
+    the logits tolerance at that step, and such rows must be few.
+    ``mla_only`` (no experts: two dense layers) holds every row at every
+    step."""
+    from repro_torch.models import moe
+
+    change = {} if moe_layer else dict(n_experts=0)
+    cfg = smoke_config("deepseek-v3-671b").with_(**change)
+    model = build_model(cfg)
+    assert model.stacks == ([("mlp", 1), ("moe", 1)] if moe_layer else [("mlp", 2)])
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 100), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    lengths = torch.tensor([100, 60], dtype=torch.int32, device=cuda)
+    route = moe.route
+
+    def run(impl, feed=None):
+        sets = []  # per MoE call, the sorted top-k experts
+
+        def recorded(p, c, x):
+            out = route(p, c, x)
+            sets.append(out[2].sort(-1).values)
+            return out
+
+        moe.route = recorded
+        try:
+            logits, state = model.prefill(params, {"tokens": tokens}, 256, lengths=lengths,
+                                          impl=impl, quant_impl=impl)
+            out = [logits]
+            for i in range(30):
+                tok = logits[:, -1].argmax(-1)[:, None] if feed is None else feed[i]
+                logits, state = model.decode_step(params, state, tok, impl=impl,
+                                                  quant_impl=impl)
+                out.append(logits)
+        finally:
+            moe.route = route
+        return out, state, sets
+
+    with torch.no_grad():
+        out_t, s_t, sets_t = run("torch")
+        _build.launches.clear()
+        out_k, s_k, sets_k = run("auto", [o[:, -1].argmax(-1)[:, None] for o in out_t])
+    assert min(_build.launches[k] for k in ("kv_quant", "residual_flush", "bitdecode",
+                                            "flash_prefill")) > 0
+    assert _build.launches["kv_quant"] == cfg.n_layers  # the latent: one launch a layer
+    assert len(sets_k) == len(sets_t) == (31 if moe_layer else 0)
+    compared = 0
+    for i, (a, b) in enumerate(zip(out_k, out_t)):
+        rows = torch.ones(2, dtype=torch.bool, device=cuda)
+        if moe_layer:  # the set of the token whose logits these are
+            at = lengths.long() - 1 if i == 0 else torch.zeros(2, dtype=torch.long, device=cuda)
+            pick = torch.arange(2, device=cuda)
+            rows = (sets_k[i][pick, at] == sets_t[i][pick, at]).all(-1)
+        torch.testing.assert_close(a[rows], b[rows], rtol=2e-2, atol=3e-1, msg=f"step {i}")
+        compared += int(rows.sum())
+    assert compared >= 0.9 * 2 * len(out_k), compared
+    ct, ck = s_t["caches"][0], s_k["caches"][0]
+    assert torch.equal(ct.pack_blocks, ck.pack_blocks) and torch.equal(ct.res_len, ck.res_len)
+    assert ck.vw is None and ck.shared_kv
+    for f in ("kw", "k_scale", "k_zero", "k_res"):
+        np.testing.assert_array_equal(bits_of(getattr(ck, f)[0]), bits_of(getattr(ct, f)[0]))
+
+
+def test_padded_prefill_route_on_the_card(cuda):
+    """``blockwise_attention`` on the card at MLA's head dims (d_k 192, d_v
+    128: padded to the d = 256 instance): one flash_prefill launch, within
+    the kernel's tolerance (out 3e-2) of the plain loop on the unpadded
+    inputs; an instance's own dims take no padding."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    b, s, h = 2, 300, 8
+    q, k = randn(gen, (b, s, h, 192), cuda), randn(gen, (b, s, h, 192), cuda)
+    v = (randn(gen, (b, s, h, 128), cuda) + 2.0 * torch.randn(128, generator=gen, device=cuda)
+         ).to(torch.bfloat16)
+    scale = 1.0 / 192**0.5
+    _build.launches.clear()
+    got = catt.blockwise_attention(q, k, v, sm_scale=scale, impl="cuda")
+    assert dict(_build.launches) == {"flash_prefill": 1} and tuple(got.shape) == (b, s, h, 128)
+    want = catt.blockwise_attention(q, k, v, sm_scale=scale, impl="torch")
+    torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
+    assert catt.padded_head_dim(128, 128) == 128 and catt.padded_head_dim(64, 32) == 64
 
 
 # ------------------------------------------------------------ flash prefill
@@ -519,8 +729,8 @@ def test_decode_call_is_at_most_two_launches(cuda, num_splits):
 
 @pytest.mark.parametrize("change", [dict(g=17), dict(d=48), dict(d=96)])
 def test_decode_kernel_refuses_shapes_it_has_no_instance_for(cuda, change):
-    """g above one tile's 16 rows, or a head dim outside 32, 64, 128, 256:
-    ValueError from the wrapper, before any launch."""
+    """g above one tile's 16 rows (split K/V), or a head dim outside 32, 64,
+    128, 256: ValueError from the wrapper, before any launch."""
     g, d = change.get("g", 4), change.get("d", 128)
     gen = torch.Generator(device=cuda).manual_seed(6)
     args = _decode_args(gen, cuda, g, d, 64, 4, "channel", [2, 1], [3, 4], 1.0)
@@ -774,8 +984,9 @@ def test_append_kernel_refuses_what_it_cannot_take(cuda):
 
 
 def _state_fields(state) -> list:
+    """Every tensor of a decode state (a shared_kv cache has no V side)."""
     return [*(getattr(c, f) for c in state["caches"] for f in qcache._PAGED_FIELDS
-              if hasattr(c, f)), state["pos"]]
+              if getattr(c, f, None) is not None), state["pos"]]
 
 
 def _decode_state(model, params, cuda, *, paged):
@@ -830,6 +1041,16 @@ def moe_graph_model():
     return _moe_smoke()
 
 
+@pytest.fixture(scope="module")
+def mla_graph_model():
+    """The deepseek-v3 smoke model (MLA: one shared_kv latent head of 160
+    channels, g 4; a dense then an MoE stack), block_n 32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    model = build_model(smoke_config("deepseek-v3-671b").with_(kv_block=32))
+    return model, model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 def test_captured_step_equals_eager_bitwise(cuda, graph_model, paged):
     """40 replays of the captured step against 40 eager steps fed the same
@@ -849,6 +1070,13 @@ def test_captured_moe_step_equals_eager_bitwise(cuda, moe_graph_model, dense_fir
                      else moe_graph_model)
     assert len(model.stacks) == 1 + dense_first
     _captured_vs_eager(cuda, model, params, True)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_captured_mla_step_equals_eager_bitwise(cuda, mla_graph_model, paged):
+    """The same over the MLA smoke model's latent caches (dense and paged):
+    the absorbed decode, K2 / K3 (K4 / K5) in their shared_kv mode."""
+    _captured_vs_eager(cuda, *mla_graph_model, paged)
 
 
 def _captured_vs_eager(cuda, model, params, paged):
@@ -993,6 +1221,33 @@ def test_moe_dispatch_makes_no_host_sync(cuda, moe_graph_model):
         torch.cuda.set_sync_debug_mode(0)
     assert all(bool(torch.isfinite(o.float()).all()) for o in outs)
     assert bool(torch.isfinite(logits).all())
+
+
+def test_mla_step_makes_no_host_sync(cuda, mla_graph_model):
+    """The MLA smoke model's prefill (K6's padded route, K1 on the latent),
+    decode steps on a dense and on a paged latent cache (the absorbed
+    products, K2-K5 in the shared_kv mode, the MoE layer) run under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    model, params = mla_graph_model
+    cfg = model.cfg
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), device=cuda, generator=gen)
+    lengths = torch.tensor([40, 23], dtype=torch.int32, device=cuda)
+    with torch.no_grad():
+        paged = _decode_state(model, params, cuda, paged=True)
+    feed = torch.zeros((3, 1), dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        with torch.no_grad():
+            logits, state = model.prefill(params, {"tokens": tokens}, 96, lengths=lengths)
+            for _ in range(3):
+                logits, state = model.decode_step(params, state,
+                                                  logits[:, -1].argmax(-1)[:, None])
+                paged_logits, paged = model.decode_step(params, paged, feed)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(paged_logits).all())
 
 
 def test_capture_failure_raises_and_does_not_fall_back(cuda, graph_model):

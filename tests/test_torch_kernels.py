@@ -226,11 +226,20 @@ def test_decode_kernel_units_cover_every_block(bits, block_n, d):
                                res_n=block_n)
 
 
+@pytest.mark.parametrize("d_k, d_v, g", [(576, 512, 128), (576, 512, 17), (160, 128, 4)])
+def test_decode_kernel_shape_check_takes_latent_query_rows(d_k, d_v, g):
+    """The shared_kv mode takes up to 128 query rows per KV head (16-row
+    query tiles on the grid); the split K/V mode keeps one tile of 16."""
+    bd_ops.check_kernel_shapes(g=g, d_k=d_k, d_v=d_v, block_n=128, bits=4, npr=16,
+                               res_n=128, shared_kv=True)
+
+
 @pytest.mark.parametrize("change, match", [
     (dict(g=17), "query rows"), (dict(g=0), "query rows"), (dict(d_k=96, d_v=96), "d_k = d_v"),
     (dict(d_v=64), "d_k = d_v"), (dict(bits=3, npr=12), "bits 2, 4 or 8"),
     (dict(block_n=256, npr=32), "block_n"), (dict(block_n=16, npr=2), "block_n"), (dict(npr=8), "packed word rows"),
-    (dict(res_n=68), "multiple of 8")])
+    (dict(res_n=68), "multiple of 8"),
+    (dict(g=129, d_k=576, d_v=512, shared_kv=True), r"query rows per KV head \(shared_kv\)")])
 def test_decode_kernel_shape_check_raises(change, match):
     shape = dict(g=4, d_k=128, d_v=128, block_n=128, bits=4, npr=16, res_n=128) | change
     with pytest.raises(ValueError, match=match):

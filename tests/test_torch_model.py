@@ -114,7 +114,7 @@ def test_random_init_matches_jax_shapes_and_scales():
             assert path[-2:-1] == ("attn",) and jstd > want, (path, jstd, want)
 
 
-@pytest.mark.parametrize("change", [dict(mixer="mla"), dict(mixer="mamba2"),
+@pytest.mark.parametrize("change", [dict(mixer="mamba2"),
                                     dict(vision_stub=True),
                                     dict(mrope_sections=(8, 4, 4)),
                                     dict(mixer="xlstm"), dict(rope=False)])
