@@ -2,8 +2,9 @@
 """Drive the PyTorch port of BitDecoding on one NVIDIA GPU (written for an
 H100), from the kernels' build to full-width decoding and serving of
 llama3-8b (at full depth, by one-token cycles, on the async runtime and by
-self-speculation), gemma-7b, qwen3-moe-235b-a22b and deepseek-v3-671b (MLA),
-and the dense loop of starcoder2-3b and command-r-35b.
+self-speculation), gemma-7b, qwen3-moe-235b-a22b, deepseek-v3-671b (MLA)
+and zamba2-7b (the Mamba2 hybrid, at full depth), and the dense loop of
+starcoder2-3b and command-r-35b.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --jax-init   # the init-scale witness, see below
@@ -45,7 +46,13 @@ Phases:
      128, g 4), split counts 1, 3 and auto, scrambled and identity tables,
      the draft read 4 -> 2 bits; residual_flush and paged_residual_flush in
      shared_kv mode at d 160 and 576, both modes, bit for bit;
-     flash_prefill through the padded route at MLA's d_k 192 / d_v 128),
+     flash_prefill through the padded route at MLA's d_k 192 / d_v 128);
+     zamba2-7b's head dim 112: bitdecode and paged_bitdecode at its decode
+     shape (B 4, H_kv 32, g 1; bits 2, 4, 8, both K granularities, split
+     counts 1, 3 and auto, the draft read), residual_flush and
+     paged_residual_flush in both modes bit for bit (the append over 261
+     steps with a masked row), flash_prefill's padded route (112 -> 128) at
+     its prefill (B 4, 32 / 32 heads, S 2,000);
      then timed with CUDA events at the main paths' shapes beside
      its bound (bytes / 3.35 TB/s vs operations / peak rate): kv_quant at
      llama3-8b's and gemma-7b's prefill (K alone, V alone, the pair into the
@@ -59,7 +66,9 @@ Phases:
      flash_prefill also at long context (one 8,192-token prompt) and beside
      PyTorch's ``scaled_dot_product_attention`` (the yardstick;
      the port never calls it), with its TFLOP/s and share of the bound;
-     and the MLA modes at deepseek-v3's width (the ``mla_`` keys);
+     the MLA modes at deepseek-v3's width (the ``mla_`` keys), and the
+     d 112 instances at zamba2-7b's shapes beside their bounds, flash_prefill
+     there beside scaled_dot_product_attention (the ``zamba2_`` keys);
   3. the dense path end to end: llama3-8b at full width and depth (32
      layers, random bf16 weights from a seeded torch.Generator), 4 ragged
      prompts prefilled (flash_prefill) into the 4-bit cache, 160 greedy
@@ -136,8 +145,21 @@ Phases:
      plain run's top-8 sets forced holds every row at every step), then
      serve runs (a) and (e), the sharers' suffix prefills over a
      dequantized latent prior, (e) bit for bit equal to (a);
+  9. zamba2-7b at full width and full depth (81 layers: 13 super-blocks of
+     6 Mamba2 layers and the shared attention + MLP block, a tail of 3; 32
+     / 32 heads of d 112; random bf16 weights, ~6.79 B parameters): the
+     dense loop as in phase 5 with four prompts of exactly 2,000 tokens (the
+     hybrid prefills without lengths) and 96 steps, every row flushing once,
+     the kernel run's SSM states no further from the plain run's (relative
+     norm) than 1.5x the plain run split three ways; serve runs
+     (a), (e) and (g) (exact-length prefill groups, no prefix sharing, the
+     Mamba2 states spliced into the slots in place), (e) and (g) bit for bit
+     equal to (a); one decode step's device ms by part (the Mamba2 layers,
+     the attention kernels, the shared block's projections and MLP, the
+     rest) beside the step's bound, and the launches of a step and of a
+     prefill checked exactly;
   then ``repro_torch.launch.serve --async-runtime`` once at the smoke width;
-  9. a JSON line per kernel, the card's name and power limit, and the
+  10. a JSON line per kernel, the card's name and power limit, and the
      result line.
 
 Every kernel run (the dense loops' kernel runs, every serve run) counts the
@@ -155,6 +177,7 @@ check fails.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -197,9 +220,10 @@ KERNELS = {
                             replaces="src/repro/kernels/bitdecode/kernel.py:126"),
 }
 # dense and paged x ((bits, unit rows) x head dims x g <= 8 or 16 x K params per
-# channel or token, + the shared_kv latents: bits x d_k 160, 576 x g <= 8 or
-# 16) (bd_dispatch in csrc/bitdecode_body.cuh)
-DECODE_INSTANCES = 2 * (4 * 4 * 2 * 2 + 3 * 2 * 2)
+# channel or token, + (bits, unit rows) x d 112 at g <= 8 x K params, + the
+# shared_kv latents: bits x d_k 160, 576 x g <= 8 or 16) (bd_dispatch in
+# csrc/bitdecode_body.cuh)
+DECODE_INSTANCES = 2 * (4 * 4 * 2 * 2 + 4 * 2 + 3 * 2 * 2)
 BITWISE = ("kv_quant", "residual_flush", "paged_residual_flush")
 # phase 2's kv_quant cases (B, H, S, d, block_n): the head dims of every
 # config's cache (zamba2-7b 112, the MLA latents 160 and 576)
@@ -230,6 +254,25 @@ MOE_PARTS = ("route", "slots", "dispatch", "experts", "combine", "aux_loss")  # 
 # ~1.3 TB, fit no card): 3 dense layers and 1 MoE layer of 256 experts
 MLA = ("deepseek-v3-671b", {"n_layers": 4})
 MLA_PARTS = ("absorb_query", "absorb_output")  # models/mla.py: the absorbed products
+# phase 9: the Mamba2 hybrid at full width and full depth (81 layers: 13
+# super-blocks of 6 Mamba2 layers and the shared attention + MLP block, a tail
+# of 3; ~6.79 B parameters, 13.6 GB of bf16, fit one card); B 4 prompts of one
+# exact length (the hybrid prefills without lengths), 2,000 = 15 blocks + 80,
+# so 96 steps flush every row once
+HYBRID = "zamba2-7b"
+HYBRID_PROMPT, HYBRID_STEPS = 2000, 96
+HYBRID_PARTS = ("mamba_decode", "shared_decode")  # HybridLM's methods, timed by name
+# the hybrid's dense loop: the kernel run's Mamba2 states may depart from the
+# plain run's (relative norm) at most this many times as far as the plain run
+# split three ways does.  At 81 layers any rounding change opens about the
+# same gap (4.6e-2-4.8e-2 / 7.3e-2-7.7e-2 on an H100, split, kernels or a
+# plain prefill in 256-key blocks, two prompt seeds: kernels / split
+# 1.00-1.05; scripts/hybrid_ssm_spread.py)
+SSM_SPREAD = 1.5
+ZAMBA_KV = (32, 112)  # the shared block's cache: 32 KV heads of d 112 (g 1)
+# the hybrid's dense-loop cache after its steps: what phase 2 times at d 112
+ZAMBA_PB = [(HYBRID_PROMPT + HYBRID_STEPS) // BLOCK_N] * 4
+ZAMBA_RL = [(HYBRID_PROMPT + HYBRID_STEPS) % BLOCK_N] * 4
 # the latent cache after phase 8's dense loop (FAMILY_PROMPT_LENS + FAMILY_STEPS:
 # 4,814 tokens over B 4): pack_blocks and res_len, what phase 2 checks and times
 MLA_PB = [(n + FAMILY_STEPS) // BLOCK_N for n in FAMILY_PROMPT_LENS]
@@ -369,14 +412,16 @@ def fidelity(lg_ref, lg) -> dict:
 
 def decode_run(model, params, tokens, lengths, steps, impl, num_splits="auto", feed=None):
     """Prefill the ragged batch, then ``steps`` greedy decode steps (or the
-    tokens of ``feed``).  Returns (logits [steps + 1, B, V] of the last
-    position, state, prefill s, decode s per step)."""
+    tokens of ``feed``), the cache sized for :data:`PROFILE_STEPS` more.
+    Returns (logits [steps + 1, B, V] of the last position, state, prefill
+    s, decode s per step)."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, state = model.prefill(params, {"tokens": tokens}, tokens.shape[1] + steps,
-                                  lengths=lengths, impl=impl, quant_impl=impl)
+    logits, state = model.prefill(params, {"tokens": tokens},
+                                  tokens.shape[1] + steps + PROFILE_STEPS, lengths=lengths,
+                                  impl=impl, quant_impl=impl)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     out = [logits[:, -1]]
@@ -434,18 +479,32 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
     rows :func:`excused_rows` names, and then the kernels once more with
     the plain run's top-k sets forced, :func:`forced_routing`, every row at
     every step within it), every row flushed, and layer 0's cache bit for
-    bit.  With ``captured``, the kernel run's
-    steps once more as replays of the captured step (:func:`captured_loop`).
+    bit; for the hybrid (``split3`` required), its SSM states within
+    :data:`SSM_SPREAD` times the split run's gap from the plain run's, in
+    relative norm.  Without side state, the device profiles of a decode
+    step and a prefill, each against the parent's unfused append and fill
+    (:func:`device_profile`, :func:`prefill_profile`).  With ``captured``,
+    the kernel run's steps once more as replays of the captured step
+    (:func:`captured_loop`).
     For an MoE model, how alike the kernel run (and the split run) route
-    as the plain run does (:func:`routing_agreement`) and the device ms of
-    one decode step by part (:func:`moe_step_profile`).  Returns the report
-    and the kernels' launches in the kernel run."""
+    as the plain run does (:func:`routing_agreement`); for an MoE model and
+    for the hybrid, the device ms of one more decode step of the kernel
+    run by part (:func:`moe_step_profile`, :func:`hybrid_step_profile`).
+    Returns the report and the kernels' launches in the kernel run."""
     import torch
 
     from repro_torch.kernels import _build
 
     tokens, lengths = model_inputs(cfg, dev, prompt_lens)
     bn, name, moe = cfg.kv_block, cfg.name, bool(cfg.n_experts)
+    spec = model.paged_spec()
+    if spec.exact_prefill:  # the hybrid: every row real to its last token, no lengths
+        if len(set(prompt_lens)) != 1:
+            raise ValueError(f"{name} prefills at one exact length, got {prompt_lens}")
+        lengths = None
+    if spec.side_state and not split3:
+        raise ValueError(f"{name}: its SSM states are held against the split run (split3)")
+    attn_layers = spec.page_layers  # layers (invocations) with a quantized cache
 
     routes = {}
 
@@ -467,7 +526,8 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
         lg_p, st_p, pre_p, step_p = run("plain", "torch")
         peak_plain = torch.cuda.max_memory_allocated()
         feed = list(lg_p[:-1].argmax(-1)[:, :, None])
-        lg_p3 = run("plain_split3", "torch", feed, num_splits=3)[0] if split3 else None
+        lg_p3, st_p3 = (run("plain_split3", "torch", feed, num_splits=3)[:2] if split3
+                        else (None, None))
         torch.cuda.reset_peak_memory_stats()
         _build.launches.clear()
         with plain_calls() as plain:
@@ -487,12 +547,12 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
         check(launches.get(k, 0) > 0, f"{name}: {k} launched on the dense path "
                                       f"({launches.get(k, 0)})")
     check(not plain, f"{name}: no plain kernel version ran in the kernel run ({dict(plain)})")
-    check(launches.get("flash_prefill", 0) == cfg.n_layers,
-          f"{name}: flash_prefill once a layer in the prefill "
-          f"({launches.get('flash_prefill', 0)} launches, {cfg.n_layers} layers)")
-    check(launches.get("kv_quant", 0) == cfg.n_layers,
-          f"{name}: kv_quant once a layer for K and V in the prefill "
-          f"({launches.get('kv_quant', 0)} launches, {cfg.n_layers} layers)")
+    check(launches.get("flash_prefill", 0) == attn_layers,
+          f"{name}: flash_prefill once an attention layer in the prefill "
+          f"({launches.get('flash_prefill', 0)} launches, {attn_layers} layers)")
+    check(launches.get("kv_quant", 0) == attn_layers,
+          f"{name}: kv_quant once an attention layer for K and V in the prefill "
+          f"({launches.get('kv_quant', 0)} launches, {attn_layers} layers)")
     check(bool(torch.isfinite(lg_k).all()) and lg_k.shape == (steps + 1, b, cfg.padded_vocab),
           f"{name}: logits finite, shaped (the vocab padded to {cfg.padded_vocab})")
     c_p, c_k = st_p["caches"][0], st_k["caches"][0]
@@ -508,6 +568,21 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
               if getattr(c_k, f) is not None]  # a shared_kv latent has no V side
     check(all(layer0), f"{name}: layer 0's packed cache and residual bitwise equal between "
                        "the runs")
+    # the hybrid's Mamba2 states after the loop in relative norm, as the
+    # tests compare them: the kernel run's gap from the plain run, beside the
+    # gap the plain run split three ways opens by rounding alone
+    ssm_rel = {run_name: {path: ((st[path]["ssm"] - st_p[path]["ssm"]).norm()
+                                 / st_p[path]["ssm"].norm()).item()
+                          for path, _ in spec.side_state}
+               for run_name, st in (("kernels", st_k), ("plain_split3", st_p3))
+               if st is not None and spec.side_state}
+    if ssm_rel:
+        gaps = "; ".join(f"{r}: " + ", ".join(f"{k} {v:.2e}" for k, v in g.items())
+                         for r, g in ssm_rel.items())
+        check(all(g <= SSM_SPREAD * ssm_rel["plain_split3"][k]
+                  for k, g in ssm_rel["kernels"].items()),
+              f"{name}: the SSM states after {steps} steps as close to the plain run's as "
+              f"{SSM_SPREAD:g}x the split run's, in relative norm ({gaps})")
     # row i of the logits is decode step i (row 0: prefill); the first flush
     # happens in step `flush` and the step after it reads the flushed block
     flush = min(bn - n % bn for n in prompt_lens)
@@ -580,26 +655,9 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
         log(f"  {name}, {k} vs plain over {steps + 1} steps: mean KL {f['mean_kl']:.3e}; "
             f"greedy agreement {f['greedy_agreement']:.3f}; max |dlogit| "
             f"{f['max_abs_dlogit']:.3f}")
-    prof = device_profile(model, params, tokens, lengths)
-    log_profile(f"{name} decode step", prof)
-    pre = prefill_profile(model, params, tokens, lengths)
-    for p, how in ((pre, "the pair fill"), (pre["parent_fill"], "the parent's fill")):
-        log(f"  {name} prefill, {how} (torch.profiler): {p['kernels']} device kernels, "
-            f"{p['all_ms']:.3f} ms of kernels; kv_quant {p['kv_quant_kernels']} kernels, "
-            f"{p['kv_quant_ms']:.3f} ms")
-    if pre["all_ms"] > 0:  # else the profiler saw no device time: not measured
-        check(pre["kv_quant_kernels"] == cfg.n_layers
-              and pre["kernels"] < pre["parent_fill"]["kernels"],
-              f"{name}: the prefill runs kv_quant once a layer and fewer device kernels than "
-              f"the parent's fill ({pre['kernels']} vs {pre['parent_fill']['kernels']})")
-    if prof["all_ms_per_step"] > 0:  # else the profiler saw no device time: not measured
-        check(prof["decode_attention_ms_per_step"] > 0,
-              f"{name}: the profiler saw the decode attention's kernels on the card")
-        check(prof["kernels_per_step"] < prof["unfused"]["kernels_per_step"],
-              f"{name}: the fused append takes fewer device kernels a decode step "
-              f"({prof['kernels_per_step']:.0f} vs {prof['unfused']['kernels_per_step']:.0f})")
-    if moe:
-        prof["moe_step"] = moe_step_profile(model, params, cfg, tokens, lengths)
+    prof = pre = None
+    if not spec.side_state:  # the hybrid's step is read by part instead, below
+        prof, pre = profile_dense(model, params, cfg, check, tokens, lengths, attn_layers)
     report = {"prefill_s": {"plain": pre_p, "kernels": pre_k}, "device_profile": prof,
               "prefill_profile": pre,
               "decode_ms_per_step": {"plain": step_p * 1e3, "kernels": step_k * 1e3},
@@ -608,10 +666,44 @@ def dense_phase(model, params, cfg, check, dev, prompt_lens, steps, *, split3=Fa
               "mean_kl": fid["kernels"]["mean_kl"], "fidelity_vs_plain": fid, "batch": b,
               "prompt_lens": list(prompt_lens), "decode_steps": steps,
               "layers": cfg.n_layers, "launches": launches}
+    if ssm_rel:
+        report["ssm_state_rel_diff"] = ssm_rel
     if captured:
         report["captured"] = captured_loop(model, params, cfg, check, tokens, lengths, steps,
                                            feed, lg_k, st_k, step_k)
+    # one more step by part, continuing the kernel run (it advances st_k)
+    if moe:
+        prof["moe_step"] = moe_step_profile(model, params, cfg, st_k, lg_k[-1])
+    if spec.side_state:
+        report["step_by_part"] = hybrid_step_profile(model, params, cfg, st_k, lg_k[-1], check)
     return report
+
+
+def profile_dense(model, params, cfg, check, tokens, lengths, attn_layers):
+    """The dense loop's device profiles: three decode steps and one
+    prefill, each against the parent's unfused append and fill, with
+    their checks.  Returns (decode profile, prefill profile)."""
+    name = cfg.name
+    prof = device_profile(model, params, tokens, lengths)
+    log_profile(f"{name} decode step", prof)
+    pre = prefill_profile(model, params, tokens, lengths)
+    for p, how in ((pre, "the pair fill"), (pre["parent_fill"], "the parent's fill")):
+        log(f"  {name} prefill, {how} (torch.profiler): {p['kernels']} device kernels, "
+            f"{p['all_ms']:.3f} ms of kernels; kv_quant {p['kv_quant_kernels']} kernels, "
+            f"{p['kv_quant_ms']:.3f} ms")
+    if pre["all_ms"] > 0:  # else the profiler saw no device time: not measured
+        check(pre["kv_quant_kernels"] == attn_layers
+              and pre["kernels"] < pre["parent_fill"]["kernels"],
+              f"{name}: the prefill runs kv_quant once an attention layer and fewer device "
+              f"kernels than the parent's fill ({pre['kernels']} vs "
+              f"{pre['parent_fill']['kernels']})")
+    if prof["all_ms_per_step"] > 0:  # else the profiler saw no device time: not measured
+        check(prof["decode_attention_ms_per_step"] > 0,
+              f"{name}: the profiler saw the decode attention's kernels on the card")
+        check(prof["kernels_per_step"] < prof["unfused"]["kernels_per_step"],
+              f"{name}: the fused append takes fewer device kernels a decode step "
+              f"({prof['kernels_per_step']:.0f} vs {prof['unfused']['kernels_per_step']:.0f})")
+    return prof, pre
 
 
 @contextlib.contextmanager
@@ -719,15 +811,19 @@ def forced_routing(record):
 
 
 @contextlib.contextmanager
-def moe_ranges():
+def part_ranges():
     """Each part of the MoE FFN (``MOE_PARTS`` of ``models/moe.py``) inside a
-    ``torch.profiler`` range named ``moe.<part>``, and MLA's absorbed
-    products (``MLA_PARTS`` of ``models/mla.py``) inside ``mla.<part>``."""
+    ``torch.profiler`` range named ``moe.<part>``, MLA's absorbed products
+    (``MLA_PARTS`` of ``models/mla.py``) inside ``mla.<part>``, and the
+    hybrid's Mamba2 layers and shared block (``HYBRID_PARTS``, methods of
+    ``transformer.HybridLM``) inside ``HybridLM.<part>``."""
     from torch.profiler import record_function
 
     from repro_torch.models import mla, moe
+    from repro_torch.models.transformer import HybridLM
 
-    saved = [(mod, n, getattr(mod, n)) for mod, names in ((moe, MOE_PARTS), (mla, MLA_PARTS))
+    saved = [(mod, n, getattr(mod, n)) for mod, names in ((moe, MOE_PARTS), (mla, MLA_PARTS),
+                                                        (HybridLM, HYBRID_PARTS))
              for n in names]
 
     def ranged(name, fn):
@@ -737,7 +833,7 @@ def moe_ranges():
         return call
 
     for mod, n, fn in saved:
-        setattr(mod, n, ranged(f"{mod.__name__.rsplit('.', 1)[1]}.{n}", fn))
+        setattr(mod, n, ranged(f"{mod.__name__.rsplit('.', 1)[-1]}.{n}", fn))
     try:
         yield
     finally:
@@ -772,31 +868,38 @@ def plain_calls():
             setattr(mod, n, fn)
 
 
-def moe_parts(fn) -> tuple[dict, int]:
-    """One call of ``fn()`` under ``torch.profiler`` with :func:`moe_ranges`:
+def step_parts(fn) -> tuple[dict, int, dict]:
+    """One call of ``fn()`` under ``torch.profiler`` with :func:`part_ranges`:
     device ms of the expert products (``moe.experts``), of routing, dispatch
     and combine (the other MoE ranges, the auxiliary loss included), of MLA's
-    absorbed products (``mla.*``), of the attention kernels (K3/K4, the
-    merge, the append) and of the rest, and the count of device kernels.  A
-    kernel belongs to a range if the op that launched it ran inside it."""
+    absorbed products (``mla.*``), of the hybrid's Mamba2 layers and of its
+    shared block's torch ops (projections, norms, RoPE, MLP), of the
+    attention kernels (K3/K4, the merge, the append) and of the rest; the
+    count of device kernels, and of each device kernel by name.  A kernel
+    belongs to a range if the op that launched it ran inside it; the port's
+    own kernels are launched through ctypes, by no op, and count only under
+    the attention kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     labels = {f"moe.{n}": ("experts" if n == "experts" else "routing") for n in MOE_PARTS}
     labels |= {f"mla.{n}": "absorbed" for n in MLA_PARTS}
-    with moe_ranges(), torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                                            ProfilerActivity.CUDA]) as prof:
+    labels |= {"HybridLM.mamba_decode": "mamba", "HybridLM.shared_decode": "shared"}
+    with part_ranges(), torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                                             ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     events = prof.events()
     ranges = [(labels[e.name], e.thread, e.time_range.start, e.time_range.end) for e in events
               if e.device_type == DeviceType.CPU and e.name in labels]
-    us = dict.fromkeys(("all", "experts", "routing", "absorbed", "attention"), 0.0)
-    kernels = 0
+    us = dict.fromkeys(("all", "experts", "routing", "absorbed", "mamba", "shared",
+                        "attention"), 0.0)
+    kernels, by_name = 0, collections.Counter()
     for e in events:
         if e.device_type == DeviceType.CUDA and e.name not in labels:
             kernels += 1
+            by_name[e.name] += 1
             us["all"] += e.time_range.elapsed_us()
             if "bitdecode" in e.name or "residual_flush" in e.name:
                 us["attention"] += e.time_range.elapsed_us()
@@ -805,35 +908,46 @@ def moe_parts(fn) -> tuple[dict, int]:
                          and t0 <= e.time_range.start and e.time_range.end <= t1), None)
             if part is not None:
                 us[part] += sum(k.duration for k in e.kernels)
-    us["rest"] = us["all"] - us["experts"] - us["routing"] - us["absorbed"] - us["attention"]
-    return {f"{k}_ms": v / 1e3 for k, v in us.items()}, kernels
+    us["rest"] = us["all"] - sum(us[k] for k in ("experts", "routing", "absorbed", "mamba",
+                                                  "shared", "attention"))
+    return {f"{k}_ms": v / 1e3 for k, v in us.items()}, kernels, by_name
 
 
-def moe_step_profile(model, params, cfg, tokens, lengths) -> dict:
-    """One decode step of the MoE model on the kernels, from a fresh
-    prefill, by part (:func:`moe_parts`; the session with the median count
-    of device kernels of :data:`PROFILE_ROUNDS`), beside two bounds of the
-    expert products at 3.35 TB/s: all E experts' weights read (what the
-    step does: capacity 1 over every expert, as in JAX) and only the
-    experts that this step's rows route to; and of the whole step (every
-    weight but the embedding table read once)."""
+def step_profile(model, params, state, logits, *, routing=False):
+    """One eager decode step on the kernels by part (:func:`step_parts`, the
+    session with the median count of device kernels of
+    :data:`PROFILE_ROUNDS`), continuing a dense loop's kernel run from its
+    ``state`` and last ``logits`` [B, V]: a warm-up step first and, with
+    ``routing``, one step under :func:`routing_recorder`.  Returns (parts,
+    device kernels, device kernels by name, the recorded top-k sets, the
+    state after)."""
     import torch
 
+    box = {"state": state, "tok": logits.argmax(-1)[:, None]}
+
+    def step():
+        lg, box["state"] = model.decode_step(params, box["state"], box["tok"])
+        box["tok"] = lg[:, -1].argmax(-1)[:, None]
+
+    seen = []
     with torch.no_grad():
-        logits, state = model.prefill(params, {"tokens": tokens}, tokens.shape[1] + 4,
-                                      lengths=lengths)
-        box = {"state": state, "tok": logits[:, -1].argmax(-1)[:, None]}
-
-        def step():
-            lg, box["state"] = model.decode_step(params, box["state"], box["tok"])
-            box["tok"] = lg[:, -1].argmax(-1)[:, None]
-
         step()
-        with routing_recorder() as seen:
-            step()
+        if routing:
+            with routing_recorder() as seen:
+                step()
         torch.cuda.synchronize()
-        rounds = sorted((moe_parts(step) for _ in range(PROFILE_ROUNDS)), key=lambda r: r[1])
-    parts, kernels = rounds[len(rounds) // 2]
+        rounds = sorted((step_parts(step) for _ in range(PROFILE_ROUNDS)), key=lambda r: r[1])
+    return (*rounds[len(rounds) // 2], seen, box["state"])
+
+
+def moe_step_profile(model, params, cfg, state, logits) -> dict:
+    """The MoE model's decode step by part (:func:`step_profile`), beside two
+    bounds of the expert products at 3.35 TB/s: all E experts' weights read
+    (what the step does: capacity 1 over every expert, as in JAX) and only
+    the experts that this step's rows route to; and of the whole step
+    (every weight but the embedding table read once)."""
+    parts, kernels, _, seen, _ = step_profile(model, params, state, logits, routing=True)
+    b = logits.shape[0]
     d, f, e = cfg.d_model, cfg.d_expert, cfg.n_experts
     expert_bytes = d * 3 * f * 2  # wi [d, 2f] and wo [f, d], bf16
     routed = [int(t.unique().numel()) for _, t in seen]  # distinct experts a layer
@@ -849,8 +963,8 @@ def moe_step_profile(model, params, cfg, tokens, lengths) -> dict:
         log(f"  {cfg.name} decode step by part: the profiler saw no device time there "
             "(not measured)")
     else:
-        log(f"  {cfg.name} decode step by part (torch.profiler, one eager step, B="
-            f"{tokens.shape[0]}): {kernels} device kernels, {parts['all_ms']:.3f} ms; expert "
+        log(f"  {cfg.name} decode step by part (torch.profiler, one eager step, B={b}): "
+            f"{kernels} device kernels, {parts['all_ms']:.3f} ms; expert "
             f"products {parts['experts_ms']:.3f} ms (bound {out['experts_all_bound_ms']:.3f} "
             f"ms reading all {e} experts, {out['experts_routed_bound_ms']:.3f} ms reading the "
             f"{routed} routed a layer); routing + dispatch + combine + aux "
@@ -860,6 +974,74 @@ def moe_step_profile(model, params, cfg, tokens, lengths) -> dict:
             + f"attention kernels {parts['attention_ms']:.3f} ms; the rest "
             f"{parts['rest_ms']:.3f} ms; the whole step's bound {out['step_bound_ms']:.3f} ms "
             f"({out['step_routed_bound_ms']:.3f} reading only routed experts)")
+    return out
+
+
+def hybrid_step_profile(model, params, cfg, state, logits, check) -> dict:
+    """The hybrid's decode step by part (:func:`step_profile`): the Mamba2
+    layers, the shared block's attention kernels (K3, the merge, the K2
+    append), its projections and MLP, and the rest, beside the step's bound
+    at 3.35 TB/s: every Mamba2 weight and the unembedding read once, the
+    shared block's weights once an invocation, the SSM and conv states read
+    and written, the caches' valid words, params and residuals read.
+    Checks the step's launches exactly (one K3 and one K2 an invocation,
+    one merge with more than one split) and a prefill's of two blocks (one
+    K1 and one K6 an invocation), each in the median session of
+    :data:`PROFILE_ROUNDS`."""
+    import torch
+
+    from repro_torch.kernels.bitdecode import ops as bd_ops
+
+    t0 = time.perf_counter()
+    parts, kernels, by_name, _, state = step_profile(model, params, state, logits)
+    b, n_inv, dev = logits.shape[0], model.n_super, logits.device
+    short = torch.randint(0, cfg.vocab, (b, 2 * cfg.kv_block), device=dev,  # two blocks: every
+                          generator=torch.Generator(device=dev).manual_seed(1))  # K1, K6 runs
+    with torch.no_grad():
+        pre_events, _ = median_traced(
+            lambda: model.prefill(params, {"tokens": short}, short.shape[1] + 8))
+    cache = state["caches"][0]
+    h, d, bn = cache.kw.shape[2], cache.kw.shape[-1], cache.block_n
+    npr = cache.kw.shape[-2]
+    splits = bd_ops.resolve_num_splits(
+        "auto", b, h, bd_ops.work_units(cache.kw.shape[3], bn, cache.bits, bn), dev, g=1, d=d,
+        block_n=bn, bits=cache.bits)
+
+    def count(key):
+        return sum(c for n, c in by_name.items() if key in n)
+
+    want = {"bitdecode_kernel": n_inv, "residual_flush_kernel": n_inv,
+            "bitdecode_merge": n_inv if splits > 1 else 0}
+    got = {k: count(k) for k in want}
+    pre = {k: sum(c for n, (c, _) in pre_events.items() if k in n)
+           for k in ("kv_quant", "flash_prefill")}
+    if parts["all_ms"] == 0:
+        log(f"  {cfg.name} decode step by part: the profiler saw no device time (not measured)")
+    else:
+        check(got == want, f"{cfg.name}: one decode step launches {got} device kernels of the "
+                           f"attention path (want {want}: {n_inv} invocations, {splits} splits)")
+        check(pre == {"kv_quant": n_inv, "flash_prefill": n_inv},
+              f"{cfg.name}: one prefill launches {pre} (want one each an invocation, {n_inv})")
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in _leaves(tree))  # noqa: E731
+    weights = (nbytes(params["main"]) + nbytes(params.get("tail", {}))
+               + n_inv * nbytes(params["shared_attn"]) + nbytes(params["unembed"])
+               + nbytes(params["final_norm"]) + b * cfg.d_model * 2)
+    states = 2 * sum(nbytes(state[p]) for p in ("ssm_main", "ssm_tail") if p in state)
+    pb, rl = cache.pack_blocks[0].tolist(), cache.res_len[0].tolist()
+    caches = n_inv * (sum(pb) * h * (2 * npr * d * 4 + 2 * 2 * (d + bn)) + sum(rl) * h * 2 * d * 2)
+    out = dict(parts, kernels=kernels, launches=got, prefill_launches=pre, num_splits=splits,
+               weight_bytes=weights, state_bytes=states, cache_bytes=caches,
+               step_bound_ms=(weights + states + caches) / HBM_BYTES_PER_S * 1e3)
+    out["shared_proj_mlp_ms"] = out.pop("shared_ms")
+    out["mamba2_ms"] = out.pop("mamba_ms")
+    log(f"  {cfg.name} decode step by part (torch.profiler, one eager step, B={b}, median of "
+        f"{PROFILE_ROUNDS} sessions): {kernels} device kernels, {parts['all_ms']:.3f} ms; "
+        f"Mamba2 layers {out['mamba2_ms']:.3f} ms; the shared block's attention kernels (K3 + "
+        f"merge + K2 append) {parts['attention_ms']:.3f} ms; its projections, norms and MLP "
+        f"{out['shared_proj_mlp_ms']:.3f} ms; the rest {parts['rest_ms']:.3f} ms; the step's "
+        f"bound {out['step_bound_ms']:.3f} ms ({weights / 1e9:.2f} GB of weights, "
+        f"{states / 1e9:.2f} GB of states read and written, {caches / 1e9:.3f} GB of caches); "
+        f"the profiles took {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -879,8 +1061,8 @@ def captured_loop(model, params, cfg, check, tokens, lengths, steps, feed, lg_k,
 
     name = cfg.name
     with torch.no_grad():
-        _, state = model.prefill(params, {"tokens": tokens}, tokens.shape[1] + steps,
-                                 lengths=lengths)
+        _, state = model.prefill(params, {"tokens": tokens},  # sized as decode_run's
+                                 tokens.shape[1] + steps + PROFILE_STEPS, lengths=lengths)
         t0 = time.perf_counter()
         step = CapturedDecodeStep(model, params, state)
         t_capture = time.perf_counter() - t0
@@ -905,7 +1087,7 @@ def captured_loop(model, params, cfg, check, tokens, lengths, steps, feed, lg_k,
           f"{name} captured: every layer's cache and pos after {steps} replays bitwise equal "
           "to the eager kernel run's")
     launches = step.launches
-    check(all(step.capture_launches.get(k, 0) == cfg.n_layers
+    check(all(step.capture_launches.get(k, 0) == model.paged_spec().page_layers
               for k in ("bitdecode", "residual_flush", "bitdecode_merge"))
           and not eager_counted and step.replays == steps,
           f"{name} captured: one capture, {steps} replays; the capture counts each decode "
@@ -1034,6 +1216,9 @@ def traced(fn, calls) -> tuple[dict, float]:
 
 #: sessions whose median an exact count is read from (:func:`median_traced`)
 PROFILE_ROUNDS = 5
+# the steps :func:`step_profile` takes beyond a dense loop: a warm-up, one
+# recording the routing, PROFILE_ROUNDS profiled, one spare
+PROFILE_STEPS = PROFILE_ROUNDS + 3
 
 
 def median_traced(fn) -> tuple[dict, float]:
@@ -1269,9 +1454,10 @@ def serve_phase(model, params, cfg, check, dev, names="abcefgh", profile_replay=
         if name == "a":
             launches = dict(_build.launches)
             n_kq, calls = launches.get("kv_quant", 0), summ["prefill_calls"]
-            check(n_kq % cfg.n_layers == 0 and 0 < n_kq <= cfg.n_layers * calls,
-                  f"run (a): kv_quant once a layer in each prefill that packs a block "
-                  f"({n_kq} launches, {cfg.n_layers} layers, {calls} prefill calls)")
+            n_attn = engine.spec.page_layers
+            check(n_kq % n_attn == 0 and 0 < n_kq <= n_attn * calls,
+                  f"run (a): kv_quant once an attention layer in each prefill that packs a "
+                  f"block ({n_kq} launches, {n_attn} layers, {calls} prefill calls)")
         peak = torch.cuda.max_memory_allocated() / 2**30
         pool = engine.pool
         log(f"  run ({name}) {kw}: {summ['steps']} cycles, {summ['decoded_tokens']} tokens, "
@@ -1288,7 +1474,7 @@ def serve_phase(model, params, cfg, check, dev, names="abcefgh", profile_replay=
         check(pool.n_free == pool.capacity and pool.reserved == 0,
               f"run ({name}): pool drained ({pool.n_free}/{pool.capacity} free, "
               f"{pool.reserved} reserved)")
-        if name in "abefgh":
+        if name in "abefgh" and engine.spec.supports_prior:  # the hybrid shares no prefix
             check(summ["cow_copies"] > 0 and summ["sched_prefix_hit_blocks"] > 0,
                   f"run ({name}): copy on write ({summ['cow_copies']}) and prefix hits "
                   f"({summ['sched_prefix_hit_blocks']} blocks)")
@@ -1414,7 +1600,7 @@ def async_checks(engine, name, reqs, summ, counted, cfg, check, *, profile_repla
     shapes)."""
     runner = engine._runner
     step, comp = runner.step_fn, engine._completions
-    n = cfg.n_layers
+    n = engine.spec.page_layers
     check(step.graph is not None and step.replays == runner.dispatched == summ["steps"]
           and all(step.capture_launches.get(k, 0) == n for k in
                   ("paged_bitdecode", "paged_residual_flush", "bitdecode_merge")),
@@ -1469,7 +1655,7 @@ def spec_checks(engine, name, reqs, summ, counted, cfg, check, pairs) -> dict:
     import torch
 
     draft, verify = engine._draft, engine._verify
-    n = cfg.n_layers
+    n = engine.spec.page_layers
     check(draft.graph is not None and verify.graph is not None
           and verify.replays == summ["spec_cycles"] == summ["steps"]
           and 0 < draft.replays <= verify.replays
@@ -1611,7 +1797,8 @@ def main() -> int:
                 decode_regs[entry] = (decode_regs.get(entry, (0, 0))[0], int(spill.group(1)))
             if "Used" in line and any(f"ILi4ELi4ELi{dk}ELi{dv}ELi{nt}ELb1E" in entry
                                       for dk, dv, nt in ((128, 128, 1), (256, 256, 1),
-                                                         (128, 128, 2), (576, 128, 2))):
+                                                         (128, 128, 2), (576, 128, 2),
+                                                         (112, 112, 1))):
                 log(f"  ptxas: {entry[:48]}...: {line.split(':', 1)[-1].strip()}")
         elif "Compiling entry" in line or "Used" in line or "spill" in line or "C75" in line:
             log(f"  ptxas: {line.strip()}")
@@ -1638,7 +1825,7 @@ def main() -> int:
         log("  cuobjdump: not available (no HMMA / LDGSTS count)")
     else:
         for fn, cnt in sass.items():
-            if any(f"ILi4ELi4ELi{d}ELi{d}ELi1ELb1E" in fn for d in (128, 256)):
+            if any(f"ILi4ELi4ELi{d}ELi{d}ELi1ELb1E" in fn for d in (112, 128, 256)):
                 log(f"  sass {fn[:48]}...: HMMA {cnt['HMMA']}, LDGSTS {cnt['LDGSTS']}, "
                     f"MOVM {cnt['MOVM']}")
         check(len(sass) == DECODE_INSTANCES
@@ -1705,7 +1892,8 @@ def main() -> int:
                          f"block_n={bn}, bits 2/4/8 x both K granularities, guard blocks "
                          f"unchanged (failed: {fails})")
 
-    for b, h, nb, d, bn in ((4, 8, 18, 128, 128), (4, 2, 3, 32, 64)):
+    for b, h, nb, d, bn in ((4, 8, 18, 128, 128), (4, 2, 3, 32, 64),
+                            (4, ZAMBA_KV[0], 17, ZAMBA_KV[1], 128)):
         for bits in (2, 4, 8):
             for gran in ("channel", "tensor"):
                 k = randn(b, h, nb * bn, d)
@@ -1742,11 +1930,11 @@ def main() -> int:
         return bd_ops.resolve_num_splits(ns, b, h, units, dev, g=g, d=d, block_n=bn, bits=bits,
                                          k_channel=gran == "channel")
 
-    def check_decode(name, what, got, ref, pb, rl):
+    def decode_close(name, what, got, ref, pb, rl):
         """Rows with a valid token within out 2e-2 / lse 1e-3 of the plain
         version; a row with none (pack_blocks 0, res_len 0) o = 0 and lse
         ~ -1e37, as an empty split (the plain version has no defined value
-        there: a uniform softmax over masked slots)."""
+        there: a uniform softmax over masked slots).  Returns (ok, what)."""
         (out_k, lse_k), (out_r, lse_r) = got, ref
         live = torch.tensor([p > 0 or r > 0 for p, r in zip(pb, rl)], device=dev)
         note_err(name, out_k[live], out_r[live])
@@ -1754,10 +1942,14 @@ def main() -> int:
               and torch.allclose(lse_k[live], lse_r[live], rtol=1e-3, atol=1e-3)
               and not out_k[~live].any() and bool((lse_k[~live] < -1e36).all()))
         empty = int((~live).sum())
-        check(ok, f"{name} {what}: max|dout| {(out_k[live] - out_r[live]).abs().max().item():.2e} "
-                  f"(max|out| {out_r[live].abs().max().item():.2f}), max|dlse| "
-                  f"{(lse_k[live] - lse_r[live]).abs().max().item():.2e}"
-                  + (f"; {empty} empty row(s): o = 0, lse < -1e36" if empty else ""))
+        return ok, (f"{name} {what}: max|dout| "
+                    f"{(out_k[live] - out_r[live]).abs().max().item():.2e} (max|out| "
+                    f"{out_r[live].abs().max().item():.2f}), max|dlse| "
+                    f"{(lse_k[live] - lse_r[live]).abs().max().item():.2e}"
+                    + (f"; {empty} empty row(s): o = 0, lse < -1e36" if empty else ""))
+
+    def check_decode(name, what, got, ref, pb, rl):
+        check(*decode_close(name, what, got, ref, pb, rl))
 
     # B, H_kv, g, d, nb, block_n, bits, K granularity, pack_blocks, res_len
     llama = (4, 8, 4, 128, 18, 128, 4, "channel", [14, 15, 16, 16], [108, 80, 2, 52])
@@ -1968,6 +2160,51 @@ def main() -> int:
                       f"paged_bitdecode == bitdecode bit for bit, shared_kv {what}, identity "
                       f"table, num_splits={ns}")
 
+    # K3 and K4 at zamba2-7b's decode shape (B 4, H_kv 32, g 1, d 112: PV's
+    # last 32-channel group half full): bits 2, 4, 8, both K granularities,
+    # split counts 1, 3 and auto, rows of unequal lengths (one with no
+    # packed block, one with a full residual); K4 on a scrambled table and on
+    # the identity (bit for bit K3); the normal read and the draft read (4 ->
+    # 2, 8 -> 4, 2 -> 1 bits).  One check a (bits, granularity, read)
+    zh, zd = ZAMBA_KV
+    zpb, zrl, znb = [16, 15, 0, 16], [48, 127, 100, 128], 17
+    for bits_, gran in itertools.product((2, 4, 8), ("channel", "tensor")):
+        case = decode_case(4, zh, 1, zd, znb, BLOCK_N, bits_, gran, zpb, zrl)
+        pools = pools_of(case)
+        order = torch.randperm(4 * znb, generator=gen, device=dev)
+        arrays = {"scrambled": [torch.empty_like(p_).index_copy_(0, order, p_) for p_ in pools],
+                  "identity": pools}
+        tables = {"scrambled": order.reshape(4, znb).to(torch.int32),
+                  "identity": torch.arange(4 * znb, dtype=torch.int32, device=dev).reshape(
+                      4, znb)}
+        kw = dict(bits=bits_, block_n=BLOCK_N, k_gran=gran, return_lse=True)
+        for db in (None, {4: 2, 8: 4, 2: 1}[bits_]):
+            what = (f"zamba2-7b decode shape B=4 H={zh} g=1 d={zd} bits={bits_} {gran}"
+                    + ("" if db is None else f", draft read -> {db} bits"))
+            ref = bd_ops.bitdecode_attention(**case, impl="torch", num_splits=1, draft_bits=db,
+                                             **kw)
+            fails, worst = [], ""
+            for ns in (1, 3, "auto"):
+                got = bd_ops.bitdecode_attention(**case, impl="cuda", num_splits=ns,
+                                                 draft_bits=db, **kw)
+                ok, msg = decode_close("bitdecode", f"num_splits={ns}", got, ref, zpb, zrl)
+                fails += [] if ok else [msg]
+                worst = msg
+                for kind in ("scrambled", "identity"):
+                    pg_ = pg_ops.paged_bitdecode_attention(
+                        case["q"], *arrays[kind], case["k_res"], case["v_res"], tables[kind],
+                        case["pack_blocks"], case["res_len"], impl="cuda", num_splits=ns,
+                        draft_bits=db, **kw)
+                    ok, msg = decode_close("paged_bitdecode", f"{kind} num_splits={ns}", pg_,
+                                           ref, zpb, zrl)
+                    if kind == "identity" and not (torch.equal(pg_[0], got[0])
+                                                   and torch.equal(pg_[1], got[1])):
+                        ok, msg = False, f"paged_bitdecode != bitdecode, identity, {ns} splits"
+                    fails += [] if ok else [msg]
+            check(not fails, f"bitdecode and paged_bitdecode (scrambled and identity tables, "
+                             f"the identity bit for bit bitdecode), {what}, num_splits 1 / 3 / "
+                             f"auto: {fails or worst}")
+
     # one call on the card is at most two launches: the kernel, and the
     # merge when it runs as more than one split
     case = decode_case(*llama)
@@ -2004,27 +2241,27 @@ def main() -> int:
               f"{(got[1] - ref[1]).abs().max().item():.2e}")
 
     n_pages = SERVE_SLOTS * (SERVE_MAX_SEQ // BLOCK_N) + SERVE_SLOTS  # the serve pool
-    for bits in (2, 4, 8):
-        for gran in ("channel", "tensor"):
-            b, h, d, bn = 4, 8, 128, BLOCK_N
-            pool = [*kq_ops.quantize_kv(randn(1, h, n_pages * bn, d), bits, gran, block_n=bn),
-                    *kq_ops.quantize_kv(randn(1, h, n_pages * bn, d), bits, "tensor", block_n=bn)]
-            pool = [x[0].movedim(1, 0).contiguous() for x in pool]
-            res = [randn(b, h, bn, d), randn(b, h, bn, d)]
-            full, dest = ints([1, 0, 1, 1]), ints([37, 1, 90, n_pages + 50])  # clamps to P-1
-            before = [x.clone() for x in pool]
-            twin = [x.clone() for x in pool]
-            kw = dict(bits=bits, block_n=bn, k_gran=gran)
-            out = rf_ops.paged_residual_flush(*pool, *res, full, dest, impl="cuda", **kw)
-            ref = rf_ops.paged_residual_flush(*twin, *res, full, dest, impl="torch", **kw)
-            kept = torch.tensor([p for p in range(n_pages) if p not in (37, 90, n_pages - 1)],
-                                device=dev)
-            for o, r in zip(out, ref):
-                note_err("paged_residual_flush", o, r)
-            check(all(bitwise(o, r) for o, r in zip(out, ref))
-                  and all(bitwise(o[kept], b0[kept]) for o, b0 in zip(out, before)),
-                  f"paged_residual_flush bitwise P={n_pages} bits={bits} {gran}, mixed full, "
-                  "dest past P-1; every other page unchanged")
+    for (h, d), bits, gran in itertools.product(((8, 128), ZAMBA_KV), (2, 4, 8),
+                                                ("channel", "tensor")):
+        b, bn = 4, BLOCK_N
+        pool = [*kq_ops.quantize_kv(randn(1, h, n_pages * bn, d), bits, gran, block_n=bn),
+                *kq_ops.quantize_kv(randn(1, h, n_pages * bn, d), bits, "tensor", block_n=bn)]
+        pool = [x[0].movedim(1, 0).contiguous() for x in pool]
+        res = [randn(b, h, bn, d), randn(b, h, bn, d)]
+        full, dest = ints([1, 0, 1, 1]), ints([37, 1, 90, n_pages + 50])  # clamps to P-1
+        before = [x.clone() for x in pool]
+        twin = [x.clone() for x in pool]
+        kw = dict(bits=bits, block_n=bn, k_gran=gran)
+        out = rf_ops.paged_residual_flush(*pool, *res, full, dest, impl="cuda", **kw)
+        ref = rf_ops.paged_residual_flush(*twin, *res, full, dest, impl="torch", **kw)
+        kept = torch.tensor([p for p in range(n_pages) if p not in (37, 90, n_pages - 1)],
+                            device=dev)
+        for o, r in zip(out, ref):
+            note_err("paged_residual_flush", o, r)
+        check(all(bitwise(o, r) for o, r in zip(out, ref))
+              and all(bitwise(o[kept], b0[kept]) for o, b0 in zip(out, before)),
+              f"paged_residual_flush bitwise P={n_pages} H={h} d={d} bits={bits} {gran}, "
+              "mixed full, dest past P-1; every other page unchanged")
 
     # residual_flush's append mode (the decode step's cache update) against
     # its plain version over APPEND_STEPS consecutive steps, dense and
@@ -2032,7 +2269,7 @@ def main() -> int:
     # every step: rows start at different res_len so they fill on different
     # steps, row 3 is masked every fourth step, every row flushes twice or
     # more; then every block or page the run did not flush into is unchanged
-    def append_run(paged, h, d, bits, gran):
+    def append_run(paged, h, d, bits, gran, steps=APPEND_STEPS):
         b, bn, nb = 4, BLOCK_N, 6
         name = "paged_residual_flush" if paged else "residual_flush"
         arrays = [*kq_ops.quantize_kv(randn(b, h, nb * bn, d), bits, gran, block_n=bn),
@@ -2050,7 +2287,7 @@ def main() -> int:
         fn = rf_ops.paged_append_flush if paged else rf_ops.append_flush
         kw = dict(bits=bits, block_n=bn, k_gran=gran)
         bad_step = None
-        for step in range(APPEND_STEPS):
+        for step in range(steps):
             k_new = randn(b, 1, h, d).transpose(1, 2)  # the model's strided views
             v_new = randn(b, 1, 2 * h, d)[:, :, h:].transpose(1, 2)
             mask = torch.tensor([True, True, True, step % 4 != 3], device=dev)
@@ -2073,7 +2310,7 @@ def main() -> int:
                 kept += [bitwise(x[r, :, :pb_s[r]], x0[r, :, :pb_s[r]])
                          and bitwise(x[r, :, pb_e[r]:], x0[r, :, pb_e[r]:]) for r in range(b)]
         check(bad_step is None and min(flushed) >= 2 and all(kept) and not lens[-1].any(),
-              f"{name} append mode bitwise over {APPEND_STEPS} steps B={b} H={h} d={d} "
+              f"{name} append mode bitwise over {steps} steps B={b} H={h} d={d} "
               f"bits={bits} {gran}{', scrambled table' if paged else ''}, row 3 masked every "
               f"fourth step: flushes {flushed}, first differing step {bad_step}, untouched "
               f"{'pages' if paged else 'blocks'} unchanged {all(kept)}, counter back at 0")
@@ -2083,6 +2320,12 @@ def main() -> int:
             for bits in (2, 4, 8):
                 for gran in ("channel", "tensor"):
                     append_run(paged, h, d, bits, gran)
+    # zamba2-7b's caches (H 32, d 112: per-token statistics over 14 of 16
+    # lanes) over 2 * block_n + 5 steps: every row still flushes twice
+    for paged in (False, True):
+        for bits in (2, 4, 8):
+            for gran in ("channel", "tensor"):
+                append_run(paged, ZAMBA_KV[0], ZAMBA_KV[1], bits, gran, steps=2 * BLOCK_N + 5)
 
     # the MLA latent's flush and append (shared_kv: K alone, per channel) at
     # d 160 and 576, dense and paged (a scrambled table), bits 2, 4, 8: mode
@@ -2197,6 +2440,29 @@ def main() -> int:
           and torch.allclose(lse_k, lse_r, rtol=1e-3, atol=1e-3),
           f"flash_prefill padded route (MLA d_k 192 / d_v 128 -> 256) B=1 Hq=Hkv=128 S=1200: "
           f"one launch {one}, max|dout| {(got.float() - want).abs().max().item():.2e} (max|out| "
+          f"{want.abs().max().item():.2f}), max|dlse| {(lse_k - lse_r).abs().max().item():.2e}")
+    del q_, k_, v_, pad, got, want
+    # zamba2-7b's prefill (B 4, 32 / 32 heads, S 2,000, d 112 zero-padded to
+    # the d = 128 instance, the default scale 1 / sqrt(112)) through the
+    # same route against the plain loop on the unpadded inputs; its lse, the
+    # kernel's on the padded inputs against the plain version's
+    q_, k_ = randn(4, HYBRID_PROMPT, zh, zd), randn(4, HYBRID_PROMPT, zh, zd)
+    v_ = v_off(randn(4, HYBRID_PROMPT, zh, zd))
+    _build.launches.clear()
+    got = catt.blockwise_attention(q_, k_, v_, impl="cuda")
+    one = dict(_build.launches) == {"flash_prefill": 1}
+    want = catt.blockwise_attention(q_, k_, v_, impl="torch")
+    note_err("flash_prefill", got, want)
+    pad = [torch.nn.functional.pad(x, (0, 128 - zd)) for x in (q_, k_, v_)]
+    lse_k, lse_r = (fp_ops.flash_prefill_attention(*pad, sm_scale=1.0 / zd**0.5, layout="bshd",
+                                                   impl=impl, return_lse=True)[1]
+                    for impl in ("cuda", "torch"))
+    check(one and got.shape == want.shape
+          and torch.allclose(got.float(), want, rtol=3e-2, atol=3e-2)
+          and torch.allclose(lse_k, lse_r, rtol=1e-3, atol=1e-3),
+          f"flash_prefill padded route (zamba2-7b d 112 -> 128) B=4 Hq=Hkv={zh} "
+          f"S={HYBRID_PROMPT}: one launch {one}, max|dout| "
+          f"{(got.float() - want).abs().max().item():.2e} (max|out| "
           f"{want.abs().max().item():.2f}), max|dlse| {(lse_k - lse_r).abs().max().item():.2e}")
     del q_, k_, v_, pad, got, want
     torch.cuda.synchronize()
@@ -2341,6 +2607,9 @@ def main() -> int:
     for key, (b_, h_, g_, d_) in (("gemma_", (4, 16, 1, 256)), ("starcoder2_", (4, 2, 12, 128))):
         nb_fam = -(-(max(FAMILY_PROMPT_LENS) + FAMILY_STEPS) // bn)
         time_decode(key, False, b_, h_, g_, d_, pb_fam, rl_fam, decode_cache(False, b_, h_, d_, nb_fam))
+    # zamba2-7b's dense loop at its end (2,096 tokens a row), and the draft read
+    time_decode("zamba2_", False, 4, zh, 1, zd, ZAMBA_PB, ZAMBA_RL,
+                decode_cache(False, 4, zh, zd, znb), draft=True)
     # the merge alone at the llama3-8b call's split count
     s_ = stats["bitdecode"]["num_splits"]
     o_p = torch.randn((s_, b, h, g, d), generator=gen, device=dev)
@@ -2363,7 +2632,8 @@ def main() -> int:
              ).reshape(b, nb_max).to(torch.int32)
     pb_serve, rl_serve = [10, 20, 7, 13], [100, 60, 30, 90]  # a mid-run decode step
     time_decode("", True, b, h, g, d, pb_serve, rl_serve, pool, table, draft=True)
-    for key, (b_, h_, g_, d_) in (("gemma_", (4, 16, 1, 256)), ("starcoder2_", (4, 2, 12, 128))):
+    for key, (b_, h_, g_, d_) in (("gemma_", (4, 16, 1, 256)), ("starcoder2_", (4, 2, 12, 128)),
+                                  ("zamba2_", (4, zh, 1, zd))):
         time_decode(key, True, b_, h_, g_, d_, pb_serve, rl_serve,
                     decode_cache(True, b_, h_, d_, nb_max), table)
 
@@ -2426,7 +2696,7 @@ def main() -> int:
 
     floor_ms = time_ms(lambda: torch.cuda._sleep(0))  # an empty kernel: the launch floor
     for paged in (False, True):
-        for key, (h_, d_) in (("", (h, d)), ("gemma_", (16, 256))):
+        for key, (h_, d_) in (("", (h, d)), ("gemma_", (16, 256)), ("zamba2_", ZAMBA_KV)):
             time_flush(paged, h_, d_, key)
     # flash_prefill at the dense prefills' shapes (llama3-8b in phase 3,
     # gemma-7b in phase 5) and at long context (llama3-8b, one 8,192-token
@@ -2581,6 +2851,32 @@ def main() -> int:
         f"{st['mla_library_ms'] * 1e3:.1f} us (ours / sdpa {st['mla_vs_library']:.2f}), bound "
         f"{st['mla_bound_ms'] * 1e3:.2f} us ({st['mla_bound_by']})")
     del q, k, v, qh, kh, vh
+    # K6 through the padded route at zamba2-7b's prefill (B 4, S 2,000, 32 /
+    # 32 heads, d 112 -> 128, pad copies and slice included), beside
+    # scaled_dot_product_attention on the unpadded [B, H, S, d] inputs
+    b_, s_ = 4, HYBRID_PROMPT
+    q, k, v = randn(b_, s_, zh, zd), randn(b_, s_, zh, zd), randn(b_, s_, zh, zd)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    st = stats["flash_prefill"]
+    st["zamba2_ms"] = time_ms(lambda: catt.blockwise_attention(q, k, v, impl="cuda"))
+    st["zamba2_plain_ms"] = time_ms(lambda: catt.blockwise_attention(q, k, v, impl="torch"),
+                                    iters=3)
+    st["zamba2_library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True))
+    nbytes = 2 * 4 * q.numel()  # q, k, v in, o out, unpadded bf16
+    ops = 4 * b_ * zh * zd * (s_ * (s_ + 1) // 2)  # QK^T and PV over the causal half
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    st["zamba2_bound_ms"] = max(t_bytes, t_ops)
+    st["zamba2_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    st["zamba2_shape"] = dict(B=b_, Hq=zh, Hkv=zh, S=s_, d=zd, padded_to=128)
+    st["zamba2_share_of_bound"] = st["zamba2_bound_ms"] / st["zamba2_ms"]
+    st["zamba2_vs_library"] = st["zamba2_ms"] / st["zamba2_library_ms"]
+    log(f"  time flash_prefill zamba2_{st['zamba2_shape']} (the padded route, pad copies and "
+        f"slice included): {st['zamba2_ms'] * 1e3:.1f} us ({st['zamba2_share_of_bound']:.1%} of "
+        f"the bound), plain {st['zamba2_plain_ms'] * 1e3:.1f} us, scaled_dot_product_attention "
+        f"{st['zamba2_library_ms'] * 1e3:.1f} us (ours / sdpa {st['zamba2_vs_library']:.2f}), "
+        f"bound {st['zamba2_bound_ms'] * 1e3:.2f} us ({st['zamba2_bound_by']})")
+    del q, k, v, qh, kh, vh
     for name, st in stats.items():
         if name != "flash_prefill":  # its shapes are printed above
             log(f"  time {name}: kernel {st['ms'] * 1e3:.1f} us, plain {st['plain_ms'] * 1e3:.1f} "
@@ -2686,12 +2982,38 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------ 9. hybrid
+    name = HYBRID
+    log(f"== 9. {name} at full width and depth: the dense loop and the engine on the Mamba2 "
+        f"hybrid (at {time.perf_counter() - t_start:.1f} s)")
+    t_hyb = time.perf_counter()
+    cfg, model, params, n = build_random(name, dev)
+    log(f"  hybrid: {model.n_super} super-blocks of {cfg.attn_every} Mamba2 layers and the "
+        f"shared attention + MLP block, a tail of {model.tail}; Mamba2 d_inner "
+        f"{cfg.mamba_d_inner}, {cfg.mamba_heads} heads, ssm_state {cfg.ssm_state}, groups "
+        f"{cfg.mamba_groups}, chunk {cfg.mamba_chunk}")
+    rep = dense_phase(model, params, cfg, check, dev, (HYBRID_PROMPT,) * 4, HYBRID_STEPS,
+                      split3=True)
+    sv = serve_phase(model, params, cfg, check, dev, names="aeg", profile_replay=False)
+    for k in SERVE_PATH:
+        cnt = sv["launches"].get(k, 0)
+        check(cnt > 0, f"{name}: {k} launched in serve run (a) ({cnt})")
+    family[name] = rep | {"n_params": n, "cut": None, "serve": sv["report"],
+                          "serve_launches": sv["launches"],
+                          "async_launches": sv["async_launches"],
+                          "spec_launches": sv["spec_launches"],
+                          "phase_s": time.perf_counter() - t_hyb}
+    log(f"  phase 9 took {family[name]['phase_s']:.1f} s")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -------------------------------------------------------------- the CLI
     log(f"== the serve CLI, async runtime, smoke llama3-8b (at "
         f"{time.perf_counter() - t_start:.1f} s)")
     cli = serve_cli(check)
 
-    # ------------------------------------------------------------ 9. summary
+    # ------------------------------------------------------------ 10. summary
     rows = []
     for name, meta in KERNELS.items():
         st = stats[name]
@@ -2706,6 +3028,8 @@ def main() -> int:
             if "serve_launches" in rep:
                 by_path[f"{fam} serve (a)"] = rep["serve_launches"].get(name, 0)
                 by_path[f"{fam} serve (e), async"] = rep["async_launches"].get(name, 0)
+            for r, cnt in rep.get("spec_launches", {}).items():
+                by_path[f"{fam} serve ({r}), spec"] = cnt.get(name, 0)
         rows.append({
             "name": name, "route": "cuda", **meta, "launches": launches.get(name, 0),
             "serve_launches": serve["launches"].get(name, 0),
@@ -2721,7 +3045,7 @@ def main() -> int:
                                                     "num_splits", "shape")
                or k.startswith(("gemma_", "long_", "starcoder2_", "unfused_", "flush_mode_",
                                 "bound_ms_no_flush", "launch_floor", "v_", "pair_",
-                                "fill_parent_", "draft_", "mla_"))
+                                "fill_parent_", "draft_", "mla_", "zamba2_"))
                or k in ("tflops", "share_of_bound", "vs_library")},
         })
     total_s = time.perf_counter() - t_start

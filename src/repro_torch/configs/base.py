@@ -1,7 +1,7 @@
-"""Architecture configuration for the attention-family models the port runs.
+"""Architecture configuration for the models the port runs.
 
 A copy of the fields of the JAX package's ``ArchConfig`` that the dense,
-MoE and MLA decoder paths read, with the JAX defaults.  ``mixer``, ``vision_stub``,
+MoE, MLA and Mamba2-hybrid paths read, with the JAX defaults.  ``mixer``, ``vision_stub``,
 ``mrope_sections`` and ``rope`` exist so that a config asking for what the
 port does not run yet is refused by
 :class:`repro_torch.models.transformer.DecoderLM`.
@@ -58,6 +58,14 @@ class ArchConfig:
     v_head_dim: int = 0
     mtp: bool = False
 
+    # SSM / hybrid (zamba2: a shared attention block every attn_every Mamba2 layers)
+    ssm_state: int = 0
+    mamba_heads: int = 0
+    mamba_d_inner: int = 0
+    mamba_groups: int = 1
+    mamba_chunk: int = 256
+    attn_every: int = 0
+
     # BitDecoding KV cache
     kv_bits: int = 4
     kv_block: int = 128
@@ -78,7 +86,7 @@ class ArchConfig:
 
 
 _REGISTRY = ["llama3_8b", "llama2_7b", "gemma_7b", "starcoder2_3b", "command_r_35b",
-             "qwen3_moe_235b_a22b", "deepseek_v3_671b"]
+             "qwen3_moe_235b_a22b", "deepseek_v3_671b", "zamba2_7b"]
 
 
 def _mod_name(name: str) -> str:

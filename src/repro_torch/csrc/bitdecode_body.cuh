@@ -176,15 +176,21 @@ struct BdShape {
   static constexpr int SUB = 8 / W;       // fragment rows sharing a word row
   static constexpr int MT = W * R / 16;   // 16-token tiles of a packed unit
   static constexpr int KC = DK / 16;      // k steps of QK^T
-  static constexpr int OT = DV / 16;      // channel tiles of PV
+  // PV takes V's channels 32 at a time, as two 16-channel tiles: a head dim
+  // that is not a multiple of 32 (zamba2's 112) ends in a half-full group
+  // whose upper lanes' channels do not exist (their A fragments are zero,
+  // their outputs never written)
+  static constexpr int MP = (DV + 31) / 32;  // 32-channel groups of PV
+  static constexpr int OT = 2 * MP;          // channel tiles of PV
   static constexpr int G = 8 * NT;        // query rows, padded
   // shared-memory row strides (elements), chosen so a warp's fragment loads
-  // hit distinct banks
-  static constexpr int KLD = DK + 16;     // K words, int32
-  static constexpr int VLD = DV + 4;      // V words, int32
-  static constexpr int KRLD = DK + 16;    // residual K, bf16
-  static constexpr int VRLD = DV + 8;     // residual V, bf16
-  static constexpr int QLD = DK + 16;     // Q, bf16
+  // hit distinct banks: K words at 16 mod 32 words, bf16 rows at 16 mod 64
+  // elements (DK 112 is already 16 mod 32)
+  static constexpr int KLD = DK % 32 ? DK : DK + 16;      // K words, int32
+  static constexpr int VLD = DV + 4;                      // V words, int32
+  static constexpr int KRLD = DK % 32 ? DK + 32 : DK + 16;  // residual K, bf16
+  static constexpr int VRLD = DV + 8;                     // residual V, bf16
+  static constexpr int QLD = KRLD;                        // Q, bf16
   static constexpr int KP = DK > 128 ? DK : 128;  // K params a block (per channel or token)
   // one stage (bytes): a packed unit or a residual unit (no V words, V
   // params or V residual when shared_kv)
@@ -276,7 +282,8 @@ __device__ __forceinline__ void packed_unit(const unsigned char* st, const bf16*
                                             uint32_t* pbuf, int qg, int npr, uint32_t keep,
                                             float sm_scale, int vb,
                                             float (&m_run)[NT][2], float (&l_run)[NT][2],
-                                            float (&o)[DV / 16][NT][4]) {
+                                            float (&o)[BdShape<BITS, W, DK, DV, NT,
+                                                               SH>::OT][NT][4]) {
   using S = BdShape<BITS, W, DK, DV, NT, SH>;
   const int lane = threadIdx.x & 31, gam = lane >> 2, tig = lane & 3;
   const int32_t* kw_s = reinterpret_cast<const int32_t*>(st);
@@ -389,9 +396,15 @@ __device__ __forceinline__ void packed_unit(const unsigned char* st, const bf16*
     }
     const int sh0 = pre + BITS * (2 * S::SUB * j), sh1 = sh0 + BITS;
 #pragma unroll
-    for (int mp = 0; mp < DV / 32; ++mp) {
-      const uint4 a4 = *reinterpret_cast<const uint4*>(v0 + 32 * mp);
-      const uint4 b4 = *reinterpret_cast<const uint4*>(v1 + 32 * mp);
+    for (int mp = 0; mp < S::MP; ++mp) {
+      // the thread's channels 32 mp + 4 gam .. + 3 exist (always, but in
+      // the half-full last group of a head dim 16 mod 32)
+      const bool live = 32 * mp + 4 * gam < DV;
+      uint4 a4 = make_uint4(0u, 0u, 0u, 0u), b4 = a4;
+      if (live) {
+        a4 = *reinterpret_cast<const uint4*>(v0 + 32 * mp);
+        b4 = *reinterpret_cast<const uint4*>(v1 + 32 * mp);
+      }
       const uint32_t w0[4] = {static_cast<uint32_t>(a4.x) & keep, static_cast<uint32_t>(a4.y) & keep,
                               static_cast<uint32_t>(a4.z) & keep, static_cast<uint32_t>(a4.w) & keep};
       const uint32_t w1[4] = {static_cast<uint32_t>(b4.x) & keep, static_cast<uint32_t>(b4.y) & keep,
@@ -412,11 +425,14 @@ __device__ __forceinline__ void packed_unit(const unsigned char* st, const bf16*
 #pragma unroll
       for (int x = 0; x < 2; ++x) {
         const int cl = 2 * x, ch = 2 * x + 1;
+        // a missing channel's A rows are zero: its zero words would
+        // dequantize to the zero point
+        const uint32_t mask = live ? 0xffffffffu : 0u;
         const uint32_t a[4] = {
-            pack_bf16(dv_at(w0[cl], sh0, 0, 0, cl), dv_at(w1[cl], sh0, 1, 0, cl)),
-            pack_bf16(dv_at(w0[ch], sh0, 0, 0, ch), dv_at(w1[ch], sh0, 1, 0, ch)),
-            pack_bf16(dv_at(w0[cl], sh1, 0, 1, cl), dv_at(w1[cl], sh1, 1, 1, cl)),
-            pack_bf16(dv_at(w0[ch], sh1, 0, 1, ch), dv_at(w1[ch], sh1, 1, 1, ch))};
+            mask & pack_bf16(dv_at(w0[cl], sh0, 0, 0, cl), dv_at(w1[cl], sh0, 1, 0, cl)),
+            mask & pack_bf16(dv_at(w0[ch], sh0, 0, 0, ch), dv_at(w1[ch], sh0, 1, 0, ch)),
+            mask & pack_bf16(dv_at(w0[cl], sh1, 0, 1, cl), dv_at(w1[cl], sh1, 1, 1, cl)),
+            mask & pack_bf16(dv_at(w0[ch], sh1, 0, 1, ch), dv_at(w1[ch], sh1, 1, 1, ch))};
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) mma_bf16(o[2 * mp + x][nt], a, pb[nt][0], pb[nt][1]);
       }
@@ -433,7 +449,8 @@ template <int BITS, int W, int DK, int DV, int NT, bool SH>
 __device__ __forceinline__ void residual_unit(const unsigned char* st, const bf16* q_s,
                                               int valid, float sm_scale, int vb,
                                               float (&m_run)[NT][2], float (&l_run)[NT][2],
-                                              float (&o)[DV / 16][NT][4]) {
+                                              float (&o)[BdShape<BITS, W, DK, DV, NT,
+                                                               SH>::OT][NT][4]) {
   using S = BdShape<BITS, W, DK, DV, NT, SH>;
   const int lane = threadIdx.x & 31, gam = lane >> 2, tig = lane & 3;
   const bf16* kr_s = reinterpret_cast<const bf16*>(st);
@@ -464,9 +481,12 @@ __device__ __forceinline__ void residual_unit(const unsigned char* st, const bf1
   constexpr int VRLD = SH ? S::KRLD : S::VRLD;
   const bf16* vt = (SH ? kr_s + vb : vr_s) + 4 * gam;
 #pragma unroll
-  for (int mp = 0; mp < DV / 32; ++mp) {
-    const uint2 u0 = *reinterpret_cast<const uint2*>(vt + (2 * tig) * VRLD + 32 * mp);
-    const uint2 u1 = *reinterpret_cast<const uint2*>(vt + (2 * tig + 1) * VRLD + 32 * mp);
+  for (int mp = 0; mp < S::MP; ++mp) {
+    uint2 u0 = make_uint2(0u, 0u), u1 = u0;  // a missing channel: bf16 zeros
+    if (32 * mp + 4 * gam < DV) {
+      u0 = *reinterpret_cast<const uint2*>(vt + (2 * tig) * VRLD + 32 * mp);
+      u1 = *reinterpret_cast<const uint2*>(vt + (2 * tig + 1) * VRLD + 32 * mp);
+    }
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       const uint32_t w0 = x ? u0.y : u0.x, w1 = x ? u1.y : u1.x;
@@ -643,8 +663,10 @@ __device__ __forceinline__ void bitdecode_body(const BdArgs& a, CellOf cell_of) 
 #pragma unroll
       for (int t = 0; t < S::OT; ++t) {
         const int c = 32 * (t >> 1) + 4 * gam + 2 * (t & 1);
-        acc_s[(warp * S::G + gi) * DV + c] = o[t][nt][e];
-        acc_s[(warp * S::G + gi) * DV + c + 1] = o[t][nt][2 + e];
+        if (c < DV) {  // c even, DV a multiple of 16: c + 1 < DV too
+          acc_s[(warp * S::G + gi) * DV + c] = o[t][nt][e];
+          acc_s[(warp * S::G + gi) * DV + c + 1] = o[t][nt][2 + e];
+        }
       }
     }
   }
@@ -676,7 +698,7 @@ __device__ __forceinline__ void bitdecode_body(const BdArgs& a, CellOf cell_of) 
 // Calls f(bits, W, DK, NT) as integral constants for every (bits, W, d,
 // NT) the kernels have: bits 2, 4, 8 with block_n 32, 64, 128; d 32, 64,
 // 128, 256; NT 1 (g <= 8) or 2 (g > 8, in tiles of 16 rows); W as
-// bd_unit_rows picks it.
+// bd_unit_rows picks it; and d 112 (zamba2-7b, g = 1) at NT 1.
 template <class F>
 static cudaError_t bd_dispatch_shape(int bits, int w, int d, int nt, F&& f) {
 #define BD_CASE(BI, WW, DD, NN)                                                              \
@@ -689,6 +711,7 @@ static cudaError_t bd_dispatch_shape(int bits, int w, int d, int nt, F&& f) {
   BD_CASES_D(32, NN) BD_CASES_D(64, NN) BD_CASES_D(128, NN) BD_CASES_D(256, NN)
   BD_CASES_N(1)
   BD_CASES_N(2)
+  BD_CASES_D(112, 1)
 #undef BD_CASES_N
 #undef BD_CASES_D
 #undef BD_CASE

@@ -27,8 +27,10 @@
 //    the tokens), only its own tokens per token.  The statistics come out
 //    of the staging: each thread keeps the min / max of its 8 channels,
 //    combined by shuffles and one shared-memory pass (per channel), or by
-//    shuffles within the lanes of one token (per token).  Then every thread
-//    packs words from shared memory.
+//    shuffles within the lanes of one token (per token: a power of two of
+//    lanes a token, those past its d / 8 chunks idle and holding the
+//    min / max identities, so zamba2's d 112 takes 16 lanes for its 14
+//    chunks).  Then every thread packs words from shared memory.
 //  * Bitwise contract with the plain version (core/quantizer.py), as K1's
 //    (kv_quant.cu; the params from common.cuh's commit_params): scale =
 //    bf16(max(__fdiv_rn(max - min, qmax), 1e-6)), zero = bf16(min), q =
@@ -56,8 +58,8 @@
 //    multiple of 8 up to 576 (the latents 160 and 576): the channel
 //    statistics reduce one shared-memory slot a chunk row of the staging
 //    pass, whatever the lanes of a chunk; the 128 x 576 bf16 tile (147 KB)
-//    fits the opt-in shared memory.  Per-token statistics keep the warp
-//    rule (d / 8 a power of two up to 32).
+//    fits the opt-in shared memory.  Per-token statistics take any multiple
+//    of 8 up to 256 (d / 8 chunks on at most 32 lanes of one warp).
 #include "common.cuh"
 
 namespace {
@@ -112,14 +114,20 @@ __global__ void __launch_bounds__(FL_THREADS) residual_flush_kernel(const FlushA
   const int block_n = a.block_n, d = t ? a.d[1] : a.d[0];
   const int npr = block_n / CPW;
   const bool channel = t == 0 && a.k_channel;
-  // a thread's 8-channel chunk of a token row (the same in every pass); the
-  // threads past the last whole chunk row stage nothing
-  const int C = d >> 3, ch = tid % C, per_pass = FL_THREADS / C;
-  const bool stager = tid < per_pass * C;
+  // a thread's 8-channel chunk of a token row (the same in every pass): a
+  // row takes L lanes, its C chunks' and, per token, up to the next power of
+  // two, so that shuffles reduce within a row's lanes; the threads past the
+  // last whole chunk row, and a row's lanes past C, stage nothing
+  const int C = d >> 3;
+  int L = C;
+  if (!channel)
+    while (L & (L - 1)) L += L & -L;  // C rounded up to a power of two
+  const int ch = tid % L, per_pass = FL_THREADS / L;
+  const bool stager = ch < C && tid < per_pass * L;
 
   // append: the new token's chunk, loaded before the lengths are known
   uint4 nv = make_uint4(0u, 0u, 0u, 0u);
-  if (APPEND) {
+  if (APPEND && ch < C) {
     const bf16* nw = (t ? a.nw[1] + b * a.n_sb[1] + h * a.n_sh[1]
                         : a.nw[0] + b * a.n_sb[0] + h * a.n_sh[0]) + ch * 8;
     uint32_t v[4];
@@ -204,7 +212,7 @@ __global__ void __launch_bounds__(FL_THREADS) residual_flush_kernel(const FlushA
     uint4 u[FL_BATCH];
 #pragma unroll
     for (int p = 0; p < FL_BATCH; ++p) {
-      const int j = j0 + p * per_pass + tid / C, tok = token_of(j);
+      const int j = j0 + p * per_pass + tid / L, tok = token_of(j);
       if (j >= rows || !stager) continue;
       u[p] = APPEND && step && tok == at  // the new token, not its residual row
                  ? nv
@@ -212,7 +220,7 @@ __global__ void __launch_bounds__(FL_THREADS) residual_flush_kernel(const FlushA
     }
 #pragma unroll
     for (int p = 0; p < FL_BATCH; ++p) {
-      const int j = j0 + p * per_pass + tid / C;
+      const int j = j0 + p * per_pass + tid / L;
       float tmn = INFINITY, tmx = -INFINITY;
       if (j < rows && stager) {
         float f[8];
@@ -226,8 +234,8 @@ __global__ void __launch_bounds__(FL_THREADS) residual_flush_kernel(const FlushA
           tmx = fmaxf(tmx, f[e]);
         }
       }
-      if (!channel) {  // one token's C lanes are neighbours in one warp
-        for (int o = 1; o < C; o <<= 1) {
+      if (!channel) {  // one token's L lanes are neighbours in one warp
+        for (int o = 1; o < L; o <<= 1) {
           tmn = fminf(tmn, __shfl_xor_sync(0xffffffffu, tmn, o));
           tmx = fmaxf(tmx, __shfl_xor_sync(0xffffffffu, tmx, o));
         }
@@ -237,7 +245,7 @@ __global__ void __launch_bounds__(FL_THREADS) residual_flush_kernel(const FlushA
   }
   if (APPEND && a.paged && tid == 0) s_cell = min(max(page, 0), a.n_cells - 1) * a.H + h;
   if (channel) {  // each chunk row's partials into its slot, then across the slots
-    const int slot = tid / C;
+    const int slot = tid / L;
     if (stager) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
@@ -333,11 +341,10 @@ cudaError_t flush_dispatch(int bits, const FlushArgs& a, int units, int npr, siz
   }
 }
 
-// 8-channel chunks, a power of two of them up to a warp; per-channel K any
+// 8-channel chunks: up to a warp of them per token, per-channel K any
 // multiple of 8 up to 576
 bool flush_head_dim_ok(int d, bool channel) {
-  if (channel && d >= 8 && d <= 576 && d % 8 == 0) return true;
-  return d >= 8 && d <= 256 && (d & (d - 1)) == 0;
+  return d >= 8 && d % 8 == 0 && d <= (channel ? 576 : 256);
 }
 
 }  // namespace

@@ -31,9 +31,12 @@ WARPS = 4              # warps a CTA (BD_WARPS in csrc/bitdecode_body.cuh)
 RES_TOKENS = 8         # bf16 tokens a residual unit (BD_RES_TOKENS)
 UNITS_PER_WARP = 2     # "auto": the units a warp takes from a full row
 WAVES = 2              # "auto": at most this many waves of resident CTAs
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 256)
 BLOCK_NS = (32, 64, 128)
 MAX_G = 16
+# head dims whose instances take one 8-row query tile only (g <= 8): zamba2's
+# 112 (g = 1), the half-full last 32-channel group of PV
+ONE_TILE_DIMS = (112,)
 # shared_kv instances: the MLA latent widths (smoke config, full width), V
 # chunks of LATENT_DV channels a CTA, K's params per channel, W = 4, g up to
 # LATENT_MAX_G (deepseek-v3's 128 query heads on one latent head)
@@ -96,7 +99,7 @@ def check_kernel_shapes(*, g: int, d_k: int, d_v: int, block_n: int, bits: int, 
     elif d_k not in HEAD_DIMS or d_v != d_k:
         raise ValueError(f"the CUDA decode kernel takes d_k = d_v in {HEAD_DIMS}, got "
                          f"d_k={d_k}, d_v={d_v}")
-    max_g = LATENT_MAX_G if shared_kv else MAX_G
+    max_g = LATENT_MAX_G if shared_kv else 8 if d_k in ONE_TILE_DIMS else MAX_G
     if not 1 <= g <= max_g:
         raise ValueError(f"the CUDA decode kernel takes 1 to {max_g} query rows per KV head"
                          f"{' (shared_kv)' if shared_kv else ''}, got g={g}")

@@ -19,9 +19,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.residual_flush import ref as _ref
 
-# head dims: any of these; per-channel K also multiples of 8 up to MAX_CHANNEL_DIM
-# (the MLA latents 160 and 576), whose 8-channel chunks do not divide a warp
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+# head dims: any of these (zamba2-7b's 112 among them: its 14 8-channel chunks a
+# token reduce their per-token statistics over 16 lanes, two idle); per-channel
+# K also multiples of 8 up to MAX_CHANNEL_DIM (the MLA latents 160 and 576),
+# whose 8-channel chunks do not divide a warp
+HEAD_DIMS = (8, 16, 32, 64, 112, 128, 256)
 MAX_CHANNEL_DIM = 576
 
 

@@ -19,11 +19,13 @@ pass is one CUDA graph replay); the streams equal ``--spec-k 1``.
 
 Page-pool sizing, reservations, preemption, the auditor, deadlines,
 ``--strict``, ``--metrics-every`` and tracing (``--trace-out``) work as in
-the JAX launcher.  Not ported yet, and refused with
-``NotImplementedError`` naming the ROADMAP item: the cache families other
-than attention (``--family mla|hybrid|xlstm``) and the exact-length shim
-(``--dense``, queue A item 10), and cross-chip split-KV routing
-(``--splitkv`` other than ``auto``, item 11).
+the JAX launcher.  ``--family`` serves attention (llama3-8b), MLA
+(deepseek-v3-671b) and the Mamba2 hybrid (zamba2-7b: exact-length prefill
+groups, no prefix sharing).  Not ported yet, and refused with
+``NotImplementedError`` naming the ROADMAP item: the recurrent family
+(``--family xlstm``) and the exact-length shim (``--dense``, queue A item
+10), and cross-chip split-KV routing (``--splitkv`` other than ``auto``,
+item 11).
 """
 from __future__ import annotations
 
@@ -112,7 +114,7 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.family not in (None, "attn", "mla"):
+    if args.family not in (None, "attn", "mla", "hybrid"):
         raise _unported(f"the {args.family} cache family", "10")
     if args.dense:
         raise _unported("the exact-length shim (--dense)", "10")

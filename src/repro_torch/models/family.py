@@ -2,10 +2,11 @@
 
 Every backbone exposes ``model.paged_spec() -> PagedSpec | None`` and the
 serving engine (``repro_torch.serve.engine``) is driven by the returned spec.
-The port runs one family so far, the attention ``DecoderLM`` with split K/V
-pools; the fields of the other families (``shared_kv`` latent pools,
-``side_state``, ``exact_prefill``) are kept so that the engine can refuse
-what it does not serve yet.
+The port serves three families: attention (``DecoderLM``, split K/V pools),
+MLA (``DecoderLM``, one ``shared_kv`` latent pool) and the Mamba2 hybrid
+(``HybridLM``: split K/V pools for its shared attention block, its Mamba2
+states as ``side_state``, prompts prefilled at their ``exact_prefill``
+length).  The recurrent xLSTM family is not ported yet.
 """
 from __future__ import annotations
 
@@ -45,10 +46,9 @@ def get_path(tree, path: str):
     return node
 
 
-def set_path(tree, path: str, value) -> None:
-    """Write a '/'-joined ``side_state`` path inside a decode state."""
-    parts = path.split("/")
-    node = tree
-    for part in parts[:-1]:
-        node = node[part]
-    node[parts[-1]] = value
+def tensors_at(tree, path: str) -> list:
+    """The tensors under a ``side_state`` path, in a fixed order: the path's
+    own tensor, or the leaves of the dict it names (HybridLM's ``{"ssm",
+    "conv"}``)."""
+    node = get_path(tree, path)
+    return list(node.values()) if isinstance(node, dict) else [node]

@@ -37,9 +37,12 @@ class P:
     init: str = "normal"  # normal | zeros | ones | embed
     dtype: torch.dtype = torch.bfloat16
     fan_in: int | None = None  # default: the second-to-last dim, as in JAX
+    scale: float | None = None  # the standard deviation itself, as JAX's ``scale``
 
     @property
     def std(self) -> float:
+        if self.scale is not None:
+            return self.scale
         if self.init == "embed":
             return 0.02
         fan_in = self.fan_in or (self.shape[-2] if len(self.shape) >= 2 else self.shape[-1])

@@ -1,6 +1,8 @@
-"""Decoder-only LM with the BitDecoding cache: the dense attention family
-(LLaMA-2/3, Gemma, StarCoder2, Command-R), the MoE family (Qwen3-MoE) and
-MLA (DeepSeek-V3: ``models/mla.py``, a latent ``shared_kv`` cache): RMSNorm,
+"""Decoder-only LMs with the BitDecoding cache.
+
+:class:`DecoderLM`: the dense attention family (LLaMA-2/3, Gemma, StarCoder2,
+Command-R), the MoE family (Qwen3-MoE) and MLA (DeepSeek-V3:
+``models/mla.py``, a latent ``shared_kv`` cache): RMSNorm,
 ``(1 + w)`` RMSNorm or LayerNorm with bias; SwiGLU, GeGLU or GELU MLPs, with
 or without biases, or top-k MoE FFNs (``models/moe.py``); optional q/k
 RMSNorm; sequential or parallel residual; untied, tied or scaled embeddings.
@@ -18,6 +20,10 @@ views of them.  The decode state is
 and :meth:`DecoderLM.decode_step` updates its caches in place.  The serving
 engine's state (:meth:`DecoderLM.init_paged_decode_state`) has the same shape
 with a ``PagedQuantKVCache`` per stack; ``decode_step`` serves both.
+
+:class:`HybridLM`: the Zamba2 hybrid, a Mamba2 backbone (``models/mamba2.py``)
+with one shared attention + MLP block, each invocation with its own
+quantized cache, and the Mamba2 states as constant-size side state.
 """
 from __future__ import annotations
 
@@ -26,15 +32,15 @@ import torch
 from repro_torch.core import qcache
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as mattn
-from repro_torch.models import layers, mla, moe
+from repro_torch.models import layers, mamba2, mla, moe
 from repro_torch.models.family import PagedSpec
 from repro_torch.models.params import P, init_tree, stack
 
 _LATER = "ROADMAP queue A, item 10 (the other model families)"
 
 
-def _check_supported(cfg) -> None:
-    if cfg.mixer not in ("attn", "mla"):
+def _check_supported(cfg, mixers=("attn", "mla")) -> None:
+    if cfg.mixer not in mixers:
         raise NotImplementedError(f"mixer={cfg.mixer!r} is not ported yet: {_LATER}")
     if cfg.vision_stub:
         raise NotImplementedError(f"the vision stub is not ported yet: {_LATER}")
@@ -281,3 +287,222 @@ class DecoderLM:
                     mask=mask, draft_bits=draft_bits,
                 ))
         return self._logits(params, x), {"caches": state["caches"], "pos": pos + 1}
+
+
+class HybridLM:
+    """Zamba2-style hybrid: ``n_super`` super-blocks of ``attn_every`` Mamba2
+    layers and one invocation of the SHARED attention + MLP block (one set
+    of weights, a quantized cache per invocation), then a tail of the
+    leftover Mamba2 layers.  The parameter tree is JAX's: ``main`` stacked
+    ``[n_super, attn_every, ...]``, ``tail`` ``[tail, ...]``,
+    ``shared_attn``, ``embed``, ``final_norm``, ``unembed``.  The decode
+    state is
+
+        {"ssm_main": {"ssm": f32 [n_super, attn_every, B, H, P, N],
+                      "conv": bf16 [n_super, attn_every, B, CONV_K - 1, C]},
+         "ssm_tail": {... [tail, B, ...]},  (only with a tail)
+         "caches": [a cache stacked over the n_super invocations],
+         "pos": int32 [B]}
+
+    and :meth:`decode_step` updates all of it in place.  Prompts prefill at
+    their exact length (no ``lengths``): the recurrent states would absorb
+    right-padding."""
+
+    def __init__(self, cfg):
+        _check_supported(cfg, mixers=("mamba2",))
+        if cfg.attn_every < 1:
+            raise ValueError(f"the hybrid needs attn_every >= 1, got {cfg.attn_every}")
+        self.cfg = cfg
+        self.n_super = cfg.n_layers // cfg.attn_every
+        self.tail = cfg.n_layers - self.n_super * cfg.attn_every
+
+    # ------------------------------------------------------------ params
+
+    def _mamba_def(self):
+        cfg = self.cfg
+        return {"ln": layers.norm_def(cfg.norm, cfg.d_model), "mixer": mamba2.mamba2_def(cfg)}
+
+    def _shared_def(self):
+        cfg = self.cfg
+        return {"ln1": layers.norm_def(cfg.norm, cfg.d_model), "attn": mattn.attn_def(cfg),
+                "ln2": layers.norm_def(cfg.norm, cfg.d_model),
+                "mlp": layers.mlp_def(cfg.d_model, cfg.d_ff, cfg.act)}
+
+    def param_defs(self):
+        cfg = self.cfg
+        defs = {
+            "embed": layers.embed_def(cfg.padded_vocab, cfg.d_model),
+            "final_norm": layers.norm_def(cfg.norm, cfg.d_model),
+            "unembed": layers.unembed_def(cfg.d_model, cfg.padded_vocab),
+            "shared_attn": self._shared_def(),
+            "main": stack(stack(self._mamba_def(), cfg.attn_every), self.n_super),
+        }
+        if self.tail:
+            defs["tail"] = stack(self._mamba_def(), self.tail)
+        return defs
+
+    def init(self, gen: torch.Generator, device=None):
+        """Random parameters drawn from ``gen``, on ``device`` (the card
+        unless given)."""
+        return init_tree(self.param_defs(), gen, device)
+
+    def _logits(self, params, x):
+        x = layers.apply_norm(self.cfg.norm, params["final_norm"], x)
+        return layers.unembed(params["unembed"], x, self.cfg.vocab)
+
+    def _mamba_layers(self, params):
+        """(layer parameters, side-state path, index) of every Mamba2 layer
+        in order: the super-blocks' (each followed by the shared block) and
+        the tail's."""
+        for i in range(self.n_super):
+            group = _layer(params["main"], i)
+            for j in range(self.cfg.attn_every):
+                yield _layer(group, j), "ssm_main", (i, j)
+        for i in range(self.tail):
+            yield _layer(params["tail"], i), "ssm_tail", (i,)
+
+    def _shared_block(self, p, x, attend):
+        """The shared attention + MLP block around ``attend(h) -> (a, cache)``."""
+        cfg = self.cfg
+        a, cache = attend(layers.apply_norm(cfg.norm, p["ln1"], x))
+        x = x + a
+        return x + layers.mlp(p["mlp"], layers.apply_norm(cfg.norm, p["ln2"], x), cfg.act), cache
+
+    # ------------------------------------------------------------ prefill
+
+    def prefill(self, params, batch, max_seq: int, *, impl: str = "auto",
+                quant_impl: str = "auto", lengths=None, prior=None, prior_len=None):
+        """Process the prompt ``batch["tokens"]`` [B, S], every row real to
+        its last token: the SSD scans build the Mamba2 states, the shared
+        block's invocations their quantized caches (``impl`` the
+        flash-prefill kernel on the card, ``quant_impl`` the quantize
+        kernel).  Returns ``(last_logits [B, 1, V], state)``.  ``lengths``
+        and ``prior`` raise: the states would absorb right-padding, and
+        pages hold no prefix SSM states."""
+        if lengths is not None or prior is not None or prior_len is not None:
+            raise ValueError("the hybrid prefills at the exact length: it takes no lengths, "
+                             "prior or prior_len")
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = layers.embed(params["embed"], tokens)
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        shared = params["shared_attn"]
+        states = {"ssm_main": [], "ssm_tail": []}
+        caches = []
+        for lp, path, idx in self._mamba_layers(params):
+            out, st = mamba2.mamba2_prefill(lp["mixer"], cfg, layers.apply_norm(
+                cfg.norm, lp["ln"], x))
+            x = x + out
+            states[path].append(st)
+            if path == "ssm_main" and idx[1] == cfg.attn_every - 1:
+                x, cache = self._shared_block(shared, x, lambda h: mattn.attn_prefill_cache(
+                    shared["attn"], cfg, h, positions, max_seq, impl=impl,
+                    quant_impl=quant_impl))
+                caches.append(cache)
+        state = {"ssm_main": _stack_states(states["ssm_main"], (self.n_super, cfg.attn_every))}
+        if self.tail:
+            state["ssm_tail"] = _stack_states(states["ssm_tail"], (self.tail,))
+        state["caches"] = [qcache.stack_caches(caches)]
+        state["pos"] = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        return self._logits(params, x[:, -1:]), state
+
+    # ------------------------------------------------------------ decode
+
+    def _side_states(self, batch_size: int, device) -> dict:
+        cfg = self.cfg
+        one = mamba2.mamba2_init_state(cfg, batch_size, device)
+
+        def stacked(lead):
+            return {k: v.expand(*lead, *v.shape).contiguous() for k, v in one.items()}
+
+        st = {"ssm_main": stacked((self.n_super, cfg.attn_every))}
+        if self.tail:
+            st["ssm_tail"] = stacked((self.tail,))
+        return st
+
+    def init_decode_state(self, batch_size: int, max_seq: int, *, device=None):
+        """Zero Mamba2 states, empty caches and positions on ``device`` (the
+        card unless given)."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        caches = [qcache.stack_caches([qcache.init_cache(
+            batch_size, cfg.n_kv_heads, cfg.head_dim, max_seq, bits=cfg.kv_bits,
+            block_n=cfg.kv_block, k_gran=cfg.kv_gran, device=device)
+            for _ in range(self.n_super)])]
+        return {**self._side_states(batch_size, device), "caches": caches,
+                "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device)}
+
+    def paged_spec(self) -> PagedSpec:
+        """A mixed cache family: the shared block's caches (one a
+        super-block invocation) page; the Mamba2 states are constant-size
+        per-slot side state the engine splices at admission and that never
+        touch the page table.  ``exact_prefill``: prompts prefill at their
+        exact length; ``supports_prior=False``: prefix sharing would need
+        prefix SSM states, which pages do not hold."""
+        cfg = self.cfg
+        side = (("ssm_main", 2),) + ((("ssm_tail", 1),) if self.tail else ())
+        return PagedSpec(
+            paged=True, block_n=cfg.kv_block, n_kv_heads=cfg.n_kv_heads, d_k=cfg.head_dim,
+            d_v=cfg.head_dim, page_layers=self.n_super, side_state=side, exact_prefill=True,
+            supports_prior=False,
+        )
+
+    def init_paged_decode_state(self, batch_size: int, *, n_pages: int, nb_max: int,
+                                device=None):
+        """Paged decode state for the serving engine, on ``device`` (the card
+        unless given): one ``PagedQuantKVCache`` stacked over the ``n_super``
+        shared-block invocations; the Mamba2 states stay dense per slot."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        caches = [qcache.init_paged_cache(
+            n_pages, batch_size, cfg.n_kv_heads, cfg.head_dim, nb_max, bits=cfg.kv_bits,
+            block_n=cfg.kv_block, k_gran=cfg.kv_gran, layers=self.n_super, device=device)]
+        return {**self._side_states(batch_size, device), "caches": caches,
+                "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device)}
+
+    def mamba_decode(self, lp, x, st) -> torch.Tensor:
+        """One Mamba2 layer's decode step, its state ``st`` (views into the
+        stacked side state) updated in place."""
+        cfg = self.cfg
+        out, new = mamba2.mamba2_decode(lp["mixer"], cfg,
+                                        layers.apply_norm(cfg.norm, lp["ln"], x), st)
+        st["ssm"].copy_(new["ssm"])
+        st["conv"].copy_(new["conv"])
+        return x + out
+
+    def shared_decode(self, shared, x, positions, cache, **attn_kw) -> torch.Tensor:
+        """One invocation of the shared block in a decode step, its cache
+        appended in place (``mattn.attn_decode``)."""
+        return self._shared_block(shared, x, lambda h: mattn.attn_decode(
+            shared["attn"], self.cfg, h, positions, cache, **attn_kw))[0]
+
+    def decode_step(self, params, state, tokens, *, impl="auto", quant_impl="auto",
+                    num_splits="auto", mask=None, draft_bits=None):
+        """tokens [B, 1] -> (logits [B, 1, V], state).  The Mamba2 states
+        and the caches of ``state`` are updated in place (``copy_`` into its
+        tensors, so a captured CUDA graph's buffers stay the state); the
+        returned state holds the same tensors and ``pos + 1``.  ``mask`` and
+        ``draft_bits`` act on the shared block's attention as in
+        ``DecoderLM.decode_step``; the Mamba2 states advance on every row
+        (the verify pass restores a dead row's, ``speculative.VerifyPass``)."""
+        cfg = self.cfg
+        x = layers.embed(params["embed"], tokens)
+        pos = state["pos"]
+        positions = pos[:, None]
+        shared = params["shared_attn"]
+        stacked = state["caches"][0]
+        attn_kw = dict(impl=impl, quant_impl=quant_impl, num_splits=num_splits, mask=mask,
+                       draft_bits=draft_bits)
+        for lp, path, idx in self._mamba_layers(params):
+            side = state[path]
+            x = self.mamba_decode(lp, x, {k: v[idx] for k, v in side.items()})
+            if path == "ssm_main" and idx[1] == cfg.attn_every - 1:
+                x = self.shared_decode(shared, x, positions, stacked.layer(idx[0]), **attn_kw)
+        return self._logits(params, x), {**state, "pos": pos + 1}
+
+
+def _stack_states(states: list[dict], lead: tuple) -> dict:
+    """Per-layer Mamba2 states (in layer order) stacked under ``lead``."""
+    return {k: torch.stack([st[k] for st in states]).reshape(*lead, *states[0][k].shape)
+            for k in states[0]}

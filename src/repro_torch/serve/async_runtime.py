@@ -203,18 +203,22 @@ _WARMUP_STEPS = 2
 
 
 def _state_tensors(state) -> list[torch.Tensor]:
-    """Every tensor of a decode state (each cache field, ``pos``), a tensor
+    """Every tensor of a decode state (each cache field, ``pos``, each
+    tensor of a side state such as the hybrid's Mamba2 states), a tensor
     expanded over a leading axis (the shared page table) as its one
     underlying slice: what a step may write in place."""
     out = []
-    for cache in state["caches"]:
-        for f in dataclasses.fields(cache):
-            t = getattr(cache, f.name)
-            if isinstance(t, torch.Tensor):
-                while t.dim() and t.stride(0) == 0:
-                    t = t[0]
-                out.append(t)
-    out.append(state["pos"])
+    for key, node in state.items():
+        if key == "caches":
+            for cache in node:
+                for f in dataclasses.fields(cache):
+                    t = getattr(cache, f.name)
+                    if isinstance(t, torch.Tensor):
+                        while t.dim() and t.stride(0) == 0:
+                            t = t[0]
+                        out.append(t)
+        else:
+            out += list(node.values()) if isinstance(node, dict) else [node]
     return out
 
 
@@ -324,7 +328,9 @@ class CapturedDecodeStep(CapturedPass):
     argmax (``nxt``, int32 ``[B]``) and the rows' finiteness (``finite``,
     bool ``[B]``) computed on the device and the argmax copied into the
     step's token buffer (``tokens``, int32 ``[B, 1]``): the feed of the next
-    step.  The step writes ``state`` in place, ``state["pos"]`` included.
+    step.  The step writes ``state`` in place, ``state["pos"]`` included:
+    the model's ``decode_step`` updates the caches and any side state (the
+    hybrid's Mamba2 states) in place, and the body copies ``pos`` back.
     Captured on construction (:class:`CapturedPass`)."""
 
     what = "the decode step"

@@ -58,9 +58,16 @@ shapes whichever requests it is admitted with.  On the card cuBLAS picks a
 matrix product's kernel by shape, and a row's result is then a function of
 that row alone: a preempted request rebuilds its prefill bit for bit.
 
+Families (``model.paged_spec()``, ``models/family.py``): split K/V
+attention, the MLA latent (``shared_kv``) pools, and the Mamba2 hybrid,
+whose Mamba2 states are per-slot ``side_state`` spliced in place at
+admission (:meth:`ServeEngine._splice_side_state`) and whose prompts
+prefill in groups of one exact length (``exact_prefill``: no lengths, no
+right-padding, no prefix sharing).
+
 Not ported yet, and refused with ``NotImplementedError``: a mesh, the
 split-KV routing and page-affine pools (ROADMAP A11); the exact-length shim
-(``paged=False``) and cache families other than split K/V attention (A10).
+(``paged=False``) and the recurrent xLSTM family (A10).
 """
 from __future__ import annotations
 
@@ -71,6 +78,7 @@ import torch
 
 from repro_torch.core import qcache
 from repro_torch.core.device import resolve_device, upload
+from repro_torch.models.family import tensors_at
 from repro_torch.serve import pages as pg
 from repro_torch.serve.async_runtime import AsyncRunner, CompletionWorker, DeviceTokens
 from repro_torch.serve.audit import audit_engine
@@ -198,8 +206,8 @@ class ServeEngine:
         if paged is False:
             raise _unported("the exact-length shim (paged=False)", "10")
         spec = model.paged_spec() if hasattr(model, "paged_spec") else None
-        if spec is None or not spec.paged or spec.side_state or spec.exact_prefill:
-            raise _unported("serving a cache family other than attention or MLA", "10")
+        if spec is None or not spec.paged:
+            raise _unported("serving a cache family without paged attention layers", "10")
         if preempt_policy not in ("youngest", "fewest_pages"):
             raise ValueError(f"unknown preempt_policy {preempt_policy!r}")
         self.model = model
@@ -286,7 +294,8 @@ class ServeEngine:
         self.sched = Scheduler(
             slots=slots, pool=self.pool, block_n=self.block_n, max_seq=max_seq,
             min_bucket=min_bucket, share_prefix=share, spec_tail=spec_tail and share,
-            retain_prefix=self.retain_prefix, reserve_policy=reserve_policy,
+            retain_prefix=self.retain_prefix, exact_buckets=spec.exact_prefill,
+            reserve_policy=reserve_policy,
             expected_quantile=expected_quantile, strict=strict, clock=self.clock,
             metrics=self.metrics,
             namespace=f"{cfg.name}/b{cfg.kv_bits}/n{self.block_n}/{cfg.kv_gran}",
@@ -301,7 +310,7 @@ class ServeEngine:
         # graphs over the state above, so they come last
         self._draft = self._verify = None
         if self.spec_k > 1:
-            self._draft = DraftPass(model, params, self.state, spec_k=self.spec_k,
+            self._draft = DraftPass(model, params, self.state, spec, spec_k=self.spec_k,
                                     spec_bits=self.spec_bits, impl=impl, quant_impl=quant_impl)
             self._verify = VerifyPass(model, params, self.state, spec, spec_k=self.spec_k,
                                       impl=impl, quant_impl=quant_impl)
@@ -885,8 +894,11 @@ class ServeEngine:
                     self.tracer.begin("prefill", uid=req.uid, cat="request")
 
     def _prefill(self, toks, lens):
+        """A bucket's prefill; an ``exact_prefill`` family's rows all hold
+        the bucket's length, and its prefill takes no lengths."""
+        lengths = None if self.spec.exact_prefill else lens
         return self.model.prefill(self.params, {"tokens": toks}, toks.shape[1],
-                                  lengths=lens, impl=self._impl,
+                                  lengths=lengths, impl=self._impl,
                                   quant_impl=self._quant_impl)
 
     def _prefill_shared(self, toks, lens, pages, prior_len):
@@ -969,6 +981,7 @@ class ServeEngine:
         pg.adopt_prefill(self.state["caches"], dstate["caches"], slot_ids=slot_ids,
                          lengths=lengths, pages_per_req=pages_per_req,
                          block_n=self.block_n, base_blocks=shared_blocks)
+        self._splice_side_state(dstate, slot_ids)
         # in place: the async runtime's captured step reads this tensor
         self.state["pos"][upload(np.asarray(slot_ids, np.int64), dev)] = upload(
             np.asarray([r.prompt_len for r in reqs], np.int32), dev)
@@ -976,6 +989,20 @@ class ServeEngine:
         for r, req in enumerate(reqs):
             self.sched.register_prefix(req, req.shared_pages + pages_per_req[r])
         return lazy
+
+    def _splice_side_state(self, dstate, slot_ids: list[int]) -> None:
+        """Copy the declared side state (``PagedSpec.side_state``: the
+        hybrid's Mamba2 states) of the just-prefilled rows into their decode
+        slots, in place (prefill row ``r`` -> slot ``slot_ids[r]``), so the
+        captured graphs read it; the page table never sees it."""
+        if not self.spec.side_state:
+            return
+        dev = self.device
+        sidx = upload(np.asarray(slot_ids, np.int64), dev)
+        rows = torch.arange(len(slot_ids), device=dev)
+        for path, bdim in self.spec.side_state:
+            for dst, src in zip(tensors_at(self.state, path), tensors_at(dstate, path)):
+                dst.index_copy_(bdim, sidx, src.index_select(bdim, rows).to(dst.dtype))
 
     def _ensure_flush_pages(self, pos_of=None, lookahead: dict[int, int] | None = None) -> None:
         """Allocate the destination page of every row whose residual fills on

@@ -9,8 +9,9 @@ passes over the engine's decode state exploit it:
   against the truncated read of the same pools: every packed code read at
   its top ``spec_bits`` bits (the decode kernels' ``draft_bits``), appends
   residual-only into the pass's own copy of the residuals, ``res_len`` and
-  ``pos`` (``qcache.widen_residual`` / ``draft_append``).  No second model,
-  no second table, no pool write.
+  ``pos`` (``qcache.widen_residual`` / ``draft_append``), and the recurrent
+  side state (the hybrid's Mamba2 states) advanced in the pass's own copy.
+  No second model, no second table, no pool write.
 * **verify** (:class:`VerifyPass`): ``spec_k`` full-fidelity decode steps
   over the ``[B, spec_k]`` feed matrix, written in place into the engine's
   state, with a per-row alive mask that freezes a row's cache (the append
@@ -36,7 +37,7 @@ import torch
 
 from repro_torch.core import qcache
 from repro_torch.kernels.bitdecode.ops import RES_TOKENS
-from repro_torch.models.family import get_path
+from repro_torch.models.family import tensors_at
 from repro_torch.serve.async_runtime import CapturedPass
 
 
@@ -51,11 +52,12 @@ def freeze_dead_lanes(state, st_new, saved: dict, alive, side_state) -> None:
     keeps its value on dead ones, and so does every declared recurrent
     side-state path (``saved``: its values before the step).  The cache
     appends are masked in the step itself; this covers what the model
-    updates unconditionally.  Attention models declare no side state."""
+    updates unconditionally (``saved[path]``: the path's tensors in
+    ``tensors_at`` order).  Attention models declare no side state."""
     state["pos"].copy_(torch.where(alive, st_new["pos"], state["pos"]))
     for path, bdim in side_state:
-        get_path(state, path).copy_(_mask_leaf(alive, get_path(st_new, path), saved[path],
-                                               bdim))
+        for dst, new, old in zip(tensors_at(state, path), tensors_at(st_new, path), saved[path]):
+            dst.copy_(_mask_leaf(alive, new, old, bdim))
 
 
 class DraftPass(CapturedPass):
@@ -66,13 +68,15 @@ class DraftPass(CapturedPass):
     Its state (:attr:`dstate`) shares the engine's pools, ``pack_blocks``
     and page table (read only) and owns residuals widened by ``spec_k - 1``
     tokens, rounded up to the decode kernel's residual unit
-    (``RES_TOKENS``), plus ``res_len`` and ``pos``; each run starts by
-    copying the engine's into them, so the engine's state is never written.
-    Rows that are not decoding draft garbage the engine ignores."""
+    (``RES_TOKENS``), plus ``res_len``, ``pos`` and a copy of every
+    ``side_state`` path (the hybrid's Mamba2 states, which a decode step
+    advances in place); each run starts by copying the engine's into them,
+    so the engine's state is never written.  Rows that are not decoding
+    draft garbage the engine ignores."""
 
     what = "the draft pass"
 
-    def __init__(self, model, params, state, *, spec_k: int, spec_bits: int,
+    def __init__(self, model, params, state, spec, *, spec_k: int, spec_bits: int,
                  impl: str = "auto", quant_impl: str = "auto"):
         super().__init__(state)
         self.steps = spec_k - 1
@@ -88,13 +92,20 @@ class DraftPass(CapturedPass):
         caches = [dataclasses.replace(qcache.widen_residual(c, self.steps, multiple=RES_TOKENS),
                                       res_len=c.res_len.clone())
                   for c in state["caches"]]
+        self.side = tuple(path for path, _ in spec.side_state)
         self.dstate = {"caches": caches, "pos": pos.clone()}
+        for path in self.side:  # top-level paths (HybridLM's "ssm_main", "ssm_tail")
+            node = state[path]
+            self.dstate[path] = ({k: v.clone() for k, v in node.items()}
+                                 if isinstance(node, dict) else node.clone())
         self.capture()
 
     def _buffers(self) -> list[torch.Tensor]:
         own = [self.tok0, self.drafts, self.dstate["pos"]]
         for c in self.dstate["caches"]:
             own += [t for t in (c.k_res, c.v_res, c.res_len) if t is not None]
+        for path in self.side:
+            own += tensors_at(self.dstate, path)
         return own
 
     def _body(self) -> None:
@@ -105,6 +116,9 @@ class DraftPass(CapturedPass):
                 dc.v_res[..., :n, :].copy_(c.v_res)
             dc.res_len.copy_(c.res_len)
         self.dstate["pos"].copy_(self.state["pos"])
+        for path in self.side:
+            for dst, src in zip(tensors_at(self.dstate, path), tensors_at(self.state, path)):
+                dst.copy_(src)
         tok = self.tok0[:, None]
         for i in range(self.steps):
             logits, st = self.model.decode_step(
@@ -155,7 +169,8 @@ class VerifyPass(CapturedPass):
     def _body(self) -> None:
         alive = self.limit > 0
         for i in range(self.k):
-            saved = {path: get_path(self.state, path).clone() for path, _ in self.side}
+            saved = {path: [t.clone() for t in tensors_at(self.state, path)]
+                     for path, _ in self.side}
             logits, st = self.model.decode_step(
                 self.params, self.state, self.feeds[:, i:i + 1], impl=self.impl,
                 quant_impl=self.quant_impl, mask=alive)

@@ -595,7 +595,7 @@ def test_serve_cli_async_runtime_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("argv, item", [
     (["--dense"], "10"), (["--splitkv", "always"], "11"),
-    (["--family", "hybrid"], "10"), (["--family", "xlstm"], "10"),
+    (["--family", "hybrid", "--dense"], "10"), (["--family", "xlstm"], "10"),
     (["--splitkv", "never"], "11"), (["--dense", "--spec-k", "2"], "10"),
 ])
 def test_serve_cli_refuses_what_is_not_ported(argv, item):

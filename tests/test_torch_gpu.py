@@ -17,7 +17,11 @@ versions, its captured step bit for bit equal to the eager one, and its
 routing, dispatch and combine free of host syncs; the MLA latent cache's
 shared_kv modes of K2-K5 (bit for bit / within the decode tolerances), K6's
 padded route, the deepseek-v3 smoke model's kernels against its plain
-versions, its captured step and its freedom from host syncs.  The plain versions are
+versions, its captured step and its freedom from host syncs; K2-K5 at
+zamba2-7b's head dim 112 and the zamba2 smoke model (the Mamba2 hybrid) on
+the kernels against its plain versions, its captured step bit for bit equal
+to the eager one (Mamba2 states included) and its engines (async, spec)
+against the sequential one.  The plain versions are
 held against the JAX package in test_torch_kernels.py, test_torch_paged.py
 and test_torch_flash_prefill.py.
 """
@@ -146,7 +150,7 @@ def _packed(gen, device, *, b, h, nb, block_n, d, bits, k_gran, v_off=0.0):
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("k_gran", ["channel", "tensor"])
-@pytest.mark.parametrize("shape", [(64, 32), (128, 128), (128, 256)])
+@pytest.mark.parametrize("shape", [(64, 32), (128, 112), (128, 128), (128, 256)])
 def test_residual_flush_kernel_matches_plain_bitwise(cuda, bits, k_gran, shape):
     block_n, d = shape
     gen = torch.Generator(device=cuda).manual_seed(bits)
@@ -853,7 +857,7 @@ def _new_tokens(gen, device, b, h, d):
 @pytest.mark.parametrize("k_gran", ["channel", "tensor"])
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("block_n", [64, 128])
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 112, 128, 256])
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 def test_append_kernel_matches_plain_bitwise(cuda, paged, d, block_n, bits, k_gran):
     """Mode "append" against its plain version over 3 * block_n - 10
@@ -1291,7 +1295,7 @@ def test_spec_passes_replay_equal_eager_bitwise(cuda, graph_model):
     with torch.no_grad():
         states = [_decode_state(model, params, cuda, paged=True) for _ in range(2)]
         before = [t.clone() for t in _state_fields(states[1])]
-        passes = [(DraftPass(model, params, st, spec_k=k, spec_bits=2),
+        passes = [(DraftPass(model, params, st, spec, spec_k=k, spec_bits=2),
                    VerifyPass(model, params, st, spec, spec_k=k)) for st in states]
         for a, b in zip(_state_fields(states[1]), before):
             assert torch.equal(a, b)
@@ -1351,4 +1355,205 @@ def test_spec_engine_equals_sequential_on_the_card(cuda, graph_model, pressure, 
     assert 0 < eng._draft.replays <= eng._verify.replays
     assert s["spec_draft_tokens"] == s["spec_accepted_tokens"] + s["spec_rejected_tokens"] > 0
     assert (s["preempted"] > 0) == pressure
+    assert eng.pool.n_free == eng.pool.capacity
+
+
+# --------------------------------------------------------------------------
+# the Mamba2 hybrid (zamba2-7b): K2-K5 at head dim 112, the smoke model
+# --------------------------------------------------------------------------
+
+D112_CASES = [  # (g, block_n, bits, k_gran, pack_blocks, res_len)
+    (1, 128, 4, "channel", [4, 3], [100, 7]),  # zamba2-7b's decode: g 1
+    (1, 128, 2, "tensor", [0, 4], [5, 128]),  # no packed block; a full residual
+    (1, 64, 8, "channel", [4, 2], [64, 1]),
+    (4, 32, 2, "tensor", [3, 4], [31, 0]),  # 2 word rows a block
+    (8, 128, 4, "tensor", [1, 4], [0, 50]),  # one full tile of query rows
+]
+
+
+@pytest.mark.parametrize("case", D112_CASES)
+@pytest.mark.parametrize("num_splits", [1, 3, "auto"])
+def test_decode_kernels_at_head_dim_112_match_plain(cuda, case, num_splits):
+    """K3 and K4 (a scrambled table) at d 112 (PV's last 32-channel group
+    half full) within out 2e-2 / lse 1e-3 of the plain version; K4 on the
+    identity table bit for bit K3; at 4 bits the draft read at 2 bits
+    too."""
+    g, block_n, bits, k_gran, pb, rl = case
+    gen = torch.Generator(device=cuda).manual_seed(112 + g + bits)
+    q, *packed, k_res, v_res, pbt, rlt = _decode_args(gen, cuda, g, 112, block_n, bits,
+                                                      k_gran, pb, rl, 1.0)
+    b, nb = q.shape[0], packed[0].shape[2]
+    pools = _pools(packed)
+    order = torch.randperm(b * nb, generator=gen, device=cuda)
+    scrambled = [torch.empty_like(p).index_copy_(0, order, p) for p in pools]
+    tables = {"scrambled": order.reshape(b, nb).to(torch.int32),
+              "identity": torch.arange(b * nb, dtype=torch.int32, device=cuda).reshape(b, nb)}
+    kw = dict(bits=bits, block_n=block_n, k_gran=k_gran, return_lse=True)
+    for draft_bits in (None, 2) if bits == 4 else (None,):
+        dense = functools.partial(bd_ops.bitdecode_attention, q, *packed, k_res, v_res, pbt,
+                                  rlt, draft_bits=draft_bits, **kw)
+        out_r, lse_r = dense(impl="torch", num_splits=1)
+        out_k, lse_k = dense(impl="cuda", num_splits=num_splits)
+        _assert_decode_close(out_k, lse_k, out_r, lse_r, pb, rl)
+        for kind, arrays in (("scrambled", scrambled), ("identity", pools)):
+            out_p, lse_p = pg_ops.paged_bitdecode_attention(
+                q, *arrays, k_res, v_res, tables[kind], pbt, rlt, impl="cuda",
+                num_splits=num_splits, draft_bits=draft_bits, **kw)
+            _assert_decode_close(out_p, lse_p, out_r, lse_r, pb, rl)
+            if kind == "identity":
+                assert torch.equal(out_p, out_k) and torch.equal(lse_p, lse_k)
+
+
+def test_decode_kernel_at_head_dim_112_refuses_two_query_tiles(cuda):
+    """d 112 has instances for one tile of 8 query rows: g 9 raises before
+    any launch."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    args = _decode_args(gen, cuda, 9, 112, 64, 4, "channel", [2, 1], [3, 4], 1.0)
+    _build.launches.clear()
+    with pytest.raises(ValueError, match="the CUDA decode kernel takes"):
+        bd_ops.bitdecode_attention(*args, bits=4, block_n=64, impl="cuda")
+    assert not _build.launches
+
+
+def _hybrid_smoke(**change):
+    """The zamba2 smoke model (2 super-blocks of 2 Mamba2 layers and the
+    shared block, a tail of 1), block_n 32, and its parameters on the
+    card."""
+    model = build_model(smoke_config("zamba2-7b").with_(**{"kv_block": 32, **change}))
+    return model, model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+
+@pytest.mark.parametrize("head_dim", [32, 112])
+def test_hybrid_smoke_model_kernels_match_plain(cuda, head_dim):
+    """The zamba2 smoke model (and a variant at zamba2-7b's head dim 112),
+    block_n 64: an exact-length prefill of two 100-token prompts and 30
+    decode steps (each row flushes once), kernels against the plain
+    versions fed the same tokens: logits within rtol 2e-2 / atol 3e-1, the
+    SSM states within 2e-2 in relative norm, invocation 0's packed cache
+    bit for bit; one kv_quant and one flash_prefill launch an invocation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    model, params = _hybrid_smoke(kv_block=64, head_dim=head_dim)
+    cfg = model.cfg
+    tokens = torch.randint(0, cfg.vocab, (2, 100), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+
+    def run(impl, feed=None):
+        logits, state = model.prefill(params, {"tokens": tokens}, 256, impl=impl,
+                                      quant_impl=impl)
+        out = [logits]
+        for i in range(30):
+            tok = logits[:, -1].argmax(-1)[:, None] if feed is None else feed[i]
+            logits, state = model.decode_step(params, state, tok, impl=impl, quant_impl=impl)
+            out.append(logits)
+        return out, state
+
+    with torch.no_grad():
+        out_t, s_t = run("torch")
+        _build.launches.clear()
+        out_k, s_k = run("auto", [o[:, -1].argmax(-1)[:, None] for o in out_t])
+    assert min(_build.launches[k] for k in ("kv_quant", "residual_flush", "bitdecode",
+                                            "flash_prefill")) > 0
+    assert _build.launches["kv_quant"] == _build.launches["flash_prefill"] == model.n_super
+    for a, b in zip(out_k, out_t):
+        torch.testing.assert_close(a, b, rtol=2e-2, atol=3e-1)
+    for path in ("ssm_main", "ssm_tail"):
+        k, t = s_k[path]["ssm"], s_t[path]["ssm"]
+        assert float((k - t).norm() / t.norm()) < 2e-2, path
+    ct, ck = s_t["caches"][0], s_k["caches"][0]
+    assert torch.equal(ct.pack_blocks, ck.pack_blocks) and ck.pack_blocks[0].tolist() == [2, 2]
+    for f in ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero"):
+        np.testing.assert_array_equal(bits_of(getattr(ck, f)[0]), bits_of(getattr(ct, f)[0]))
+
+
+def _hybrid_fields(state) -> list:
+    """Every tensor of a hybrid decode state: the caches', pos, and the
+    Mamba2 states."""
+    return _state_fields(state) + [t for path in ("ssm_main", "ssm_tail")
+                                   for t in state[path].values()]
+
+
+def _hybrid_state(model, params, cuda, *, paged):
+    """A decode state mid-run of the hybrid smoke model (block_n 32): two
+    rows of 50 prompt tokens (18 into their residuals), an idle row 2; the
+    paged one through the engine's adoption and side-state splice."""
+    from repro_torch.serve import pages as pg
+
+    cfg = model.cfg
+    tokens = torch.randint(0, cfg.vocab, (3, 50), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(4))
+    _, dense = model.prefill(params, {"tokens": tokens}, 160)
+    if not paged:
+        for c in dense["caches"]:
+            c.pack_blocks[:, 2] = 0
+            c.res_len[:, 2] = 0
+        dense["pos"][2] = 0
+        return dense
+    nb_max = 5
+    state = model.init_paged_decode_state(3, n_pages=3 + 8, nb_max=nb_max, device=cuda)
+    pg.adopt_prefill(state["caches"], dense["caches"], slot_ids=[0, 1], lengths=[50, 50],
+                     pages_per_req=[[7], [4]], block_n=cfg.kv_block)
+    for path, bdim in model.paged_spec().side_state:
+        for k, t in state[path].items():
+            t.narrow(bdim, 0, 2).copy_(dense[path][k].narrow(bdim, 0, 2))
+    table = np.arange(3, dtype=np.int32)[:, None].repeat(nb_max, 1)
+    table[0, :3], table[1, :3] = [7, 9, 3], [4, 10, 8]
+    pg.set_page_tables(state["caches"], table)
+    state["pos"][:2] = 50
+    return state
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_captured_hybrid_step_equals_eager_bitwise(cuda, paged):
+    """40 replays of the hybrid's captured step against 40 eager steps fed
+    the same tokens: every state tensor, the Mamba2 states included, bit
+    for bit after every step (the step updates them in place, so the graph
+    advances them); capture leaves the state as it found it and records one
+    launch of the decode kernels an invocation."""
+    from repro_torch.serve.async_runtime import CapturedDecodeStep
+
+    model, params = _hybrid_smoke()
+    n = model.n_super
+    with torch.no_grad():
+        eager, graphed = (_hybrid_state(model, params, cuda, paged=paged) for _ in range(2))
+        before = [t.clone() for t in _hybrid_fields(graphed)]
+        step = CapturedDecodeStep(model, params, graphed)
+        for a, b in zip(_hybrid_fields(graphed), before):
+            assert torch.equal(a, b)
+        kinds = ("paged_bitdecode", "paged_residual_flush") if paged else (
+            "bitdecode", "residual_flush")
+        assert all(step.capture_launches[k] == n for k in kinds), step.capture_launches
+        feed = torch.zeros((3, 1), dtype=torch.int32, device=cuda)
+        step.tokens.copy_(feed)
+        for i in range(40):
+            logits, eager = model.decode_step(params, eager, feed)
+            step.replay()
+            want = logits[:, 0].argmax(-1).to(torch.int32)
+            assert torch.equal(step.nxt, want), i
+            for a, b in zip(_hybrid_fields(eager), _hybrid_fields(graphed)):
+                assert torch.equal(a, b), f"step {i}"
+            feed = want[:, None]
+    assert not torch.equal(graphed["ssm_main"]["ssm"], before[-4])  # the states advanced
+
+
+@pytest.mark.parametrize("mode", ["async", "spec", "spec_async"])
+def test_hybrid_engines_equal_sequential_on_the_card(cuda, mode):
+    """The hybrid smoke engine (exact-length prefill groups, the Mamba2
+    states spliced in place) on the async runtime, by self-speculation
+    (``spec_k = 4``, drafts at 2 bits: the draft pass advances its own copy
+    of the states) and both: streams and phases bit for bit the sync
+    ``spec_k = 1`` engine's, each decode step or pass one graph replay."""
+    model, params = _hybrid_smoke()
+    kw = dict(slots=3, max_seq=192, audit_every=1)
+    spec = dict(spec_k=4, spec_bits=2) if mode.startswith("spec") else {}
+    with torch.no_grad():
+        want = _drive(ServeEngine(model, params, **kw), _gpu_workload(model.cfg))
+        eng = ServeEngine(model, params, async_runtime=mode.endswith("async"), **spec, **kw)
+        got = _drive(eng, _gpu_workload(model.cfg))
+    assert got == want
+    if spec:
+        assert eng._draft.graph is not None and eng._verify.graph is not None
+        assert eng._verify.replays == eng.stats["spec_cycles"] > 0
+    else:
+        assert eng._runner.step_fn.replays == eng._runner.dispatched > 0
     assert eng.pool.n_free == eng.pool.capacity
