@@ -4,7 +4,8 @@ H100), from the kernels' build to full-width decoding and serving of
 llama3-8b (at full depth, by one-token cycles, on the async runtime and by
 self-speculation), gemma-7b, qwen3-moe-235b-a22b, deepseek-v3-671b (MLA)
 and zamba2-7b (the Mamba2 hybrid, at full depth), and the dense loop of
-starcoder2-3b and command-r-35b.
+starcoder2-3b, command-r-35b, seamless-m4t-medium (the encoder-decoder, at
+full depth) and qwen2-vl-7b (the VLM stub with M-RoPE).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --jax-init   # the init-scale witness, see below
@@ -69,6 +70,16 @@ Phases:
      the MLA modes at deepseek-v3's width (the ``mla_`` keys), and the
      d 112 instances at zamba2-7b's shapes beside their bounds, flash_prefill
      there beside scaled_dot_product_attention (the ``zamba2_`` keys);
+     flash_prefill's full mode at S != T (the ``cross_`` keys: S 100 decoder
+     tokens over T 4,096 frames, 16 / 16 heads of 64) beside
+     scaled_dot_product_attention (non-causal), and bitdecode at
+     seamless-m4t-medium's static cross read and qwen2-vl-7b's decode shape
+     (the ``cross_`` and ``qwen2vl_`` keys); the full mode is held against
+     its plain version at that shape, at a ragged T (S 300, T 1,000, g 4),
+     S > T (2,048 over 512), S < 16, T < one KV tile and d 256, and through
+     ``blockwise_attention(causal=False)``, causal at S != T refused;
+     bitdecode at qwen2-vl-7b's g 7 and at the static cross read (g 1, d 64,
+     32 blocks, an empty residual);
   3. the dense path end to end: llama3-8b at full width and depth (32
      layers, random bf16 weights from a seeded torch.Generator), 4 ragged
      prompts prefilled (flash_prefill) into the 4-bit cache, 160 greedy
@@ -158,8 +169,26 @@ Phases:
      the attention kernels, the shared block's projections and MLP, the
      rest) beside the step's bound, and the launches of a step and of a
      prefill checked exactly;
+  10. seamless-m4t-medium at full width and depth (12 encoder + 12 decoder
+     layers, d 1,024, 16 / 16 heads of 64, d_ff 4,096, vocab 256,206; ~0.88
+     B parameters): B 4 stub frame sequences of 4,096 (encoded with
+     flash_prefill's full mode; the static cross caches 32 packed blocks of
+     kv_quant, an empty residual), decoder prompts of exactly 100 tokens, 30
+     greedy steps (every row's self cache flushes once), the dense loop on
+     the plain versions and on the kernels (the cross prefill through the
+     full mode at S 100 over T 4,096, the cross read through bitdecode);
+     logits around the first flush, the cross caches untouched by the steps
+     and, from one memory, bit for bit between kv_quant and its plain
+     version; prefill s (and the encoder's), ms a step, peak memory, one
+     decode step by part (self attention, cross read, unembed, the rest)
+     beside its bound; the engine refusing the model (ValueError);
+  11. qwen2-vl-7b at full width, cut to 4 of its 28 layers for time (28 / 4
+     heads of 128, g 7, M-RoPE sections 16/24/24, QKV biases, d_ff 18,944):
+     1,024 stub patches on the 32 x 32 grid ahead of ragged text of 870-895
+     tokens, 30 steps (every row flushes), plain vs kernels, with phase 10's
+     checks, prints and refusal;
   then ``repro_torch.launch.serve --async-runtime`` once at the smoke width;
-  10. a JSON line per kernel, the card's name and power limit, and the
+  12. a JSON line per kernel, the card's name and power limit, and the
      result line.
 
 Every kernel run (the dense loops' kernel runs, every serve run) counts the
@@ -262,6 +291,7 @@ MLA_PARTS = ("absorb_query", "absorb_output")  # models/mla.py: the absorbed pro
 HYBRID = "zamba2-7b"
 HYBRID_PROMPT, HYBRID_STEPS = 2000, 96
 HYBRID_PARTS = ("mamba_decode", "shared_decode")  # HybridLM's methods, timed by name
+UNEMBED_PARTS = ("unembed", "tied_unembed")  # models/layers.py: every model's unembedding
 # the hybrid's dense loop: the kernel run's Mamba2 states may depart from the
 # plain run's (relative norm) at most this many times as far as the plain run
 # split three ways does.  At 81 layers any rounding change opens about the
@@ -273,6 +303,29 @@ ZAMBA_KV = (32, 112)  # the shared block's cache: 32 KV heads of d 112 (g 1)
 # the hybrid's dense-loop cache after its steps: what phase 2 times at d 112
 ZAMBA_PB = [(HYBRID_PROMPT + HYBRID_STEPS) // BLOCK_N] * 4
 ZAMBA_RL = [(HYBRID_PROMPT + HYBRID_STEPS) % BLOCK_N] * 4
+# phase 10: the encoder-decoder at full width and depth (12 + 12 layers of d
+# 1,024, 16 / 16 heads of 64, d_ff 4,096, vocab 256,206; ~0.88 B parameters,
+# 1.75 GB of bf16): B 4 stub frame sequences of enc_len 4,096 (the cross caches:
+# 32 packed blocks, an empty residual), decoder prompts of exactly 100 tokens
+# (the enc-dec prefill takes no lengths), 30 steps: every row's self cache
+# flushes once, in step 28, and one step reads the flushed block (few steps
+# for the script's time)
+ENCDEC = "seamless-m4t-medium"
+ENCDEC_PROMPT, ENCDEC_STEPS = 100, 30
+# phase 11: the VLM stub with M-RoPE at full width, cut to 4 of its 28 layers
+# for time (as command-r-35b is cut); 1,024 stub patches on the 32 x 32 grid
+# ahead of ragged text of 870-895 tokens (with lengths: 1,894-1,919 cached
+# tokens, 14 packed blocks a row), 30 steps: every row flushes (L % 128 >= 102)
+VLM = ("qwen2-vl-7b", {"n_layers": 4})
+VLM_TEXT_LENS = (870, 880, 890, 895)
+VLM_STEPS = 30
+# the VLM's cache after phase 11's dense loop, and the enc-dec's static cross
+# cache: what phase 2 checks and times K3 at
+VLM_PB = [(1024 + n + VLM_STEPS) // BLOCK_N for n in VLM_TEXT_LENS]
+VLM_RL = [(1024 + n + VLM_STEPS) % BLOCK_N for n in VLM_TEXT_LENS]
+CROSS_PB, CROSS_RL = [4096 // BLOCK_N] * 4, [0] * 4
+# phases 10 and 11: the merge runs only where a call resolves to > 1 split
+FRONT_PATH = ("kv_quant", "residual_flush", "bitdecode", "flash_prefill")
 # the latent cache after phase 8's dense loop (FAMILY_PROMPT_LENS + FAMILY_STEPS:
 # 4,814 tokens over B 4): pack_blocks and res_len, what phase 2 checks and times
 MLA_PB = [(n + FAMILY_STEPS) // BLOCK_N for n in FAMILY_PROMPT_LENS]
@@ -816,14 +869,17 @@ def part_ranges():
     ``torch.profiler`` range named ``moe.<part>``, MLA's absorbed products
     (``MLA_PARTS`` of ``models/mla.py``) inside ``mla.<part>``, and the
     hybrid's Mamba2 layers and shared block (``HYBRID_PARTS``, methods of
-    ``transformer.HybridLM``) inside ``HybridLM.<part>``."""
+    ``transformer.HybridLM``) inside ``HybridLM.<part>``, and the
+    unembedding (``layers.unembed`` / ``tied_unembed``) inside
+    ``layers.<name>``."""
     from torch.profiler import record_function
 
-    from repro_torch.models import mla, moe
+    from repro_torch.models import layers, mla, moe
     from repro_torch.models.transformer import HybridLM
 
     saved = [(mod, n, getattr(mod, n)) for mod, names in ((moe, MOE_PARTS), (mla, MLA_PARTS),
-                                                        (HybridLM, HYBRID_PARTS))
+                                                        (HybridLM, HYBRID_PARTS),
+                                                        (layers, UNEMBED_PARTS))
              for n in names]
 
     def ranged(name, fn):
@@ -874,11 +930,14 @@ def step_parts(fn) -> tuple[dict, int, dict]:
     and combine (the other MoE ranges, the auxiliary loss included), of MLA's
     absorbed products (``mla.*``), of the hybrid's Mamba2 layers and of its
     shared block's torch ops (projections, norms, RoPE, MLP), of the
-    attention kernels (K3/K4, the merge, the append) and of the rest; the
-    count of device kernels, and of each device kernel by name.  A kernel
-    belongs to a range if the op that launched it ran inside it; the port's
-    own kernels are launched through ctypes, by no op, and count only under
-    the attention kernels."""
+    unembedding, of the attention kernels (K3/K4, the merge, the append),
+    those of a cross read apart (``cross``), and of the rest; the count of
+    device kernels, and of each device kernel by name, with ``cross_reads``
+    the count of cross reads.  A kernel belongs to a range if the op that
+    launched it ran inside it; the port's own kernels are launched through
+    ctypes, by no op, and count only under the attention kernels.  A cross
+    read is a K3/K4 call (with its merge) that no append precedes since the
+    last one: a self read follows its layer's append in device order."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -886,6 +945,7 @@ def step_parts(fn) -> tuple[dict, int, dict]:
     labels = {f"moe.{n}": ("experts" if n == "experts" else "routing") for n in MOE_PARTS}
     labels |= {f"mla.{n}": "absorbed" for n in MLA_PARTS}
     labels |= {"HybridLM.mamba_decode": "mamba", "HybridLM.shared_decode": "shared"}
+    labels |= {f"layers.{n}": "unembed" for n in UNEMBED_PARTS}
     with part_ranges(), torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
                                                              ProfilerActivity.CUDA]) as prof:
         fn()
@@ -893,23 +953,30 @@ def step_parts(fn) -> tuple[dict, int, dict]:
     events = prof.events()
     ranges = [(labels[e.name], e.thread, e.time_range.start, e.time_range.end) for e in events
               if e.device_type == DeviceType.CPU and e.name in labels]
-    us = dict.fromkeys(("all", "experts", "routing", "absorbed", "mamba", "shared",
-                        "attention"), 0.0)
-    kernels, by_name = 0, collections.Counter()
+    parts = ("experts", "routing", "absorbed", "mamba", "shared", "unembed", "attention", "cross")
+    us = dict.fromkeys(("all", *parts), 0.0)
+    kernels, by_name, attn = 0, collections.Counter(), []
     for e in events:
         if e.device_type == DeviceType.CUDA and e.name not in labels:
             kernels += 1
             by_name[e.name] += 1
             us["all"] += e.time_range.elapsed_us()
             if "bitdecode" in e.name or "residual_flush" in e.name:
-                us["attention"] += e.time_range.elapsed_us()
+                attn.append(e)
         elif e.device_type == DeviceType.CPU and e.kernels and e.name not in labels:
             part = next((p for p, th, t0, t1 in ranges if th == e.thread
                          and t0 <= e.time_range.start and e.time_range.end <= t1), None)
             if part is not None:
                 us[part] += sum(k.duration for k in e.kernels)
-    us["rest"] = us["all"] - sum(us[k] for k in ("experts", "routing", "absorbed", "mamba",
-                                                  "shared", "attention"))
+    appended, cross, by_name["cross_reads"] = False, False, 0
+    for e in sorted(attn, key=lambda e: e.time_range.start):
+        if "residual_flush" in e.name:
+            appended, cross = True, False
+        elif "bitdecode_merge" not in e.name:  # a read: its merge follows it
+            cross, appended = not appended, False
+            by_name["cross_reads"] += cross
+        us["cross" if cross else "attention"] += e.time_range.elapsed_us()
+    us["rest"] = us["all"] - sum(us[k] for k in parts)
     return {f"{k}_ms": v / 1e3 for k, v in us.items()}, kernels, by_name
 
 
@@ -971,7 +1038,8 @@ def moe_step_profile(model, params, cfg, state, logits) -> dict:
             f"{parts['routing_ms']:.3f} ms; "
             + (f"MLA absorbed products {parts['absorbed_ms']:.3f} ms; "
                if cfg.mixer == "mla" else "")
-            + f"attention kernels {parts['attention_ms']:.3f} ms; the rest "
+            + f"attention kernels {parts['attention_ms']:.3f} ms; unembed "
+            f"{parts['unembed_ms']:.3f} ms; the rest "
             f"{parts['rest_ms']:.3f} ms; the whole step's bound {out['step_bound_ms']:.3f} ms "
             f"({out['step_routed_bound_ms']:.3f} reading only routed experts)")
     return out
@@ -1038,10 +1106,268 @@ def hybrid_step_profile(model, params, cfg, state, logits, check) -> dict:
         f"{PROFILE_ROUNDS} sessions): {kernels} device kernels, {parts['all_ms']:.3f} ms; "
         f"Mamba2 layers {out['mamba2_ms']:.3f} ms; the shared block's attention kernels (K3 + "
         f"merge + K2 append) {parts['attention_ms']:.3f} ms; its projections, norms and MLP "
-        f"{out['shared_proj_mlp_ms']:.3f} ms; the rest {parts['rest_ms']:.3f} ms; the step's "
+        f"{out['shared_proj_mlp_ms']:.3f} ms; unembed {parts['unembed_ms']:.3f} ms; the rest "
+        f"{parts['rest_ms']:.3f} ms; the step's "
         f"bound {out['step_bound_ms']:.3f} ms ({weights / 1e9:.2f} GB of weights, "
         f"{states / 1e9:.2f} GB of states read and written, {caches / 1e9:.3f} GB of caches); "
         f"the profiles took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def front_inputs(cfg, dev, text_lens) -> tuple[dict, object, int]:
+    """The batch of a stub-front family from a seeded generator: B 4 stub
+    frame sequences of ``enc_len`` (the encoder-decoder) or ``n_patches``
+    patch embeddings (the VLM stub), each of width d_model, and the text
+    prompts (right-padded to the longest).  Returns (batch, lengths or None,
+    the tokens ahead of the text in the decoder's cache)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, n_text = len(text_lens), max(text_lens)
+    stub = "frames" if cfg.encdec else "patches"
+    n_stub = cfg.enc_len if cfg.encdec else cfg.n_patches
+    batch = {stub: torch.randn((b, n_stub, cfg.d_model), generator=gen, device=dev).to(
+                 torch.bfloat16),
+             "tokens": torch.randint(0, cfg.vocab, (b, n_text), device=dev, generator=gen)}
+    if cfg.encdec:  # the enc-dec prefill takes no lengths: every row real to its last token
+        if len(set(text_lens)) != 1:
+            raise ValueError(f"{cfg.name} prefills at one exact length, got {text_lens}")
+        return batch, None, 0
+    return batch, torch.tensor(text_lens, dtype=torch.int32, device=dev), cfg.n_patches
+
+
+def front_phase(model, params, cfg, check, dev, text_lens, steps) -> dict:
+    """Phases 10 and 11: the dense loop of a family with a stub-modality
+    front, which the engine refuses: the encoder-decoder over stub frames or
+    the VLM stub over stub patches (:func:`front_inputs`), prefilled and
+    decoded ``steps`` greedy steps on the plain versions, then on the
+    kernels fed the plain run's tokens.  Checks that every kernel of the
+    path launched (K6 once an encoder layer and twice a decoder layer: self
+    and cross; K1 once a cache with a packed block), that no plain version
+    ran, the logits at prefill and around the first flush within rtol 2e-2 /
+    atol 3e-1, every row flushed, layer 0's self cache bit for bit; for the
+    encoder-decoder, the cross caches untouched by the decode steps and,
+    from one memory, K1's cross caches bit for bit equal to its plain
+    version's; and that the engine refuses the model with the JAX engine's
+    ValueError, ``paged=None`` and ``paged=False``.  Then one decode step of
+    the kernel run by part (:func:`front_step_profile`), its launches
+    checked.  Returns the report
+    (with the kernel run's launches)."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.models import attention as mattn
+    from repro_torch.serve import ServeEngine
+
+    name, bn, encdec = cfg.name, cfg.kv_block, cfg.encdec
+    batch, lengths, n_lead = front_inputs(cfg, dev, text_lens)
+    kw = {} if lengths is None else {"lengths": lengths}
+    cached = [n_lead + n for n in text_lens]  # the self caches' tokens after the prefill
+    max_seq = n_lead + max(text_lens) + steps + PROFILE_STEPS
+    b = len(text_lens)
+
+    def cross_fields(state):
+        c = state["cross"]
+        return [getattr(c, f).clone() for f in ("kw", "k_scale", "k_zero", "vw", "v_scale",
+                                                "v_zero", "k_res", "v_res", "res_len")]
+
+    def encoder_s(impl):
+        """The encoder alone, on the host clock around a synchronised call."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.encode(params, batch["frames"], impl=impl)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def run(impl, feed=None):
+        """(logits [steps + 1, B, V], state, prefill s, decode s a step, the
+        cross caches after the prefill)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = model.prefill(params, batch, max_seq, impl=impl, quant_impl=impl, **kw)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        cross0 = cross_fields(state) if encdec else None
+        out = [logits[:, -1]]
+        t0 = time.perf_counter()
+        for i in range(steps):
+            tok = logits[:, -1].argmax(-1)[:, None] if feed is None else feed[i]
+            logits, state = model.decode_step(params, state, tok, impl=impl, quant_impl=impl)
+            out.append(logits[:, -1])
+        torch.cuda.synchronize()
+        return torch.stack(out), state, t_pre, (time.perf_counter() - t0) / steps, cross0
+
+    with torch.no_grad():
+        for impl in ("torch", "auto"):  # warm-up (allocator, cuBLAS), untimed
+            lg, st = model.prefill(params, batch, max_seq, impl=impl, quant_impl=impl, **kw)
+            model.decode_step(params, st, lg[:, -1].argmax(-1)[:, None], impl=impl,
+                              quant_impl=impl)
+        del lg, st
+        enc_p, enc_k = (encoder_s(impl) if encdec else 0.0 for impl in ("torch", "auto"))
+        torch.cuda.reset_peak_memory_stats()
+        lg_p, st_p, pre_p, step_p, _ = run("torch")
+        peak_plain = torch.cuda.max_memory_allocated()
+        feed = list(lg_p[:-1].argmax(-1)[:, :, None])
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        with plain_calls() as plain:
+            lg_k, st_k, pre_k, step_k, cross0 = run("auto", feed)
+        launches = dict(_build.launches)
+        peak_kernel = torch.cuda.max_memory_allocated()
+
+    log(f"  {name} prefill: plain {pre_p:.3f} s, kernels {pre_k:.3f} s"
+        + (f" (the encoder alone: plain {enc_p:.3f} s, kernels {enc_k:.3f} s)" if encdec else "")
+        + f"; decode: plain {step_p * 1e3:.2f} ms/step, kernels {step_k * 1e3:.2f} ms/step "
+        f"(B={b})")
+    log(f"  {name} peak device memory: plain {peak_plain / 2**30:.2f} GiB, kernels "
+        f"{peak_kernel / 2**30:.2f} GiB; launches {launches}")
+    for k in FRONT_PATH:
+        check(launches.get(k, 0) > 0, f"{name}: {k} launched on the dense path "
+                                      f"({launches.get(k, 0)})")
+    check(not plain, f"{name}: no plain kernel version ran in the kernel run ({dict(plain)})")
+    n_fp = cfg.enc_layers + 2 * cfg.dec_layers if encdec else cfg.n_layers
+    self_layers = cfg.dec_layers if encdec else cfg.n_layers
+    n_kq = self_layers * ((n_lead + max(text_lens) >= bn) + (encdec and cfg.enc_len >= bn))
+    check(launches.get("flash_prefill", 0) == n_fp,
+          f"{name}: flash_prefill {n_fp} times in the prefill ({launches.get('flash_prefill', 0)})"
+          + (" (the encoder's layers, the decoder's self and cross attention)" if encdec else ""))
+    check(launches.get("kv_quant", 0) == n_kq,
+          f"{name}: kv_quant once a cache with a packed block in the prefill "
+          f"({launches.get('kv_quant', 0)} launches, want {n_kq})")
+    check(bool(torch.isfinite(lg_k).all()) and lg_k.shape == (steps + 1, b, cfg.padded_vocab),
+          f"{name}: logits finite, shaped (the vocab padded to {cfg.padded_vocab})")
+    c_p, c_k = (st["self"] if encdec else st["caches"][0] for st in (st_p, st_k))
+    expect = [(n + steps) // bn for n in cached]
+    check(torch.equal(c_p.pack_blocks, c_k.pack_blocks) and torch.equal(c_p.res_len, c_k.res_len)
+          and c_k.pack_blocks[0].tolist() == expect
+          and all((n + steps) // bn > n // bn for n in cached),
+          f"{name}: every row flushed: pack_blocks {c_k.pack_blocks[0].tolist()} (want {expect}), "
+          f"res_len {c_k.res_len[0].tolist()}, equal between the runs")
+    layer0 = [bitwise(getattr(c_k, f)[0], getattr(c_p, f)[0])
+              for f in ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero", "k_res", "v_res")]
+    check(all(layer0), f"{name}: layer 0's packed self cache and residual bitwise equal between "
+                       "the runs")
+    flush = min(bn - n % bn for n in cached)
+    for idx, what in ((0, "prefill"), (flush, f"decode step {flush}, the first flush"),
+                      (flush + 1, f"decode step {flush + 1}, after the first flush")):
+        err = (lg_k[idx] - lg_p[idx]).abs().max().item()
+        check(torch.allclose(lg_k[idx], lg_p[idx], rtol=2e-2, atol=3e-1),
+              f"{name}: {what} logits within rtol 2e-2 / atol 3e-1 (max |d| {err:.3f})")
+    fid = fidelity(lg_p, lg_k)
+    log(f"  {name}, kernels vs plain over {steps + 1} steps: mean KL {fid['mean_kl']:.3e}; "
+        f"greedy agreement {fid['greedy_agreement']:.3f}; max |dlogit| "
+        f"{fid['max_abs_dlogit']:.3f}")
+    report = {"prefill_s": {"plain": pre_p, "kernels": pre_k},
+              "decode_ms_per_step": {"plain": step_p * 1e3, "kernels": step_k * 1e3},
+              "tokens_per_s": {"plain": b / step_p, "kernels": b / step_k},
+              "peak_gib": {"plain": peak_plain / 2**30, "kernels": peak_kernel / 2**30},
+              "mean_kl": fid["mean_kl"], "fidelity_vs_plain": {"kernels": fid}, "batch": b,
+              "text_lens": list(text_lens), "lead_tokens": n_lead, "decode_steps": steps,
+              "layers": cfg.n_layers, "launches": launches}
+    if encdec:
+        report["encoder_s"] = {"plain": enc_p, "kernels": enc_k}
+        check(all(bitwise(a, b_) for a, b_ in zip(cross0, cross_fields(st_k))),
+              f"{name}: the static cross caches unchanged by the {steps} decode steps")
+        with torch.no_grad():  # one memory, the cross caches by K1 and by its plain version
+            mem = model.encode(params, batch["frames"])
+            differ = collections.Counter()
+            for li in range(cfg.dec_layers):
+                p = {k: w[li] for k, w in params["decoder"]["xattn"].items()}
+                got, want = (mattn.build_cross_cache(p, cfg, mem, quant_impl=impl)
+                             for impl in ("cuda", "torch"))
+                for f in ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero", "k_res",
+                          "v_res", "pack_blocks", "res_len"):
+                    a, b_ = getattr(got, f), getattr(want, f)
+                    if a.dtype == torch.bfloat16:
+                        a, b_ = a.view(torch.int16), b_.view(torch.int16)
+                    differ[f] += int((a != b_).sum())
+            del mem, got, want
+        check(not +differ, f"{name}: the {cfg.dec_layers} cross caches of one memory "
+                           f"({cfg.enc_len} frames, {cfg.enc_len // bn} packed blocks) bitwise "
+                           f"equal, kv_quant against its plain version (elements apart: "
+                           f"{dict(+differ) or 0})")
+    for paged in (None, False):
+        try:
+            ServeEngine(model, params, slots=b, max_seq=max_seq, paged=paged, device=dev)
+            msg = "built"
+        except ValueError as e:
+            msg = str(e)
+        check("serveable cache family" in msg,
+              f"{name}: the engine refuses it (paged={paged}): {msg}")
+    report["step_by_part"] = front_step_profile(model, params, cfg, st_k, lg_k[-1], check)
+    return report
+
+
+def front_step_profile(model, params, cfg, state, logits, check) -> dict:
+    """A stub-front family's decode step by part (:func:`step_profile`),
+    continuing the dense loop's kernel run: the self attention's kernels
+    (the K2 append, K3 and its merge), the cross read's (K3 and its merge
+    over the static cache), the unembedding, and the rest (projections,
+    norms, MLP, embedding); beside the step's bound at 3.35 TB/s: the
+    weights the step reads once (the decoder's, the cross block's wq and wo
+    but not its wk and wv, the unembedding, B rows of the embedding) and the
+    caches' valid words, params and residuals.  Checks the step's launches
+    exactly in the median session of :data:`PROFILE_ROUNDS`: one K2 and one
+    self K3 a decoder layer, one cross K3 a decoder layer of the
+    encoder-decoder, one merge a K3 call of more than one split."""
+    import torch
+
+    from repro_torch.kernels.bitdecode import ops as bd_ops
+
+    t0 = time.perf_counter()
+    parts, kernels, by_name, _, st = step_profile(model, params, state, logits)
+    b, dev, encdec = logits.shape[0], logits.device, cfg.encdec
+    n_dec = cfg.dec_layers if encdec else cfg.n_layers
+    caches = {"self": st["self"] if encdec else st["caches"][0]}
+    if encdec:
+        caches["cross"] = st["cross"]
+
+    def splits_of(c):  # a cache stacked over layers: [L, B, H, nb, npr, d]
+        h, nb, d = c.kw.shape[2], c.kw.shape[3], c.kw.shape[-1]
+        return bd_ops.resolve_num_splits(
+            "auto", b, h, bd_ops.work_units(nb, c.block_n, c.bits, c.k_res.shape[3]), dev,
+            g=cfg.n_heads // cfg.n_kv_heads, d=d, block_n=c.block_n, bits=c.bits,
+            k_channel=c.k_gran == "channel")
+
+    splits = {k: splits_of(c) for k, c in caches.items()}
+    want = {"bitdecode_kernel": n_dec * len(caches), "residual_flush_kernel": n_dec,
+            "bitdecode_merge": n_dec * sum(n > 1 for n in splits.values()),
+            "cross_reads": n_dec if encdec else 0}
+    got = {k: sum(c for n, c in by_name.items() if k in n) for k in want}
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in _leaves(tree))  # noqa: E731
+
+    def cache_bytes(c):
+        h, npr, d = c.kw.shape[-4], c.kw.shape[-2], c.kw.shape[-1]  # [layers, B, H, nb, ...]
+        pb, rl = c.pack_blocks.sum().item(), c.res_len.sum().item()  # over layers and rows
+        return pb * h * (2 * npr * d * 4 + 2 * 2 * (d + c.block_n)) + rl * h * 2 * d * 2
+
+    if encdec:
+        dec = params["decoder"]
+        weights = nbytes(dec) - nbytes({k: dec["xattn"][k] for k in ("wk", "wv", "bk", "bv")})
+    else:
+        weights = sum(nbytes(v) for k, v in params.items() if k.startswith("stack_"))
+    weights += (nbytes(params["unembed"]) + nbytes(params["final_norm"])
+                + b * cfg.d_model * 2)
+    cbytes = {k: cache_bytes(c) for k, c in caches.items()}
+    out = dict(parts, kernels=kernels, launches=got, num_splits=splits, weight_bytes=weights,
+               cache_bytes=cbytes, weights_bound_ms=weights / HBM_BYTES_PER_S * 1e3,
+               step_bound_ms=(weights + sum(cbytes.values())) / HBM_BYTES_PER_S * 1e3)
+    out["self_attention_ms"] = out.pop("attention_ms")
+    out["cross_read_ms"] = out.pop("cross_ms")
+    if parts["all_ms"] == 0:
+        log(f"  {cfg.name} decode step by part: the profiler saw no device time (not measured)")
+        return out
+    check(got == want, f"{cfg.name}: one decode step launches {got} device kernels of the "
+                       f"attention path (want {want}: {n_dec} decoder layers, splits {splits})")
+    log(f"  {cfg.name} decode step by part (torch.profiler, one eager step, B={b}, median of "
+        f"{PROFILE_ROUNDS} sessions): {kernels} device kernels, {parts['all_ms']:.3f} ms; self "
+        f"attention (K2 + K3 + merge) {out['self_attention_ms']:.3f} ms"
+        + (f"; cross read (K3 + merge) {out['cross_read_ms']:.3f} ms" if encdec else "")
+        + f"; unembed {parts['unembed_ms']:.3f} ms; projections, norms, MLP and the rest "
+        f"{parts['rest_ms']:.3f} ms; the step's bound {out['step_bound_ms']:.3f} ms "
+        f"({weights / 1e9:.3f} GB of weights: {out['weights_bound_ms']:.3f} ms; caches "
+        + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in cbytes.items())
+        + f"); the profiles took {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -1973,6 +2299,10 @@ def main() -> int:
         ("qwen3-moe-235b-a22b decode shape g=16", qwen3, (1, 3, "auto")),
         ("command-r-35b g=8", (4, 8, 8, 128, 18, 128, 4, "channel", [14, 15, 16, 16],
                                [108, 80, 2, 52]), (1, "auto")),
+        ("qwen2-vl-7b decode shape g=7", (4, 4, 7, 128, 16, 128, 4, "channel", VLM_PB, VLM_RL),
+         (1, 3, "auto")),
+        ("seamless-m4t-medium static cross read g=1 d=64, empty residual",
+         (4, 16, 1, 64, 32, 128, 4, "channel", CROSS_PB, CROSS_RL), (1, 3, "auto")),
         ("bits=2 block_n=64", (2, 4, 4, 64, 8, 64, 2, "tensor", [8, 5], [17, 64]), (1, 3, "auto")),
         ("bits=8 block_n=64", (2, 4, 2, 128, 8, 64, 8, "channel", [6, 8], [64, 3]),
          (1, 3, "auto")),
@@ -2465,6 +2795,46 @@ def main() -> int:
           f"{(got.float() - want).abs().max().item():.2e} (max|out| "
           f"{want.abs().max().item():.2f}), max|dlse| {(lse_k - lse_r).abs().max().item():.2e}")
     del q_, k_, v_, pad, got, want
+    # the full mode with a key length of its own (an encoder-decoder's cross
+    # attention, S decoder tokens over T encoder frames): seamless-m4t-medium's
+    # cross prefill (S 100 < one 128-row q-tile), a ragged T with g 4, S > T,
+    # S < 16 and T < one KV tile, d 256 (64-key tiles); both layouts; and
+    # through blockwise_attention(causal=False) on the model's layout
+    for (b_, hq_, hkv_, s_, t_, d_), layout in (
+            ((4, 16, 16, 100, 4096, 64), "bshd"), ((2, 8, 2, 300, 1000, 128), "bhsd"),
+            ((2, 8, 8, 2048, 512, 128), "bshd"), ((2, 12, 1, 7, 300, 32), "bshd"),
+            ((2, 8, 2, 200, 50, 128), "bhsd"), ((1, 4, 4, 130, 70, 256), "bshd")):
+        shape = (lambda h, n: (b_, h, n, d_)) if layout == "bhsd" else (
+            lambda h, n: (b_, n, h, d_))
+        flash_case(randn(*shape(hq_, s_)), randn(*shape(hkv_, t_)), v_off(randn(*shape(hkv_, t_))),
+                   False, layout, f"cross B={b_} Hq={hq_} Hkv={hkv_} S={s_} T={t_}")
+    # phases 10 and 11's other prefill calls: qwen2-vl-7b's causal prefill
+    # (28 / 4 heads, g 7, d 128, over 1,024 patches and up to 895 text
+    # tokens), seamless-m4t-medium's encoder (full, S = T = 4,096) and its
+    # decoder's self attention (causal, S 100), 16 / 16 heads of 64
+    n_vlm = 1024 + max(VLM_TEXT_LENS)
+    flash_case(randn(4, n_vlm, 28, 128), randn(4, n_vlm, 4, 128), v_off(randn(4, n_vlm, 4, 128)),
+               True, "bshd", f"qwen2-vl-7b prefill shape B=4 Hq=28 Hkv=4 S={n_vlm}")
+    for s_, causal, what in ((4096, False, "encoder"), (ENCDEC_PROMPT, True, "decoder self")):
+        flash_case(randn(4, s_, 16, 64), randn(4, s_, 16, 64), v_off(randn(4, s_, 16, 64)),
+                   causal, "bshd", f"seamless-m4t-medium {what} shape B=4 Hq=Hkv=16 S={s_}")
+    q_, k_ = randn(4, ENCDEC_PROMPT, 16, 64), randn(4, 4096, 16, 64)
+    v_ = v_off(randn(4, 4096, 16, 64))
+    _build.launches.clear()
+    got = catt.blockwise_attention(q_, k_, v_, causal=False, impl="cuda")
+    one = dict(_build.launches) == {"flash_prefill": 1}
+    want = catt.blockwise_attention(q_, k_, v_, causal=False, impl="torch")
+    note_err("flash_prefill", got, want)
+    refused = False
+    try:
+        catt.blockwise_attention(q_, k_, v_, causal=True, impl="cuda")
+    except ValueError:
+        refused = True
+    check(one and refused and torch.allclose(got.float(), want, rtol=3e-2, atol=3e-2),
+          f"flash_prefill cross through blockwise_attention(causal=False) B=4 Hq=Hkv=16 "
+          f"S={ENCDEC_PROMPT} T=4096: one launch {one}, max|dout| "
+          f"{(got.float() - want).abs().max().item():.2e}; causal at S != T refused {refused}")
+    del q_, k_, v_, got, want
     torch.cuda.synchronize()
 
     # timing at the main path's shapes: device time of one call, L2 scrubbed
@@ -2877,6 +3247,43 @@ def main() -> int:
         f"{st['zamba2_library_ms'] * 1e3:.1f} us (ours / sdpa {st['zamba2_vs_library']:.2f}), "
         f"bound {st['zamba2_bound_ms'] * 1e3:.2f} us ({st['zamba2_bound_by']})")
     del q, k, v, qh, kh, vh
+    # K6's full mode at seamless-m4t-medium's cross prefill (B 4, 16 / 16
+    # heads of 64, S 100 decoder tokens over T 4,096 frames; one 128-row
+    # q-tile a (row, head): 64 work tiles on the SMs, no split over T), beside
+    # scaled_dot_product_attention (non-causal) on contiguous [B, H, S, d]
+    b_, h_, s_, t_, d_ = 4, 16, ENCDEC_PROMPT, 4096, 64
+    q, k, v = randn(b_, s_, h_, d_), randn(b_, t_, h_, d_), randn(b_, t_, h_, d_)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    fp = lambda impl: fp_ops.flash_prefill_attention(  # noqa: E731
+        q, k, v, causal=False, layout="bshd", impl=impl)
+    st = stats["flash_prefill"]
+    st["cross_ms"] = time_ms(lambda: fp("cuda"))
+    st["cross_plain_ms"] = time_ms(lambda: fp("torch"), iters=3)
+    st["cross_library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh))
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b_ * h_ * s_  # lse f32
+    ops = 4 * b_ * h_ * s_ * t_ * d_  # QK^T and PV over every key
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    st["cross_bound_ms"] = max(t_bytes, t_ops)
+    st["cross_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    st["cross_shape"] = dict(B=b_, Hq=h_, Hkv=h_, S=s_, T=t_, d=d_, causal=False)
+    st["cross_work_tiles"] = fp_ops.work_tiles(b_, h_, s_)
+    st["cross_share_of_bound"] = st["cross_bound_ms"] / st["cross_ms"]
+    st["cross_vs_library"] = st["cross_ms"] / st["cross_library_ms"]
+    log(f"  time flash_prefill cross_{st['cross_shape']}: kernel {st['cross_ms'] * 1e3:.1f} us "
+        f"({st['cross_work_tiles']} work tiles on {sms} SMs, {st['cross_share_of_bound']:.1%} of "
+        f"the bound), plain {st['cross_plain_ms'] * 1e3:.1f} us, scaled_dot_product_attention "
+        f"{st['cross_library_ms'] * 1e3:.1f} us (kernel / sdpa {st['cross_vs_library']:.2f}), "
+        f"bound {st['cross_bound_ms'] * 1e3:.2f} us ({st['cross_bound_by']}: "
+        f"{nbytes / 1e6:.1f} MB)")
+    del q, k, v, qh, kh, vh
+    # K3 at seamless-m4t-medium's static cross read (16 KV heads of 64, g 1, 32
+    # packed blocks, an empty residual) and at qwen2-vl-7b's decode shape (4 KV
+    # heads of 128, g 7) after phase 11's loop
+    time_decode("cross_", False, 4, 16, 1, 64, CROSS_PB, CROSS_RL,
+                decode_cache(False, 4, 16, 64, CROSS_PB[0]))
+    time_decode("qwen2vl_", False, 4, 4, 7, 128, VLM_PB, VLM_RL,
+                decode_cache(False, 4, 4, 128, max(VLM_PB) + 1))
     for name, st in stats.items():
         if name != "flash_prefill":  # its shapes are printed above
             log(f"  time {name}: kernel {st['ms'] * 1e3:.1f} us, plain {st['plain_ms'] * 1e3:.1f} "
@@ -2971,7 +3378,8 @@ def main() -> int:
         f"(K3 alone at these lengths {k3['mla_ms'] * 1e3:.1f} us a call in phase 2 against its "
         f"bound {k3['mla_bound_ms'] * 1e3:.2f} us, {k3['mla_bound_by']}), absorbed products "
         f"{ms['absorbed_ms']:.3f} ms, expert products {ms['experts_ms']:.3f} ms (bound "
-        f"{ms['experts_all_bound_ms']:.3f} ms), the rest {ms['rest_ms']:.3f} ms; the step "
+        f"{ms['experts_all_bound_ms']:.3f} ms), unembed {ms['unembed_ms']:.3f} ms, the rest "
+        f"{ms['rest_ms']:.3f} ms; the step "
         f"{ms['all_ms']:.3f} ms against {ms['step_bound_ms']:.3f} ms reading its weights once")
     family[name] = rep | {"n_params": n, "cut": f"cut to {change['n_layers']} layers",
                           "serve": sv["report"], "serve_launches": sv["launches"],
@@ -3008,12 +3416,36 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ------------------------------------------- 10.-11. the stub-front families
+    for phase, name, change, text_lens, steps in (
+            (10, ENCDEC, {}, (ENCDEC_PROMPT,) * 4, ENCDEC_STEPS),
+            (11, VLM[0], VLM[1], VLM_TEXT_LENS, VLM_STEPS)):
+        cut = f", cut to {change['n_layers']} layers" if change else " and depth"
+        log(f"== {phase}. {name} at full width{cut}: the dense loop (the engine refuses it) (at "
+            f"{time.perf_counter() - t_start:.1f} s)")
+        t_ph = time.perf_counter()
+        cfg, model, params, n = build_random(name, dev, **change)
+        if cfg.encdec:
+            log(f"  encoder-decoder: {cfg.enc_layers} encoder + {cfg.dec_layers} decoder layers, "
+                f"{cfg.enc_len} stub frames, LayerNorm, GELU, biases; cross attention over a "
+                "static 4-bit cache")
+        else:
+            log(f"  VLM stub: {cfg.n_patches} stub patches on a {cfg.patch_grid} grid, M-RoPE "
+                f"sections {cfg.mrope_sections}, g {cfg.g_q}, QKV biases")
+        rep = front_phase(model, params, cfg, check, dev, text_lens, steps)
+        family[name] = rep | {"n_params": n, "cut": cut.lstrip(", ") if change else None,
+                              "phase_s": time.perf_counter() - t_ph}
+        log(f"  phase {phase} took {family[name]['phase_s']:.1f} s")
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # -------------------------------------------------------------- the CLI
     log(f"== the serve CLI, async runtime, smoke llama3-8b (at "
         f"{time.perf_counter() - t_start:.1f} s)")
     cli = serve_cli(check)
 
-    # ------------------------------------------------------------ 10. summary
+    # ------------------------------------------------------------ 12. summary
     rows = []
     for name, meta in KERNELS.items():
         st = stats[name]
@@ -3045,7 +3477,8 @@ def main() -> int:
                                                     "num_splits", "shape")
                or k.startswith(("gemma_", "long_", "starcoder2_", "unfused_", "flush_mode_",
                                 "bound_ms_no_flush", "launch_floor", "v_", "pair_",
-                                "fill_parent_", "draft_", "mla_", "zamba2_"))
+                                "fill_parent_", "draft_", "mla_", "zamba2_", "cross_",
+                                "qwen2vl_"))
                or k in ("tflops", "share_of_bound", "vs_library")},
         })
     total_s = time.perf_counter() - t_start

@@ -1,9 +1,9 @@
 """Architecture configuration for the models the port runs.
 
 A copy of the fields of the JAX package's ``ArchConfig`` that the dense,
-MoE, MLA and Mamba2-hybrid paths read, with the JAX defaults.  ``mixer``, ``vision_stub``,
-``mrope_sections`` and ``rope`` exist so that a config asking for what the
-port does not run yet is refused by
+MoE, MLA, Mamba2-hybrid, encoder-decoder and VLM-stub paths read, with the
+JAX defaults.  ``mixer`` and ``rope`` exist so that a config asking for what
+the port does not run yet is refused by
 :class:`repro_torch.models.transformer.DecoderLM`.
 """
 from __future__ import annotations
@@ -37,7 +37,17 @@ class ArchConfig:
     embed_scale: bool = False  # gemma: embeddings * sqrt(d_model)
     rms_plus_one: bool = False  # gemma: RMSNorm scales by (1 + w)
     attn_block_k: int = 512
+
+    # encoder-decoder (seamless): the encoder reads stub frame embeddings
+    encdec: bool = False
+    enc_layers: int = 0
+    dec_layers: int = 0
+    enc_len: int = 4096  # stub frame-embedding length for decode shapes
+
+    # VLM stub (qwen2-vl): precomputed patch embeddings ahead of the text
     vision_stub: bool = False
+    n_patches: int = 1024
+    patch_grid: tuple = (32, 32)
 
     # MoE
     n_experts: int = 0
@@ -86,7 +96,8 @@ class ArchConfig:
 
 
 _REGISTRY = ["llama3_8b", "llama2_7b", "gemma_7b", "starcoder2_3b", "command_r_35b",
-             "qwen3_moe_235b_a22b", "deepseek_v3_671b", "zamba2_7b"]
+             "qwen3_moe_235b_a22b", "deepseek_v3_671b", "zamba2_7b", "seamless_m4t_medium",
+             "qwen2_vl_7b"]
 
 
 def _mod_name(name: str) -> str:

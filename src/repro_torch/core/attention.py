@@ -167,12 +167,15 @@ def padded_head_dim(d_k: int, d_v: int) -> int:
     return fits[0]
 
 
-def blockwise_attention(q, k, v, *, sm_scale: float | None = None, block_k: int = 512,
-                        impl: str = "auto"):
-    """Causal flash-style attention: q [B, S, h_q, d_k], k/v [B, T, h_kv, d].
+def blockwise_attention(q, k, v, *, causal: bool = True, sm_scale: float | None = None,
+                        block_k: int = 512, impl: str = "auto"):
+    """Flash-style attention, causal or full: q [B, S, h_q, d_k], k/v
+    [B, T, h_kv, d].  Causal attention needs S == T on the card; full
+    attention (an encoder's self attention, a decoder's cross attention over
+    T encoder frames) takes any S and T.
 
     ``impl="cuda"`` runs the flash-prefill kernel (``kernels/flash_prefill``)
-    on the model's [B, S, H, d] layout and returns bf16; it needs S == T.
+    on the model's [B, S, H, d] layout and returns bf16.
     Head dims the kernel has an instance for, with d_k == d_v, go as they
     are; others (MLA's d_k 192, d_v 128) take the padded route: Q, K and V
     zero-padded to the smallest instance >= max(d_k, d_v), the caller's
@@ -188,23 +191,27 @@ def blockwise_attention(q, k, v, *, sm_scale: float | None = None, block_k: int 
     if sm_scale is None:
         sm_scale = 1.0 / (d_k**0.5)
     if _build.resolve_impl(impl, q, k, v) == "cuda":
-        if s != t:
-            raise ValueError(f"the flash-prefill kernel needs S == T, got {s} "
-                             f"queries over {t} keys; use impl='torch'")
+        if causal and s != t:
+            raise ValueError(f"the flash-prefill kernel's causal mode needs S == T, got {s} "
+                             f"queries over {t} keys")
         width = padded_head_dim(d_k, d_v)
         if width != d_k or width != d_v:
             q, k, v = (torch.nn.functional.pad(x, (0, width - x.shape[-1])) for x in (q, k, v))
-        out = fp_ops.flash_prefill_attention(q, k, v, sm_scale=sm_scale, layout="bshd",
-                                             impl="cuda")
+        out = fp_ops.flash_prefill_attention(q, k, v, sm_scale=sm_scale, causal=causal,
+                                             layout="bshd", impl="cuda")
         return out[..., :d_v]
-    return blockwise_attention_plain(q, k, v, sm_scale=sm_scale, block_k=block_k)
+    return blockwise_attention_plain(q, k, v, causal=causal, sm_scale=sm_scale,
+                                     block_k=block_k)
 
 
-def blockwise_attention_plain(q, k, v, *, sm_scale: float, block_k: int = 512):
+def blockwise_attention_plain(q, k, v, *, causal: bool = True, sm_scale: float,
+                              block_k: int = 512):
     """The plain version of :func:`blockwise_attention`, returning f32: it
     walks KV blocks of ``block_k`` with online-softmax carries and never
     builds the [S, T] score matrix; products take bf16 operands with f32
-    accumulation (float32 matmuls of bf16-rounded values)."""
+    accumulation (float32 matmuls of bf16-rounded values).  Causal: query
+    row i attends keys <= i; full: every row attends all T keys (the last
+    block is sliced at T, so no key past T enters)."""
     b, s, h_q, d_k = q.shape
     _, t, h_kv, d_v = v.shape
     g = h_q // h_kv
@@ -221,8 +228,9 @@ def blockwise_attention_plain(q, k, v, *, sm_scale: float, block_k: int = 512):
     for lo in range(0, t, block_k):
         kj, vj = kf[:, :, lo:lo + block_k], vf[:, :, lo:lo + block_k]
         sblk = torch.matmul(qg, kj.transpose(-1, -2)) * sm_scale
-        cols = torch.arange(lo, lo + kj.shape[2], device=q.device)[None, :]
-        sblk = torch.where(cols <= rows, sblk, MASK_VALUE)
+        if causal:
+            cols = torch.arange(lo, lo + kj.shape[2], device=q.device)[None, :]
+            sblk = torch.where(cols <= rows, sblk, MASK_VALUE)
         m_new = torch.maximum(m, sblk.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(sblk - m_new)

@@ -6,9 +6,10 @@
   channel axis.  Params per block: ``[block_n]``.
 
 Asymmetric uint quantization ``q = clip(round((x - zero) / scale))``: the
-params are cast to ``param_dtype`` *before* quantizing, the division is a true
-IEEE division (a multiply by the reciprocal changes codes) and ``torch.round``
-rounds half to even.  Written this way the codes, words and params equal the
+params are cast to ``param_dtype`` *before* quantizing, the divisions are
+true IEEE divisions on the CPU and the card alike (a multiply by the
+reciprocal changes codes and scales) and ``torch.round`` rounds half to
+even.  Written this way the codes, words and params equal the
 JAX reference bit for bit.
 """
 from __future__ import annotations
@@ -21,7 +22,11 @@ _EPS = 1e-6
 
 
 def _minmax_params(xmin, xmax, bits, param_dtype):
-    scale = torch.clamp_min((xmax - xmin) / layout.qmax(bits), _EPS)
+    # qmax as a tensor on the data's device: divided by a Python number,
+    # PyTorch's CUDA kernel multiplies by the number's reciprocal, and an
+    # exact bf16 tie of the quotient then rounds the other way
+    qmax = torch.full((), float(layout.qmax(bits)), dtype=torch.float32, device=xmax.device)
+    scale = torch.clamp_min((xmax - xmin) / qmax, _EPS)
     return scale.to(param_dtype), xmin.to(param_dtype)
 
 

@@ -1,6 +1,8 @@
 // Causal (or full) flash attention, forward only, for the prefill: bf16 q/k/v,
 // f32 scores, online softmax and accumulation, P rounded to bf16 before PV;
 // returns bf16 out and f32 lse.  Query head h reads KV head h / (Hq / Hkv).
+// S queries attend T keys: causal takes T == S; full attention takes any T
+// (an encoder-decoder's cross attention, S decoder tokens over T frames).
 //
 // Replaces: src/repro/kernels/flash_prefill/kernel.py `flash_prefill_pallas`
 //           (`_kernel`: the causal block skip, the `s_valid` column mask with
@@ -35,7 +37,9 @@
 //    [B, S, H, d], [B, H, S, d] and head slices of a fused buffer are read as
 //    they are; tiles are boxes of 64 channels (128 bytes, 128-byte swizzle)
 //    by rows: d = 128 takes two per tile, d = 256 four, and d = 32 one box
-//    whose channels past d TMA fills with zeros.
+//    whose channels past d TMA fills with zeros.  Q's map has extent S, K's
+//    and V's extent T: rows past either arrive as zeros, and the masks and
+//    the epilogue test against T and S.
 // KV tiles are 128 rows for d <= 128 (2 x Q 32 KB + 2 stages x 64 KB at
 // d = 128) and 64 at d = 256 (Q 64 KB + 2 x 64 KB), within the 227 KB of a
 // CTA.
@@ -136,11 +140,11 @@ struct Rows {
 // running max and sum and returns O's rescale factors.  Element 4j + e of
 // the accumulator is row (e < 2 ? row_a : row_a + 8), column
 // k0 + 8j + cq + e % 2.  `edge`: the tile crosses the diagonal or the end of
-// S, so columns past S or above a row are masked (TMA's zero fill would
-// score 0 there, not a masked value).
+// the keys, so columns past T or above a row are masked (TMA's zero fill
+// would score 0 there, not a masked value).
 template <int BN>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], Rows& r, float& alpha_a,
-                                             float& alpha_b, bool edge, int k0, int S,
+                                             float& alpha_b, bool edge, int k0, int T,
                                              int causal, int row_a, int cq, float scale_log2) {
   if (edge) {
 #pragma unroll
@@ -148,7 +152,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], Rows& r, float
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + 8 * j + cq + (e & 1);
-        if (col >= S || (causal && col > row_a + (e < 2 ? 0 : 8))) sc[4 * j + e] = FP_MASK;
+        if (col >= T || (causal && col > row_a + (e < 2 ? 0 : 8))) sc[4 * j + e] = FP_MASK;
       }
   }
   float mx_a = r.m_a, mx_b = r.m_b;
@@ -216,8 +220,8 @@ template <int D>
 __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, float* __restrict__ lse,
-    int B, int Hq, int Hkv, int S, long long osb, long long oss, long long osh, int causal,
-    float sm_scale) {
+    int B, int Hq, int Hkv, int S, int Tk, long long osb, long long oss, long long osh,
+    int causal, float sm_scale) {
   using T = FpTile<D>;
   constexpr int BN = T::BN, NCH = T::NCH, ST = FP_STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -248,8 +252,8 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_kernel(
   auto work_of = [&](int i) {
     return i * (int)gridDim.x + (i & 1 ? (int)(gridDim.x - 1 - blockIdx.x) : (int)blockIdx.x);
   };
-  auto n_tiles_of = [&](const Work& wk) {
-    return ((causal ? min(S, wk.q0 + FP_BM) : S) + BN - 1) / BN;
+  auto n_tiles_of = [&](const Work& wk) {  // KV tiles of a work tile (Tk == S if causal)
+    return ((causal ? min(Tk, wk.q0 + FP_BM) : Tk) + BN - 1) / BN;
   };
 
   if (threadIdx.x == 0) {
@@ -310,7 +314,7 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_kernel(
       // tiles this warpgroup computes; the rest it only releases
       const int n_mine = r0 >= S ? 0 : causal ? (min(S, r0 + 64) + BN - 1) / BN : n_tiles;
       auto edge = [&](int t) {
-        return (t + 1) * BN > S || (causal && (t + 1) * BN - 1 > r0);
+        return (t + 1) * BN > Tk || (causal && (t + 1) * BN - 1 > r0);
       };
 
       float acc[T::NPV][T::PV_N / 2];  // O: NPV wgmma m64n{PV_N} accumulators
@@ -340,7 +344,7 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_kernel(
         fence_regs(sc);
         release(empty_k(kt0));
         if (n_mine == 1) release(q_empty(i));
-        softmax_tile<BN>(sc, r, alpha_a, alpha_b, edge(0), 0, S, causal, row_a, cq,
+        softmax_tile<BN>(sc, r, alpha_a, alpha_b, edge(0), 0, Tk, causal, row_a, cq,
                          scale_log2);
         pack_p<BN>(p, sc);
         for (t = 1; t < n_mine; ++t) {
@@ -358,7 +362,7 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_kernel(
           fence_regs(sc);
           release(empty_k(kt));
           if (lane == 0 && t == n_mine - 1) mbar_arrive(q_empty(i));
-          softmax_tile<BN>(sc, r, alpha_a, alpha_b, edge(t), t * BN, S, causal, row_a, cq,
+          softmax_tile<BN>(sc, r, alpha_a, alpha_b, edge(t), t * BN, Tk, causal, row_a, cq,
                            scale_log2);
           wgmma_wait<0>();
           fence_regs(acc);
@@ -461,8 +465,8 @@ static cudaError_t make_map(CUtensorMap* map, const void* ptr, int d, int S, int
 
 template <int D>
 static cudaError_t launch_fp(const void* q, const void* k, const void* v, void* o, void* lse,
-                             int B, int Hq, int Hkv, int S, const long long* st, int causal,
-                             float sm_scale, int ctas, void* stream) {
+                             int B, int Hq, int Hkv, int S, int Tk, const long long* st,
+                             int causal, float sm_scale, int ctas, void* stream) {
   using T = FpTile<D>;
   static bool configured = false;
   if (!configured) {
@@ -483,26 +487,29 @@ static cudaError_t launch_fp(const void* q, const void* k, const void* v, void* 
   }
   CUtensorMap tq, tk, tv;
   cudaError_t err = make_map(&tq, q, D, S, Hq, B, st[1], st[2], st[0], FP_BM);
-  if (err == cudaSuccess) err = make_map(&tk, k, D, S, Hkv, B, st[4], st[5], st[3], T::BN);
-  if (err == cudaSuccess) err = make_map(&tv, v, D, S, Hkv, B, st[7], st[8], st[6], T::BN);
+  if (err == cudaSuccess) err = make_map(&tk, k, D, Tk, Hkv, B, st[4], st[5], st[3], T::BN);
+  if (err == cudaSuccess) err = make_map(&tv, v, D, Tk, Hkv, B, st[7], st[8], st[6], T::BN);
   if (err != cudaSuccess) return err;
   flash_prefill_kernel<D><<<ctas, FP_THREADS, T::SMEM, (cudaStream_t)stream>>>(
-      tq, tk, tv, (bf16*)o, (float*)lse, B, Hq, Hkv, S, st[9], st[10], st[11], causal,
+      tq, tk, tv, (bf16*)o, (float*)lse, B, Hq, Hkv, S, Tk, st[9], st[10], st[11], causal,
       sm_scale);
   return cudaGetLastError();
 }
 
 // Strides are in elements, (batch, sequence, head) for each of q, k, v, out;
 // channels are contiguous, every row and stride 16-byte aligned (the
-// wrapper checks: TMA's rule).  `ctas`: CTAs to launch, 1 to the number of
-// work tiles (ceil(S / 128) * Hq * B); each walks its share of them.
+// wrapper checks: TMA's rule).  S queries over T keys and values: causal
+// needs T == S (refused otherwise), full attention takes any T >= 1.
+// `ctas`: CTAs to launch, 1 to the number of work tiles
+// (ceil(S / 128) * Hq * B); each walks its share of them.
 extern "C" int flash_prefill_launch(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
-    int Hq, int Hkv, int S, int d, long long qsb, long long qss, long long qsh,
+    int Hq, int Hkv, int S, int T, int d, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb, long long vss,
     long long vsh, long long osb, long long oss, long long osh, int causal,
     float sm_scale, int ctas, void* stream) {
   if (B * Hq * S == 0) return 0;
+  if (T < 1 || (causal && T != S)) return (int)cudaErrorInvalidValue;
   if (ctas < 1 || (long long)ctas > (long long)((S + FP_BM - 1) / FP_BM) * Hq * B)
     return (int)cudaErrorInvalidValue;
   const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh,
@@ -510,20 +517,20 @@ extern "C" int flash_prefill_launch(
   cudaError_t err = cudaErrorInvalidValue;
   switch (d) {
     case 32:
-      err = launch_fp<32>(q, k, v, o, lse, B, Hq, Hkv, S, st, causal, sm_scale, ctas,
-                          stream);
+      err = launch_fp<32>(q, k, v, o, lse, B, Hq, Hkv, S, T, st, causal, sm_scale,
+                          ctas, stream);
       break;
     case 64:
-      err = launch_fp<64>(q, k, v, o, lse, B, Hq, Hkv, S, st, causal, sm_scale, ctas,
-                          stream);
+      err = launch_fp<64>(q, k, v, o, lse, B, Hq, Hkv, S, T, st, causal, sm_scale,
+                          ctas, stream);
       break;
     case 128:
-      err = launch_fp<128>(q, k, v, o, lse, B, Hq, Hkv, S, st, causal, sm_scale, ctas,
-                           stream);
+      err = launch_fp<128>(q, k, v, o, lse, B, Hq, Hkv, S, T, st, causal, sm_scale,
+                           ctas, stream);
       break;
     case 256:
-      err = launch_fp<256>(q, k, v, o, lse, B, Hq, Hkv, S, st, causal, sm_scale, ctas,
-                           stream);
+      err = launch_fp<256>(q, k, v, o, lse, B, Hq, Hkv, S, T, st, causal, sm_scale,
+                           ctas, stream);
       break;
   }
   return (int)err;

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "bitdecode_merge": ("bitdecode_merge_launch", [_P] * 4 + [_I] * 3 + [_P]),
     "paged_residual_flush": ("residual_flush_launch", [_P] * 17 + [_L] * 4 + [_I] * 13 + [_P]),
     "paged_bitdecode": ("paged_bitdecode_launch", [_P] * 14 + [_I] * 14 + [_F, _P]),
-    "flash_prefill": ("flash_prefill_launch", [_P] * 5 + [_I] * 5 + [_L] * 12
+    "flash_prefill": ("flash_prefill_launch", [_P] * 5 + [_I] * 6 + [_L] * 12
                       + [_I, _F, _I, _P]),
 }
 

@@ -56,10 +56,13 @@ def flash_prefill_cuda(q, k, v, *, sm_scale: float, causal: bool, layout: str):
     """Launch the kernel; returns (out bf16 in ``layout``, lse f32 [B, Hq, S])."""
     q, k, v = (_kernel_operand(_as_bshd(x, layout)) for x in (q, k, v))
     b, s, hq, d = q.shape
-    hkv = k.shape[2]
-    if k.shape != v.shape or k.shape[:2] != (b, s) or k.shape[3] != d:
+    t, hkv = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or t == 0:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not match "
-                         f"q {tuple(q.shape)}: the kernel needs S == T and d_k == d_v")
+                         f"q {tuple(q.shape)}: the kernel needs d_k == d_v and T >= 1")
+    if causal and t != s:
+        raise ValueError(f"causal attention needs S == T, got {s} queries over {t} keys; "
+                         "only full attention (causal=False) takes S != T")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} has no kernel instance; built for {HEAD_DIMS}")
     if hkv == 0 or hq % hkv:
@@ -74,7 +77,7 @@ def flash_prefill_cuda(q, k, v, *, sm_scale: float, causal: bool, layout: str):
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     _build.launch(
         "flash_prefill", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, hq, hkv, s, d, *strides, int(causal), float(sm_scale),
+        lse.data_ptr(), b, hq, hkv, s, t, d, *strides, int(causal), float(sm_scale),
         launch_ctas(b, hq, s, d, sms), _build.stream_of(q),
     )
     return out, lse
@@ -85,9 +88,11 @@ def flash_prefill_attention(q, k, v, *, sm_scale: float | None = None,
                             impl: str = "auto", return_lse: bool = False):
     """Causal (or full) attention, forward only.
 
-    q [B, Hq, S, d] and k, v [B, Hkv, S, d] (``layout="bhsd"``), or the
+    q [B, Hq, S, d] and k, v [B, Hkv, T, d] (``layout="bhsd"``), or the
     same as [B, S, H, d] (``layout="bshd"``); query head h reads KV head
-    h // (Hq / Hkv).  Returns out (bf16, in ``layout``) and, with
+    h // (Hq / Hkv).  Causal attention needs T == S; full attention
+    (``causal=False``: an encoder's self attention, a decoder's cross
+    attention over T encoder frames) takes any T.  Returns out (bf16, in ``layout``) and, with
     ``return_lse``, lse (f32 [B, Hq, S]).  ``sm_scale`` defaults to
     1/sqrt(d).  impl: 'cuda' (the kernel), 'torch' (the plain version) or
     'auto' (the kernel for CUDA tensors, the plain version for CPU tensors).

@@ -21,7 +21,10 @@ Page-pool sizing, reservations, preemption, the auditor, deadlines,
 ``--strict``, ``--metrics-every`` and tracing (``--trace-out``) work as in
 the JAX launcher.  ``--family`` serves attention (llama3-8b), MLA
 (deepseek-v3-671b) and the Mamba2 hybrid (zamba2-7b: exact-length prefill
-groups, no prefix sharing).  Not ported yet, and refused with
+groups, no prefix sharing).  ``--arch seamless-m4t-medium`` (the
+encoder-decoder) and ``--arch qwen2-vl-7b`` (the VLM stub) reach the
+engine's ``ValueError``, as in the JAX launcher: their prefill needs frame
+or patch embeddings that a request does not carry.  Not ported yet, and refused with
 ``NotImplementedError`` naming the ROADMAP item: the recurrent family
 (``--family xlstm``) and the exact-length shim (``--dense``, queue A item
 10), and cross-chip split-KV routing (``--splitkv`` other than ``auto``,

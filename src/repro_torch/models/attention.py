@@ -3,7 +3,9 @@ RMSNorm) + RoPE + the BitDecoding cache.
 
 Prefill runs blockwise flash attention and builds the quantized cache from
 its K/V; decode appends to the cache and runs the fused low-bit kernel
-through the query transformation (core/attention.py).
+through the query transformation (core/attention.py).  The encoder-decoder's
+cross attention reads a *static* quantized cache of the encoder's K/V, built
+once after encoding (:func:`build_cross_cache`).
 """
 from __future__ import annotations
 
@@ -52,9 +54,19 @@ def _qkv(p, cfg, x, positions):
     if cfg.qk_norm:  # over the head dim, before RoPE: the cache holds normed K
         q = layers.rmsnorm(p["qnorm"], q)
         k = layers.rmsnorm(p["knorm"], k)
-    q = layers.apply_rope(q, positions, theta=cfg.rope_theta)
-    k = layers.apply_rope(k, positions, theta=cfg.rope_theta)
+    q = layers.apply_rope(q, positions, theta=cfg.rope_theta, sections=cfg.mrope_sections)
+    k = layers.apply_rope(k, positions, theta=cfg.rope_theta, sections=cfg.mrope_sections)
     return q, k, v
+
+
+def attn_train(p, cfg, x, positions, *, causal=True, impl="auto"):
+    """x [B, S, d] -> [B, S, d]: attention over x itself with no cache
+    (the encoder's self attention is full, ``causal=False``).  ``impl``
+    picks the prefill attention, as in :func:`attn_prefill_cache`."""
+    q, k, v = _qkv(p, cfg, x, positions)
+    out = catt.blockwise_attention(q, k, v, causal=causal, block_k=cfg.attn_block_k,
+                                   impl=impl)
+    return _out(out.to(x.dtype), p["wo"])
 
 
 def attn_prefill_cache(p, cfg, x, positions, max_seq: int, *, impl="auto",
@@ -93,10 +105,57 @@ def attn_decode(p, cfg, x, positions, cache, *, impl="auto", quant_impl="auto",
     low-bit decode kernel.  ``impl`` picks the attention kernel,
     ``quant_impl`` the flush, ``num_splits`` the split-KV count; ``mask``
     and ``draft_bits`` are the speculative modes of
-    ``core.attention.decode_append_attention``."""
+    ``core.attention.decode_append_attention``.  A static cache is read
+    with :func:`cross_attn_decode`, which appends nothing."""
     q, k, v = _qkv(p, cfg, x, positions)
     out, cache = catt.decode_append_attention(
         q, cache, k.transpose(1, 2), v.transpose(1, 2), quant_impl=quant_impl,
         mask=mask, draft_bits=draft_bits, impl=impl, num_splits=num_splits,
     )
     return _out(out.to(x.dtype), p["wo"]), cache
+
+
+def cross_attn_def(cfg) -> dict:
+    """The cross block's parameters: those of :func:`attn_def`.  Its biases
+    (with ``attn_bias``) are in the tree, as in JAX, but cross attention
+    reads none of them."""
+    return attn_def(cfg)
+
+
+def mem_kv(p, mem):
+    """The encoder memory's K and V, [B, T, H, d]: projections alone, no
+    bias and no RoPE."""
+    return _proj(mem, p["wk"]), _proj(mem, p["wv"])
+
+
+def cross_attn_train(p, cfg, x, mem, *, kv=None, impl="auto"):
+    """Cross attention of x [B, S, d] over the encoder memory mem [B, T, d],
+    full-precision and full (no mask): S != T in general, which the
+    flash-prefill kernel's full mode takes on the card.  ``kv``: the
+    memory's :func:`mem_kv`, if the caller has it already."""
+    k, v = mem_kv(p, mem) if kv is None else kv
+    out = catt.blockwise_attention(_proj(x, p["wq"]), k, v, causal=False,
+                                   block_k=cfg.attn_block_k, impl=impl)
+    return _out(out.to(x.dtype), p["wo"])
+
+
+def build_cross_cache(p, cfg, mem, *, kv=None, quant_impl="auto"):
+    """The static quantized cache of the encoder memory's K/V, built once
+    (the paper's offline case, Fig. 1a): ``mem.shape[1]`` tokens, full
+    blocks packed, the tail in the bf16 residual, which no decode step
+    appends to or flushes.  ``kv`` as for :func:`cross_attn_train`."""
+    k, v = mem_kv(p, mem) if kv is None else kv
+    cache = qcache.init_cache(
+        mem.shape[0], cfg.n_kv_heads, cfg.head_dim, mem.shape[1], bits=cfg.kv_bits,
+        block_n=cfg.kv_block, k_gran=cfg.kv_gran, device=mem.device,
+    )
+    return qcache.prefill(cache, k.transpose(1, 2), v.transpose(1, 2), quant_impl=quant_impl)
+
+
+def cross_attn_decode(p, cfg, x, cross_cache, *, impl="auto", num_splits="auto"):
+    """x [B, 1, d] -> [B, 1, d]: the decode read of the static cross cache
+    (the fused low-bit kernel, no append); the query has no bias and no
+    RoPE."""
+    out = catt.decode_attention(_proj(x, p["wq"]), cross_cache, impl=impl,
+                                num_splits=num_splits)
+    return _out(out.to(x.dtype), p["wo"])

@@ -46,10 +46,22 @@ def rope_freqs(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=device) / half))
 
 
-def apply_rope(x, positions, *, theta: float):
-    """Split-half rotary embedding; x: [B, S, H, d], positions: [B, S] int."""
+def apply_rope(x, positions, *, theta: float, sections=None):
+    """Split-half rotary embedding; x: [B, S, H, d], positions: [B, S] int.
+
+    M-RoPE (Qwen2-VL): ``sections = (t, h, w)`` splits the d/2 frequency
+    bands into groups, and group i reads its own position stream
+    ``positions[i]`` of ``positions`` [3, B, S] (temporal for text, the
+    patch grid's rows and columns for image patches)."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)
-    ang = positions.float()[:, :, None] * freqs[None, None, :]
+    if sections is None:
+        ang = positions.float()[:, :, None] * freqs[None, None, :]
+    else:
+        if positions.dim() != 3:
+            raise ValueError(f"M-RoPE needs positions [3, B, S], got {tuple(positions.shape)}")
+        bands = torch.split(freqs, list(sections))
+        ang = torch.cat([positions[i].float()[:, :, None] * f[None, None, :]
+                         for i, f in enumerate(bands)], dim=-1)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -5,7 +5,9 @@ Command-R), the MoE family (Qwen3-MoE) and MLA (DeepSeek-V3:
 ``models/mla.py``, a latent ``shared_kv`` cache): RMSNorm,
 ``(1 + w)`` RMSNorm or LayerNorm with bias; SwiGLU, GeGLU or GELU MLPs, with
 or without biases, or top-k MoE FFNs (``models/moe.py``); optional q/k
-RMSNorm; sequential or parallel residual; untied, tied or scaled embeddings.
+RMSNorm; sequential or parallel residual; untied, tied or scaled embeddings;
+and the VLM stub (Qwen2-VL): precomputed patch embeddings ahead of the text,
+with M-RoPE positions (``layers.apply_rope(sections=...)``).
 
 The layers form stacks of one block kind each, as in the JAX package:
 ``[("mlp", n)]`` for a dense model, ``[("mlp", first_dense_layers), ("moe",
@@ -40,18 +42,35 @@ _LATER = "ROADMAP queue A, item 10 (the other model families)"
 
 
 def _check_supported(cfg, mixers=("attn", "mla")) -> None:
+    """Refuse what the port does not run: another mixer and attention
+    without RoPE."""
     if cfg.mixer not in mixers:
         raise NotImplementedError(f"mixer={cfg.mixer!r} is not ported yet: {_LATER}")
-    if cfg.vision_stub:
-        raise NotImplementedError(f"the vision stub is not ported yet: {_LATER}")
-    if cfg.mrope_sections:
-        raise NotImplementedError(f"M-RoPE is not ported yet: {_LATER}")
     if not cfg.rope:
         raise NotImplementedError(f"attention without RoPE is not ported yet: {_LATER}")
 
 
 def _layer(tree, i: int):
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _mrope_positions(cfg, b: int, s_total: int, device) -> torch.Tensor:
+    """M-RoPE position ids [3, B, S] of the stub front: the patches on a
+    (t = 0, h, w) grid, the text continuing on all three streams at
+    ``max(patch_grid)``."""
+    gh, gw = cfg.patch_grid
+    idx = torch.arange(cfg.n_patches, device=device)
+    text = torch.arange(s_total - cfg.n_patches, device=device) + max(gh, gw)
+    pos = torch.stack([torch.cat([torch.zeros_like(idx), text]),
+                       torch.cat([idx // gw, text]), torch.cat([idx % gw, text])])
+    return pos[:, None, :].expand(3, b, s_total)
+
+
+def _mrope_decode_positions(cfg, pos) -> torch.Tensor:
+    """pos [B] (absolute, patch slots included) -> [3, B, 1]: the text
+    stream of :func:`_mrope_positions` continued."""
+    t = pos - cfg.n_patches + max(cfg.patch_grid)
+    return t[None, :, None].expand(3, pos.shape[0], 1)
 
 
 class DecoderLM:
@@ -121,6 +140,19 @@ class DecoderLM:
             x = x * layers.const(self.cfg.d_model**0.5, x)
         return x
 
+    def _front(self, params, batch):
+        """The prefill's input [B, S, d] and positions ([B, S], or [3, B, S]
+        with M-RoPE): the embedded tokens, behind ``batch["patches"]``
+        [B, n_patches, d] with the vision stub."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        if cfg.vision_stub:
+            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        b, s = x.shape[:2]
+        if cfg.mrope_sections:
+            return x, _mrope_positions(cfg, b, s, x.device)
+        return x, torch.arange(s, device=x.device)[None].expand(b, s)
+
     def _logits(self, params, x):
         x = self._norm(params["final_norm"], x)
         if self.cfg.tie_embeddings:
@@ -150,7 +182,10 @@ class DecoderLM:
     def prefill(self, params, batch, max_seq: int, *, lengths=None, impl: str = "auto",
                 quant_impl: str = "auto", prior=None, prior_len=None):
         """Process the prompt ``batch["tokens"]`` [B, L], build the quantized
-        caches and return ``(last_logits [B, 1, V], state)``.
+        caches and return ``(last_logits [B, 1, V], state)``.  With the
+        vision stub, ``batch["patches"]`` [B, n_patches, d] go ahead of the
+        tokens: the caches and ``pos`` count them, and ``lengths`` counts
+        text tokens alone.
 
         ``lengths`` ([B] int32, optional): the batch is ragged, right-padded
         to L.  Cache occupancy follows the true lengths and the logits are
@@ -168,14 +203,20 @@ class DecoderLM:
         the suffix attends; for MLA the pair is ``(latent, None)`` and each
         layer expands the latent through its own up-projections.  Positions
         start at ``prior_len``, the caches hold suffix content only, and
-        ``pos`` counts ``prior_len + lengths``.
+        ``pos`` counts ``prior_len + lengths``.  It needs a token-only front
+        (no vision stub, no M-RoPE).
         """
+        cfg = self.cfg
+        if prior is not None and (cfg.vision_stub or cfg.mrope_sections):
+            raise ValueError("suffix prefill (prior=) requires a token-only front "
+                             "(no vision/M-RoPE)")
         if prior is not None and (lengths is None or prior_len is None):
             raise ValueError("suffix prefill needs lengths and prior_len")
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        x = self._embed(params, tokens)
-        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        x, positions = self._front(params, batch)
+        b, s = x.shape[:2]
+        n_lead = cfg.n_patches if cfg.vision_stub else 0  # the patches ahead of the text
+        if lengths is not None:
+            lengths = lengths.to(device=x.device, dtype=torch.int32) + n_lead
         if prior is not None:
             if len(prior) != len(self.stacks):
                 raise ValueError(f"prior holds {len(prior)} stacks, the model {len(self.stacks)}")
@@ -199,7 +240,6 @@ class DecoderLM:
             x_last = x[:, -1:]
             pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
         else:
-            lengths = lengths.to(device=x.device, dtype=torch.int32)
             last = torch.clamp(lengths.long() - 1, 0, s - 1)
             x_last = x[torch.arange(b, device=x.device), last][:, None]
             pos = lengths.clone() if prior_len is None else lengths + prior_len
@@ -223,12 +263,15 @@ class DecoderLM:
         return {"caches": caches,
                 "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device)}
 
-    def paged_spec(self) -> PagedSpec:
+    def paged_spec(self) -> PagedSpec | None:
         """Declared cache family (``models/family.py``): split K/V pools, or
         for MLA one shared_kv latent pool of width kv_lora + qk_rope whose
         first kv_lora channels are V; suffix prefill supported (prefix
-        sharing)."""
+        sharing).  None for a token-plus-patch front (the vision stub,
+        M-RoPE): the serving engine cannot feed its prefill."""
         cfg = self.cfg
+        if cfg.vision_stub or cfg.mrope_sections:
+            return None
         if self.mla:
             return PagedSpec(
                 paged=True, block_n=cfg.kv_block, n_kv_heads=1,
@@ -276,7 +319,10 @@ class DecoderLM:
         unmasked: the caller freezes ``pos`` itself."""
         x = self._embed(params, tokens)
         pos = state["pos"]
-        positions = pos[:, None]
+        if self.cfg.mrope_sections:
+            positions = _mrope_decode_positions(self.cfg, pos)
+        else:
+            positions = pos[:, None]
         for i, (kind, n) in enumerate(self.stacks):
             stacked = state["caches"][i]
             for li in range(n):
@@ -310,6 +356,9 @@ class HybridLM:
 
     def __init__(self, cfg):
         _check_supported(cfg, mixers=("mamba2",))
+        if cfg.vision_stub or cfg.mrope_sections:  # the JAX hybrid would ignore them
+            raise NotImplementedError(f"{cfg.name}: the hybrid has no vision stub or M-RoPE "
+                                      f"(nor has the JAX package's): {_LATER}")
         if cfg.attn_every < 1:
             raise ValueError(f"the hybrid needs attn_every >= 1, got {cfg.attn_every}")
         self.cfg = cfg

@@ -65,6 +65,11 @@ admission (:meth:`ServeEngine._splice_side_state`) and whose prompts
 prefill in groups of one exact length (``exact_prefill``: no lengths, no
 right-padding, no prefix sharing).
 
+A model that declares no cache family (``paged_spec()`` is None: the
+encoder-decoder and the VLM stub, whose prefill needs frame or patch
+embeddings that a request does not carry) is refused with the JAX engine's
+``ValueError``, ``paged=False`` or not.
+
 Not ported yet, and refused with ``NotImplementedError``: a mesh, the
 split-KV routing and page-affine pools (ROADMAP A11); the exact-length shim
 (``paged=False``) and the recurrent xLSTM family (A10).
@@ -203,10 +208,13 @@ class ServeEngine:
         where the state lives (the card unless given)."""
         if mesh is not None or splitkv != "auto" or page_affine:
             raise _unported("the mesh, split-KV routing and page-affine pools", "11")
+        spec = model.paged_spec() if hasattr(model, "paged_spec") else None
+        if spec is None:  # the JAX engine's refusal, before any other
+            raise ValueError("model declares no serveable cache family (paged_spec() is "
+                             "None): its prefill needs inputs beyond tokens")
         if paged is False:
             raise _unported("the exact-length shim (paged=False)", "10")
-        spec = model.paged_spec() if hasattr(model, "paged_spec") else None
-        if spec is None or not spec.paged:
+        if not spec.paged:
             raise _unported("serving a cache family without paged attention layers", "10")
         if preempt_policy not in ("youngest", "fewest_pages"):
             raise ValueError(f"unknown preempt_policy {preempt_policy!r}")

@@ -21,7 +21,10 @@ versions, its captured step and its freedom from host syncs; K2-K5 at
 zamba2-7b's head dim 112 and the zamba2 smoke model (the Mamba2 hybrid) on
 the kernels against its plain versions, its captured step bit for bit equal
 to the eager one (Mamba2 states included) and its engines (async, spec)
-against the sequential one.  The plain versions are
+against the sequential one; K6's full mode at S != T (cross attention) and
+the seamless (encoder-decoder) and qwen2-vl (VLM stub, M-RoPE) smoke models
+on the kernels against their plain versions, the engine refusing both
+(``-k "encdec or vlm or cross"``).  The plain versions are
 held against the JAX package in test_torch_kernels.py, test_torch_paged.py
 and test_torch_flash_prefill.py.
 """
@@ -114,6 +117,24 @@ def test_kv_quant_pair_kernel_writes_the_cache_like_the_plain_pair(cuda, d, bits
         got = getattr(cache, f)
         np.testing.assert_array_equal(bits_of(got), bits_of(want))
         np.testing.assert_array_equal(bits_of(got[:, :, n_full:]), bits_of(b0[:, :, n_full:]))
+
+
+def test_quant_params_at_an_exact_bf16_tie_on_the_card(cuda):
+    """A channel whose (max - min) / 15 is 0.19580078125, halfway between
+    two bf16 values (a seamless cross cache's block): the plain version on
+    the card rounds the IEEE quotient to even, 0.1953125, as JAX and the
+    CPU do, and K1 equals it bit for bit.  Divided by the Python number 15,
+    the quotient would round to 0.1962890625: PyTorch's CUDA kernel turns
+    that division into a multiply by the reciprocal (ROADMAP C)."""
+    x = torch.rand((1, 1, 128, 8), generator=torch.Generator().manual_seed(7)) * 4.0 - 2.0
+    x[..., 0] = torch.linspace(-3.046875, -0.10986328125, 128)
+    x = x.to(torch.bfloat16).to(cuda)
+    assert float(x[..., 0].min()) == -3.046875 and float(x[..., 0].max()) == -0.10986328125
+    ref = kq_ops.quantize_kv(x, 4, "channel", block_n=128, impl="torch")
+    out = kq_ops.quantize_kv(x, 4, "channel", block_n=128, impl="cuda")
+    assert float(ref[1][0, 0, 0, 0]) == 0.1953125
+    for o, r in zip(out, ref):
+        np.testing.assert_array_equal(bits_of(o), bits_of(r))
 
 
 def test_kv_quant_kernel_refuses_what_it_cannot_take_on_the_card(cuda):
@@ -643,6 +664,186 @@ def test_blockwise_attention_takes_the_kernel_on_the_card(cuda):
     torch.testing.assert_close(out_k.float(), out_r, rtol=3e-2, atol=3e-2)
     with pytest.raises(ValueError, match="S == T"):
         catt.blockwise_attention(q[:, :50], k, v)
+
+
+# (B, Hq, Hkv, S, T, d): full attention with a key length of its own
+CROSS_CASES = [
+    (4, 16, 16, 100, 4096, 64),  # seamless-m4t-medium's cross prefill: S < one q-tile
+    (2, 8, 2, 300, 1000, 128),   # a ragged T (not a multiple of the 128-key tile), g 4
+    (2, 8, 8, 2048, 512, 128),   # S > T
+    (2, 12, 1, 7, 300, 32),      # S < 16, d 32, g 12
+    (2, 8, 2, 200, 50, 128),     # T < one KV tile
+    (1, 4, 4, 130, 70, 256),     # d 256: 64-key tiles, T ragged over two
+    (1, 4, 2, 1, 1, 64),         # one query over one key
+]
+
+
+@pytest.mark.parametrize("case", CROSS_CASES)
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_flash_prefill_cross_mode_matches_plain(cuda, case, layout):
+    """K6's full mode at S != T (an encoder-decoder's cross attention)
+    against its plain version, out 3e-2 / lse 1e-3; one launch a call."""
+    b, hq, hkv, s, t, d = case
+    gen = torch.Generator(device=cuda).manual_seed(hq * s + t + d)
+    shape = (lambda h, n: (b, h, n, d)) if layout == "bhsd" else (lambda h, n: (b, n, h, d))
+    q, k = randn(gen, shape(hq, s), cuda), randn(gen, shape(hkv, t), cuda)
+    v = (randn(gen, shape(hkv, t), cuda) + 2.0 * torch.randn(d, generator=gen, device=cuda)
+         ).to(torch.bfloat16)
+    fn = functools.partial(fp_ops.flash_prefill_attention, q, k, v, causal=False,
+                           layout=layout, return_lse=True)
+    _build.launches.clear()
+    out_k, lse_k = fn(impl="cuda")
+    assert dict(_build.launches) == {"flash_prefill": 1}
+    out_r, lse_r = fn(impl="torch")
+    assert out_k.shape == out_r.shape == q.shape and lse_k.shape == (b, hq, s)
+    assert out_r.float().abs().amax() > 0.5
+    torch.testing.assert_close(out_k.float(), out_r.float(), rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(lse_k, lse_r, rtol=1e-3, atol=1e-3)
+
+
+def test_flash_prefill_cross_mode_through_blockwise_attention(cuda):
+    """``blockwise_attention(causal=False)`` at S != T takes the kernel
+    (one launch, bf16) on the model's layout and matches the plain loop."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = randn(gen, (2, 100, 16, 64), cuda), *(randn(gen, (2, 700, 16, 64), cuda)
+                                                     for _ in range(2))
+    _build.launches.clear()
+    out_k = catt.blockwise_attention(q, k, v, causal=False)
+    assert dict(_build.launches) == {"flash_prefill": 1} and out_k.dtype == torch.bfloat16
+    out_r = catt.blockwise_attention(q, k, v, causal=False, impl="torch", block_k=128)
+    torch.testing.assert_close(out_k.float(), out_r, rtol=3e-2, atol=3e-2)
+
+
+def test_flash_prefill_cross_refuses_causal_at_s_ne_t(cuda):
+    """Causal attention with S != T is refused by the wrapper and by the
+    launcher itself (no launch counted)."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k = randn(gen, (1, 50, 4, 64), cuda), randn(gen, (1, 80, 4, 64), cuda)
+    _build.launches.clear()
+    with pytest.raises(ValueError, match="S == T"):
+        fp_ops.flash_prefill_attention(q, k, k, causal=True, layout="bshd", impl="cuda")
+    with pytest.raises(ValueError, match="S == T"):
+        catt.blockwise_attention(q, k, k, causal=True)
+    out = torch.empty_like(q)
+    lse = torch.empty((1, 4, 50), dtype=torch.float32, device=cuda)
+    strides = [st for x in (q, k, k, out) for st in x.stride()[:3]]
+    with pytest.raises(RuntimeError, match="flash_prefill kernel launch failed"):
+        _build.launch("flash_prefill", q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr(),
+                      lse.data_ptr(), 1, 4, 4, 50, 80, 64, *strides, 1, 0.125, 1,
+                      _build.stream_of(q))
+    assert not _build.launches
+
+
+def model_cross(params, cfg, mem, impl):
+    """Every decoder layer's static cross cache of ``mem`` (``quant_impl``
+    ``impl``)."""
+    from repro_torch.models import attention as mattn
+
+    dec = params["decoder"]["xattn"]
+    return [mattn.build_cross_cache({k: w[i] for k, w in dec.items()}, cfg, mem,
+                                    quant_impl=impl) for i in range(cfg.dec_layers)]
+
+
+@pytest.mark.parametrize("frames", [64, 24])
+def test_encdec_smoke_model_kernels_match_plain(cuda, frames):
+    """The seamless smoke model (2 + 2 layers, block_n 64) over ``frames``
+    stub frames (64: one packed cross block; 24: the cross cache all in its
+    residual): prefill of two 100-token prompts and 30 decode steps (each
+    row's self cache flushes once), kernels against the plain versions fed
+    the same tokens, logits within rtol 2e-2 / atol 3e-1; the cross caches
+    of one memory built by K1 and by its plain version bit for bit, and
+    untouched by the decode steps; K6 once an encoder layer and twice a
+    decoder layer (self, cross), K1 twice a decoder layer."""
+    cfg = smoke_config("seamless-m4t-medium")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 100), device=cuda, generator=gen)
+    batch = {"tokens": tokens, "frames": randn(gen, (2, frames, cfg.d_model), cuda)}
+
+    def run(impl, feed=None):
+        logits, state = model.prefill(params, batch, 160, impl=impl, quant_impl=impl)
+        cross = [t.clone() for t in (state["cross"].kw, state["cross"].v_res)]
+        out = [logits]
+        for i in range(30):
+            tok = logits[:, -1].argmax(-1)[:, None] if feed is None else feed[i]
+            logits, state = model.decode_step(params, state, tok, impl=impl, quant_impl=impl)
+            out.append(logits)
+        assert torch.equal(cross[0], state["cross"].kw) and torch.equal(cross[1],
+                                                                        state["cross"].v_res)
+        return out, state
+
+    with torch.no_grad():
+        out_t, s_t = run("torch")
+        _build.launches.clear()
+        out_k, s_k = run("auto", [o[:, -1].argmax(-1)[:, None] for o in out_t])
+        launches = dict(_build.launches)
+        mem = model.encode(params, batch["frames"])
+        caches = [model_cross(params, cfg, mem, impl) for impl in ("cuda", "torch")]
+    assert min(launches.get(k, 0) for k in ("kv_quant", "residual_flush", "bitdecode",
+                                            "flash_prefill")) > 0
+    assert launches["flash_prefill"] == cfg.enc_layers + 2 * cfg.dec_layers
+    assert launches["kv_quant"] == (2 if frames >= cfg.kv_block else 1) * cfg.dec_layers
+    for a, b in zip(out_k, out_t):
+        torch.testing.assert_close(a, b, rtol=2e-2, atol=3e-1)
+    ct, ck = s_t["self"], s_k["self"]
+    assert torch.equal(ct.pack_blocks, ck.pack_blocks) and ck.pack_blocks[0].tolist() == [2, 2]
+    for f in ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero"):
+        np.testing.assert_array_equal(bits_of(getattr(ck, f)[0]), bits_of(getattr(ct, f)[0]))
+    for f in ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero", "k_res", "v_res",
+              "pack_blocks", "res_len"):
+        for a, b in zip(*caches):
+            np.testing.assert_array_equal(bits_of(getattr(a, f)), bits_of(getattr(b, f)))
+
+
+def test_vlm_smoke_model_kernels_match_plain(cuda):
+    """The qwen2-vl smoke model (16 patches on a 4 x 4 grid, M-RoPE,
+    block_n 64) with ragged text of 100 and 90 tokens: prefill and 30
+    decode steps (each row's cache flushes once), kernels against the plain
+    versions fed the same tokens; pos and the cache lengths count the
+    patches; layer 0's packed cache bit for bit."""
+    cfg = smoke_config("qwen2-vl-7b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 100), device=cuda, generator=gen),
+             "patches": randn(gen, (2, cfg.n_patches, cfg.d_model), cuda)}
+    lengths = torch.tensor([100, 90], dtype=torch.int32, device=cuda)
+
+    def run(impl, feed=None):
+        logits, state = model.prefill(params, batch, 256, lengths=lengths, impl=impl,
+                                      quant_impl=impl)
+        assert state["pos"].tolist() == [116, 106]
+        out = [logits]
+        for i in range(30):
+            tok = logits[:, -1].argmax(-1)[:, None] if feed is None else feed[i]
+            logits, state = model.decode_step(params, state, tok, impl=impl, quant_impl=impl)
+            out.append(logits)
+        return out, state
+
+    with torch.no_grad():
+        out_t, s_t = run("torch")
+        _build.launches.clear()
+        out_k, s_k = run("auto", [o[:, -1].argmax(-1)[:, None] for o in out_t])
+    assert min(_build.launches[k] for k in ("kv_quant", "residual_flush", "bitdecode",
+                                            "flash_prefill")) > 0
+    assert _build.launches["kv_quant"] == _build.launches["flash_prefill"] == cfg.n_layers
+    for a, b in zip(out_k, out_t):
+        torch.testing.assert_close(a, b, rtol=2e-2, atol=3e-1)
+    ct, ck = s_t["caches"][0], s_k["caches"][0]
+    assert ck.pack_blocks[0].tolist() == [2, 2] and torch.equal(ct.res_len, ck.res_len)
+    for f in ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero"):
+        np.testing.assert_array_equal(bits_of(getattr(ck, f)[0]), bits_of(getattr(ct, f)[0]))
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "qwen2-vl-7b"])
+@pytest.mark.parametrize("paged", [None, False])
+def test_encdec_and_vlm_engine_refuses_on_the_card(cuda, arch, paged):
+    """The engine refuses both families with the JAX engine's ValueError."""
+    model = build_model(smoke_config(arch))
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    with pytest.raises(ValueError, match="serveable cache family"):
+        ServeEngine(model, params, slots=2, max_seq=128, paged=paged, device=cuda)
 
 
 # ------------------------------------------------------------ paged kernels

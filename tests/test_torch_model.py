@@ -115,8 +115,8 @@ def test_random_init_matches_jax_shapes_and_scales():
 
 
 @pytest.mark.parametrize("arch, change", [("zamba2-7b", dict(rope=False)),
-                                          ("llama3-8b", dict(vision_stub=True)),
-                                          ("llama3-8b", dict(mrope_sections=(8, 4, 4))),
+                                          ("zamba2-7b", dict(vision_stub=True)),
+                                          ("zamba2-7b", dict(mrope_sections=(8, 4, 4))),
                                           ("llama3-8b", dict(mixer="xlstm")),
                                           ("llama3-8b", dict(rope=False))])
 def test_unported_families_raise(arch, change):
