@@ -2,10 +2,12 @@
 """Drive the PyTorch port of BitDecoding on one NVIDIA GPU (written for an
 H100), from the kernels' build to full-width decoding and serving of
 llama3-8b (at full depth, by one-token cycles, on the async runtime and by
-self-speculation), gemma-7b, qwen3-moe-235b-a22b, deepseek-v3-671b (MLA)
-and zamba2-7b (the Mamba2 hybrid, at full depth), and the dense loop of
-starcoder2-3b, command-r-35b, seamless-m4t-medium (the encoder-decoder, at
-full depth) and qwen2-vl-7b (the VLM stub with M-RoPE).
+self-speculation; and through the exact-length shim), gemma-7b,
+qwen3-moe-235b-a22b, deepseek-v3-671b (MLA), zamba2-7b (the Mamba2 hybrid)
+and xlstm-1.3b (the recurrent xLSTM family, at full depth, through the
+shim), and the dense loop of starcoder2-3b, command-r-35b,
+seamless-m4t-medium (the encoder-decoder, at full depth) and qwen2-vl-7b
+(the VLM stub with M-RoPE).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --jax-init   # the init-scale witness, see below
@@ -156,9 +158,10 @@ Phases:
      plain run's top-8 sets forced holds every row at every step), then
      serve runs (a) and (e), the sharers' suffix prefills over a
      dequantized latent prior, (e) bit for bit equal to (a);
-  9. zamba2-7b at full width and full depth (81 layers: 13 super-blocks of
-     6 Mamba2 layers and the shared attention + MLP block, a tail of 3; 32
-     / 32 heads of d 112; random bf16 weights, ~6.79 B parameters): the
+  9. zamba2-7b at full width, cut to 39 of its 81 layers for time (6 of its
+     13 super-blocks of 6 Mamba2 layers and the shared attention + MLP
+     block, and the tail of 3; 32 / 32 heads of d 112; random bf16
+     weights, ~3.5 B parameters at this depth): the
      dense loop as in phase 5 with four prompts of exactly 2,000 tokens (the
      hybrid prefills without lengths) and 96 steps, every row flushing once,
      the kernel run's SSM states no further from the plain run's (relative
@@ -187,8 +190,33 @@ Phases:
      1,024 stub patches on the 32 x 32 grid ahead of ragged text of 870-895
      tokens, 30 steps (every row flushes), plain vs kernels, with phase 10's
      checks, prints and refusal;
+  12. (A) xlstm-1.3b at full width and depth (48 blocks: 6 super-blocks of
+     7 mLSTM + 1 sLSTM, d 2,048, 4 heads of 512, vocab 50,304; ~1.24 B
+     parameters): B 4 prompts of 1,024 tokens prefilled through the
+     config's sequential recurrence and through the chunkwise mLSTM (block
+     0's output within rtol 2e-2 / atol 3e-1 and its state within 1e-3; at
+     full depth the last logits' and the states' gaps no larger than a
+     rounding witness's: random weights amplify rounding from block to
+     block), 64 greedy decode steps eager and as replays of the captured
+     step, bit for bit equal, one eager step by part (mLSTM blocks, sLSTM
+     blocks, unembed, the rest) beside its bound; then the engine's
+     exact-length shim on eight requests of 128-512 tokens (whole 64-token
+     chunks: the chunkwise prefill) and 32-64 new tokens, runs (a) sync,
+     (e) async and (g) speculative (spec_k 4), (e) and (g) bit for bit equal
+     to (a), (g) accepting every draft; no kernel launch and no plain
+     kernel version anywhere in (A); (B) llama3-8b at full width, cut to 8
+     of its 32 layers for time, through the forced shim (``paged=False``:
+     one B 1 prefill a request through flash_prefill and kv_quant, the
+     dense caches appended by residual_flush and read by bitdecode), phase
+     4's ten requests without prefix sharing: runs (i) sync, (j) async and
+     (k) speculative (drafts read at 2 bits through bitdecode's draft read,
+     the verify pass appending with the row mask), (j) and (k) bit for bit
+     equal to (i), each request's first token the argmax of a B 1
+     dense-loop prefill of its prompt, and on the paged engine's token
+     streams greedy agreement with the paged engine (no prefix sharing) of
+     at least 0.9;
   then ``repro_torch.launch.serve --async-runtime`` once at the smoke width;
-  12. a JSON line per kernel, the card's name and power limit, and the
+  13. a JSON line per kernel, the card's name and power limit, and the
      result line.
 
 Every kernel run (the dense loops' kernel runs, every serve run) counts the
@@ -283,21 +311,24 @@ MOE_PARTS = ("route", "slots", "dispatch", "experts", "combine", "aux_loss")  # 
 # ~1.3 TB, fit no card): 3 dense layers and 1 MoE layer of 256 experts
 MLA = ("deepseek-v3-671b", {"n_layers": 4})
 MLA_PARTS = ("absorb_query", "absorb_output")  # models/mla.py: the absorbed products
-# phase 9: the Mamba2 hybrid at full width and full depth (81 layers: 13
-# super-blocks of 6 Mamba2 layers and the shared attention + MLP block, a tail
-# of 3; ~6.79 B parameters, 13.6 GB of bf16, fit one card); B 4 prompts of one
-# exact length (the hybrid prefills without lengths), 2,000 = 15 blocks + 80,
-# so 96 steps flush every row once
+# phase 9: the Mamba2 hybrid at full width, cut to 39 of its 81 layers (6 of
+# its 13 super-blocks of 6 Mamba2 layers and the shared attention + MLP block,
+# and the tail of 3; 81 layers, ~6.79 B parameters, fit one card, but the
+# phase's host-bound runs scale with depth and phase 12 needed their time);
+# B 4 prompts of one exact length (the hybrid prefills without lengths),
+# 2,000 = 15 blocks + 80, so 96 steps flush every row once
 HYBRID = "zamba2-7b"
+HYBRID_LAYERS = 39
 HYBRID_PROMPT, HYBRID_STEPS = 2000, 96
 HYBRID_PARTS = ("mamba_decode", "shared_decode")  # HybridLM's methods, timed by name
 UNEMBED_PARTS = ("unembed", "tied_unembed")  # models/layers.py: every model's unembedding
 # the hybrid's dense loop: the kernel run's Mamba2 states may depart from the
 # plain run's (relative norm) at most this many times as far as the plain run
-# split three ways does.  At 81 layers any rounding change opens about the
-# same gap (4.6e-2-4.8e-2 / 7.3e-2-7.7e-2 on an H100, split, kernels or a
-# plain prefill in 256-key blocks, two prompt seeds: kernels / split
-# 1.00-1.05; scripts/hybrid_ssm_spread.py)
+# split three ways does.  Any rounding change opens about the same gap: at
+# 39 layers 2.5e-2-2.6e-2 / 4.3e-2-4.4e-2 on an H100 (split, kernels, a
+# plain prefill in 256-key blocks split, kernels split; two prompt seeds),
+# kernels / split 1.01-1.02; at 81 layers 4.6e-2-4.8e-2 / 7.3e-2-7.7e-2,
+# 1.00-1.05 (scripts/hybrid_ssm_spread.py)
 SSM_SPREAD = 1.5
 ZAMBA_KV = (32, 112)  # the shared block's cache: 32 KV heads of d 112 (g 1)
 # the hybrid's dense-loop cache after its steps: what phase 2 times at d 112
@@ -324,6 +355,29 @@ VLM_STEPS = 30
 VLM_PB = [(1024 + n + VLM_STEPS) // BLOCK_N for n in VLM_TEXT_LENS]
 VLM_RL = [(1024 + n + VLM_STEPS) % BLOCK_N for n in VLM_TEXT_LENS]
 CROSS_PB, CROSS_RL = [4096 // BLOCK_N] * 4, [0] * 4
+# phase 12 (A): the recurrent xLSTM family at full width and depth (48 blocks:
+# 6 super-blocks of 7 mLSTM + 1 sLSTM, d 2,048, 4 heads of 512, vocab 50,304;
+# ~1.24 B parameters): B 4 prompts of 1,024 tokens, 64 decode steps; the
+# engine (the exact-length shim) on prompts of whole 64-token chunks, so the
+# prefill takes the chunkwise mLSTM (the config's ``xlstm_chunkwise``)
+XLSTM = "xlstm-1.3b"
+XLSTM_PROMPT, XLSTM_STEPS = 1024, 64
+XLSTM_PARTS = ("mlstm_layer", "slstm_layer")  # XLSTMLM's methods, timed by name
+XLSTM_MAX_SEQ = 1024
+# the chunkwise prefill is exact in exact arithmetic and sums in another order
+# in f32; through 48 blocks of random weights a rounding-level change grows
+# block to block (on an H100 the chunkwise form's last logits part from the
+# sequential form's by 2.04, its states by 0.13-0.32 in relative norm; one
+# bf16 ulp on every 101st embedded input opens 3.38 and 0.22-0.59 in the
+# chunkwise form, while block 0 alone agrees to 1.6e-2).  So at full depth
+# its gap from the sequential form may be at most this many times the gap
+# that such an input change opens in the chunkwise form itself; block 0
+# alone, before anything compounds, is held to the logits tolerance
+XLSTM_SPREAD = 1.0
+# phase 12 (B): llama3-8b at full width through the forced shim, cut to 8 of
+# its 32 layers for time; phase 4's workload without prefix sharing
+SHIM = ("llama3-8b", {"n_layers": 8})
+SHIM_AGREEMENT = 0.9  # greedy agreement with the paged engine (phase 4's (d): 0.943)
 # phases 10 and 11: the merge runs only where a call resolves to > 1 split
 FRONT_PATH = ("kv_quant", "residual_flush", "bitdecode", "flash_prefill")
 # the latent cache after phase 8's dense loop (FAMILY_PROMPT_LENS + FAMILY_STEPS:
@@ -869,16 +923,18 @@ def part_ranges():
     ``torch.profiler`` range named ``moe.<part>``, MLA's absorbed products
     (``MLA_PARTS`` of ``models/mla.py``) inside ``mla.<part>``, and the
     hybrid's Mamba2 layers and shared block (``HYBRID_PARTS``, methods of
-    ``transformer.HybridLM``) inside ``HybridLM.<part>``, and the
+    ``transformer.HybridLM``) inside ``HybridLM.<part>``, xLSTM's mLSTM and
+    sLSTM blocks (``XLSTM_PARTS``) inside ``XLSTMLM.<part>``, and the
     unembedding (``layers.unembed`` / ``tied_unembed``) inside
     ``layers.<name>``."""
     from torch.profiler import record_function
 
     from repro_torch.models import layers, mla, moe
-    from repro_torch.models.transformer import HybridLM
+    from repro_torch.models.transformer import HybridLM, XLSTMLM
 
     saved = [(mod, n, getattr(mod, n)) for mod, names in ((moe, MOE_PARTS), (mla, MLA_PARTS),
                                                         (HybridLM, HYBRID_PARTS),
+                                                        (XLSTMLM, XLSTM_PARTS),
                                                         (layers, UNEMBED_PARTS))
              for n in names]
 
@@ -929,8 +985,8 @@ def step_parts(fn) -> tuple[dict, int, dict]:
     device ms of the expert products (``moe.experts``), of routing, dispatch
     and combine (the other MoE ranges, the auxiliary loss included), of MLA's
     absorbed products (``mla.*``), of the hybrid's Mamba2 layers and of its
-    shared block's torch ops (projections, norms, RoPE, MLP), of the
-    unembedding, of the attention kernels (K3/K4, the merge, the append),
+    shared block's torch ops (projections, norms, RoPE, MLP), of xLSTM's
+    mLSTM and sLSTM blocks, of the unembedding, of the attention kernels (K3/K4, the merge, the append),
     those of a cross read apart (``cross``), and of the rest; the count of
     device kernels, and of each device kernel by name, with ``cross_reads``
     the count of cross reads.  A kernel belongs to a range if the op that
@@ -945,6 +1001,7 @@ def step_parts(fn) -> tuple[dict, int, dict]:
     labels = {f"moe.{n}": ("experts" if n == "experts" else "routing") for n in MOE_PARTS}
     labels |= {f"mla.{n}": "absorbed" for n in MLA_PARTS}
     labels |= {"HybridLM.mamba_decode": "mamba", "HybridLM.shared_decode": "shared"}
+    labels |= {"XLSTMLM.mlstm_layer": "mlstm", "XLSTMLM.slstm_layer": "slstm"}
     labels |= {f"layers.{n}": "unembed" for n in UNEMBED_PARTS}
     with part_ranges(), torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
                                                              ProfilerActivity.CUDA]) as prof:
@@ -953,7 +1010,8 @@ def step_parts(fn) -> tuple[dict, int, dict]:
     events = prof.events()
     ranges = [(labels[e.name], e.thread, e.time_range.start, e.time_range.end) for e in events
               if e.device_type == DeviceType.CPU and e.name in labels]
-    parts = ("experts", "routing", "absorbed", "mamba", "shared", "unembed", "attention", "cross")
+    parts = ("experts", "routing", "absorbed", "mamba", "shared", "mlstm", "slstm", "unembed",
+             "attention", "cross")
     us = dict.fromkeys(("all", *parts), 0.0)
     kernels, by_name, attn = 0, collections.Counter(), []
     for e in events:
@@ -2017,6 +2075,354 @@ def spec_checks(engine, name, reqs, summ, counted, cfg, check, pairs) -> dict:
     return total
 
 
+def xlstm_workload(vocab: int, seed: int = 11) -> list:
+    """Phase 12 (A)'s eight requests as (uid, prompt, max_new_tokens):
+    prompts of 128-512 tokens in whole 64-token chunks (the chunkwise
+    prefill), 32-64 new tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(uid, rng.integers(0, vocab, 64 * int(rng.integers(2, 9))).astype(np.int32),
+             int(rng.integers(32, 65))) for uid in range(8)]
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def xlstm_step_profile(model, params, cfg, state, logits) -> dict:
+    """xLSTM's decode step by part (:func:`step_profile`: the mLSTM blocks,
+    the sLSTM blocks, the unembedding, the rest) beside the step's bound at
+    3.35 TB/s: every weight read once (of the embedding table the B rows),
+    every recurrent state read and written once."""
+    parts, kernels, _, _, _ = step_profile(model, params, state, logits)
+    b = logits.shape[0]
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in _leaves(tree))  # noqa: E731
+    weights = (nbytes(params) - params["embed"]["table"].numel() * 2 + b * cfg.d_model * 2)
+    states = 2 * nbytes(state["blocks"])
+    out = dict(parts, kernels=kernels, weight_bytes=weights, state_bytes=states,
+               step_bound_ms=(weights + states) / HBM_BYTES_PER_S * 1e3)
+    if parts["all_ms"] == 0:
+        log(f"  {cfg.name} decode step by part: the profiler saw no device time (not measured)")
+        return out
+    log(f"  {cfg.name} decode step by part (torch.profiler, one eager step, B={b}, median of "
+        f"{PROFILE_ROUNDS} sessions): {kernels} device kernels, {parts['all_ms']:.3f} ms; "
+        f"mLSTM blocks {parts['mlstm_ms']:.3f} ms, sLSTM blocks {parts['slstm_ms']:.3f} ms, "
+        f"unembed {parts['unembed_ms']:.3f} ms, the rest {parts['rest_ms']:.3f} ms; the step's "
+        f"bound {out['step_bound_ms']:.3f} ms ({weights / 1e9:.2f} GB of weights, "
+        f"{states / 1e9:.2f} GB of recurrent states read and written)")
+    return out
+
+
+def _xlstm_prefill(model, params, tokens, *, perturb=False, block0=False):
+    """xLSTM's prefill by its parts: the embedded prompt (with ``perturb``
+    every 101st element raised by about one bf16 ulp) through every block,
+    or through mLSTM block 0 alone (``block0``).  Returns (the last
+    logits, or block 0's output, and the states)."""
+    from repro_torch.models import layers, transformer
+
+    x = layers.embed(params["embed"], tokens)
+    if perturb:
+        flat = x.view(-1)
+        flat[::101] = flat[::101] * (1 + 2**-7)
+    state = model.init_decode_state(tokens.shape[0], device=x.device)
+    if block0:
+        st = {k: v[0, 0] for k, v in state["blocks"]["mlstm"].items()}
+        lp = transformer._layer(transformer._layer(params["blocks"], 0)["mlstm"], 0)
+        return model.mlstm_layer(lp, x, st), st
+    x = model._forward(params, x, state["blocks"])
+    return model._logits(params, x[:, -1:]), state["blocks"]
+
+
+def _rel_gaps(a: dict, b: dict) -> dict:
+    """Relative-norm gap of each state tensor of ``a`` from ``b``'s (nested
+    dicts of the same keys)."""
+    out = {}
+    for k, v in b.items():
+        if isinstance(v, dict):
+            out |= {f"{k}.{kk}": g for kk, g in _rel_gaps(a[k], v).items()}
+        else:
+            out[k] = ((a[k] - v).norm() / v.norm()).item()
+    return out
+
+
+def xlstm_phase(model, params, cfg, check, dev) -> dict:
+    """Phase 12 (A), the dense loop of xlstm-1.3b: B 4 prompts of
+    :data:`XLSTM_PROMPT` tokens prefilled through the config's sequential
+    recurrence and through the chunkwise mLSTM: block 0's output within
+    rtol 2e-2 / atol 3e-1 and its state within 1e-3 in relative norm; at
+    full depth the last logits' and every state's gap at most
+    :data:`XLSTM_SPREAD` times the rounding witness's (the chunkwise form
+    on the input with every 101st element one bf16 ulp up); then
+    :data:`XLSTM_STEPS` greedy decode steps from the chunkwise state, eager
+    and as replays of the captured step: the argmax of every step and the
+    final states bit for bit equal.  No kernel launches and no plain
+    version runs.  Then one eager step by part (:func:`xlstm_step_profile`)."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.async_runtime import CapturedDecodeStep
+
+    name = cfg.name
+    chunked = build_model(cfg.with_(xlstm_chunkwise=True))
+    tokens = torch.randint(0, cfg.vocab, (4, XLSTM_PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    b, steps = tokens.shape[0], XLSTM_STEPS
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.no_grad():
+        for m in (model, chunked):  # warm-up (allocator, cuBLAS), untimed
+            lg, st = m.prefill(params, {"tokens": tokens[:, :64]})
+            m.decode_step(params, st, lg[:, -1].argmax(-1)[:, None])
+        del lg, st
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        with plain_calls() as plain:
+            (lg_s, st_s), t_seq = timed(lambda: model.prefill(params, {"tokens": tokens}))
+            (lg_c, st_c), t_chunk = timed(lambda: chunked.prefill(params, {"tokens": tokens}))
+            lg_w, st_w = _xlstm_prefill(chunked, params, tokens, perturb=True)
+            (o0_s, s0_s), (o0_c, s0_c) = (_xlstm_prefill(m, params, tokens, block0=True)
+                                          for m in (model, chunked))
+            eager, graphed = _clone_tree(st_c), _clone_tree(st_c)
+            tok, want = lg_c[:, -1].argmax(-1)[:, None], []
+
+            def loop():
+                nonlocal tok, eager
+                for _ in range(steps):
+                    lg, eager = chunked.decode_step(params, eager, tok)
+                    tok = lg[:, -1].argmax(-1)[:, None]
+                    want.append(tok[:, 0].to(torch.int32))
+                return lg
+
+            lg_e, t_eager = timed(loop)
+            t0 = time.perf_counter()
+            step = CapturedDecodeStep(chunked, params, graphed)
+            t_capture = time.perf_counter() - t0
+            step.tokens.copy_(lg_c[:, -1].argmax(-1)[:, None])
+            got = []
+
+            def replays():
+                for _ in range(steps):
+                    step.replay()
+                    got.append(step.nxt.clone())
+
+            _, t_graph = timed(replays)
+        launches = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    err = (lg_c - lg_s).abs().max().item()
+    check(bool(torch.isfinite(lg_c).all()) and lg_c.shape == (b, 1, cfg.padded_vocab),
+          f"{name}: prefill logits finite, shaped (the vocab padded to {cfg.padded_vocab})")
+    err0, gaps0 = (o0_c - o0_s).abs().max().item(), _rel_gaps(s0_c, s0_s)
+    check(torch.allclose(o0_c, o0_s, rtol=2e-2, atol=3e-1) and max(gaps0.values()) < 1e-3,
+          f"{name}: block 0's chunkwise output within rtol 2e-2 / atol 3e-1 of the sequential "
+          f"one's (max |d| {err0:.3e}), its state within 1e-3 in relative norm ("
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps0.items()) + ")")
+    gaps, wit = _rel_gaps(st_c["blocks"], st_s["blocks"]), _rel_gaps(st_w, st_c["blocks"])
+    err_w = (lg_w - lg_c).abs().max().item()
+    check(err <= XLSTM_SPREAD * err_w and all(g <= XLSTM_SPREAD * wit[k] for k, g in gaps.items()),
+          f"{name}: at full depth the chunkwise prefill departs from the sequential one (last "
+          f"logits max |d| {err:.3f}; states " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+          + f") at most {XLSTM_SPREAD:g}x as far as the rounding witness does (max |d| "
+          f"{err_w:.3f}; " + ", ".join(f"{k} {v:.2e}" for k, v in wit.items()) + ")")
+    log(f"  {name} prefill of B {b} x {XLSTM_PROMPT} tokens: sequential {t_seq:.2f} s, "
+        f"chunkwise {t_chunk:.2f} s")
+    same = [bitwise(a, c) for kind in ("mlstm", "slstm")
+            for a, c in zip(eager["blocks"][kind].values(), graphed["blocks"][kind].values())]
+    check(torch.equal(torch.stack(got), torch.stack(want)) and all(same)
+          and torch.equal(eager["pos"], graphed["pos"]),
+          f"{name}: {steps} replays of the captured step equal the eager steps bit for bit "
+          "(every argmax, every recurrent state and pos at the end)")
+    check(bool(torch.isfinite(lg_e).all()), f"{name}: the decode logits finite")
+    check(not launches and not step.capture_launches and not plain,
+          f"{name}: no kernel launched ({launches}, capture {dict(step.capture_launches)}) and "
+          f"no plain kernel version called ({dict(plain)}): no KV cache")
+    log(f"  {name} decode, B={b}: eager {t_eager / steps * 1e3:.2f} ms/step, captured "
+        f"{t_graph / steps * 1e3:.2f} ms/step (capture with warm-up {t_capture:.2f} s); peak "
+        f"device memory {peak:.2f} GiB")
+    prof = xlstm_step_profile(chunked, params, cfg, eager, lg_e[:, -1])
+    return {"prefill_s": {"sequential": t_seq, "chunkwise": t_chunk},
+            "chunkwise_vs_sequential": {"max_abs_dlogit": err, "state_rel_gap": gaps,
+                                        "block0_max_abs_d": err0, "block0_state_rel_gap": gaps0},
+            "rounding_witness": {"max_abs_dlogit": err_w, "state_rel_gap": wit},
+            "decode_ms_per_step": {"eager": t_eager / steps * 1e3,
+                                   "captured": t_graph / steps * 1e3},
+            "capture_s": t_capture, "peak_gib": peak, "batch": b,
+            "prompt_len": XLSTM_PROMPT, "decode_steps": steps, "launches": launches,
+            "step_by_part": prof}
+
+
+def shim_serve(model, params, cfg, check, dev, work, runs: dict, *, max_seq, path) -> dict:
+    """The exact-length shim's runs (``runs``: name -> engine options; the
+    first is the sync oracle) on ``work`` (:func:`drive_engine`), every run
+    ``paged=False``: every request DONE, no pool, no plain kernel version
+    called, the async and speculative runs each step or pass one replay of
+    its captured graph and their streams and terminal phases bit for bit
+    the first run's.  ``path``: the kernels each run must launch (the
+    attention family) or () (xLSTM: none may launch).  Returns each run's
+    launches (the captured steps' and passes' as capture x replays), the
+    first run's requests and a report."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.serve import Phase, ServeEngine
+
+    with torch.no_grad():  # warm-up (allocator, cuBLAS, the captures' side stream), untimed
+        warm = ServeEngine(model, params, slots=SERVE_SLOTS, max_seq=max_seq, paged=False,
+                           device=dev)
+        drive_engine(warm, [(0, work[0][1][:128], 2)])
+        del warm
+    out, report, launches, first = {}, {}, {}, None
+    n = cfg.n_layers
+    for name, kw in runs.items():
+        engine = ServeEngine(model, params, slots=SERVE_SLOTS, max_seq=max_seq, paged=False,
+                             device=dev, audit_every=1, **kw)
+        pairs = time_replays(engine) if engine.spec_k > 1 else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        with plain_calls() as plain:
+            reqs, summ = drive_engine(engine, work)
+        torch.cuda.synchronize()
+        counted = dict(_build.launches)
+        passes = [p for p in (engine._draft, engine._verify,
+                              engine._runner.step_fn if engine._runner else None) if p is not None]
+        for ps in passes:
+            for k, v in ps.launches.items():
+                counted[k] = counted.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(not engine.paged and engine.pool is None and not plain,
+              f"{cfg.name} shim run ({name}): no pool, no plain kernel version called "
+              f"({dict(plain)})")
+        check(all(r.phase is Phase.DONE for r in reqs),
+              f"{cfg.name} shim run ({name}): all {len(reqs)} requests DONE")
+        if path:
+            check(all(counted.get(k, 0) > 0 for k in path),
+                  f"{cfg.name} shim run ({name}): {', '.join(path)} launched ({counted})")
+        else:
+            check(not counted and all(not p.capture_launches for p in passes),
+                  f"{cfg.name} shim run ({name}): no kernel launched ({counted})")
+        if engine._runner is not None:
+            step, comp = engine._runner.step_fn, engine._completions
+            want = {k: n for k in path if k in ("bitdecode", "residual_flush")}
+            check(step.graph is not None and step.replays == engine._runner.dispatched
+                  == summ["steps"] and all(step.capture_launches.get(k) == v
+                                           for k, v in want.items())
+                  and sorted(comp.records) == sorted(r.uid for r in reqs)
+                  and comp.duplicates == 0,
+                  f"{cfg.name} shim run ({name}): one capture ({dict(step.capture_launches)}), "
+                  f"one replay a decode step ({step.replays} replays, "
+                  f"{engine._runner.dispatched} dispatches), every completion recorded once")
+        if engine.spec_k > 1:
+            draft, verify = engine._draft, engine._verify
+            want_d = {"bitdecode": n * (SPEC_K - 1)} if path else {}
+            want_v = {"residual_flush": n * SPEC_K, "bitdecode": n * SPEC_K} if path else {}
+            check(draft.graph is not None and verify.graph is not None
+                  and verify.replays == summ["spec_cycles"] == summ["steps"]
+                  and 0 < draft.replays <= verify.replays
+                  and all(draft.capture_launches.get(k) == v for k, v in want_d.items())
+                  and not draft.capture_launches.get("residual_flush")
+                  and all(verify.capture_launches.get(k) == v for k, v in want_v.items())
+                  and summ["spec_draft_tokens"] == summ["spec_accepted_tokens"]
+                  + summ["spec_rejected_tokens"] > 0,
+                  f"{cfg.name} shim run ({name}): draft and verify captured (draft "
+                  f"{dict(draft.capture_launches)}, verify {dict(verify.capture_launches)}), "
+                  f"one verify replay a cycle ({verify.replays}), {draft.replays} draft "
+                  f"replays, spec counters conserved ({summ['spec_draft_tokens']} drafted)")
+            torch.cuda.synchronize()
+            for what, ps in (("draft", draft), ("verify", verify)):
+                ms = [a.elapsed_time(b) for a, b in pairs[what]]
+                summ[f"{what}_replay_ms"] = sum(ms) / len(ms) if ms else None
+        ph = summ["phase_s"]
+        log(f"  shim run ({name}) {kw}: {summ['steps']} cycles, {summ['decoded_tokens']} tokens, "
+            f"{summ['tokens_per_s']:.1f} tokens/s, TTFT p50 {summ['ttft_p50_ms']:.0f} / p99 "
+            f"{summ['ttft_p99_ms']:.0f} ms, TPOT p50 {summ['tpot_p50_ms']:.1f} / p99 "
+            f"{summ['tpot_p99_ms']:.1f} ms, host_stall_fraction "
+            f"{summ['host_stall_fraction']:.3f}, {summ['prefill_calls']} prefills "
+            f"{ph['prefill']:.2f} s, peak {peak:.2f} GiB"
+            + (f", spec_accept_rate {summ['spec_accept_rate']:.3f}, "
+               f"{_ms(summ['draft_replay_ms'])} a draft replay, "
+               f"{_ms(summ['verify_replay_ms'])} a verify replay" if engine.spec_k > 1 else "")
+            + f"; launches {counted}")
+        streams = ({r.uid: list(r.out_tokens) for r in reqs}, {r.uid: r.phase for r in reqs})
+        if first is None:
+            first = (name, streams, reqs)
+        else:
+            diff = [u for u in streams[0] if streams[0][u] != first[1][0][u]
+                    or streams[1][u] != first[1][1][u]]
+            check(not diff, f"{cfg.name} shim run ({name}) token streams and terminal phases "
+                            f"equal run ({first[0]})'s bit for bit (differ: {diff})")
+        launches[name] = counted
+        report[name] = {k: summ[k] for k in (
+            "steps", "decoded_tokens", "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms",
+            "tpot_p50_ms", "tpot_p99_ms", "host_stall_fraction", "prefill_calls", "wall_s",
+            "phase_s", "spec_accept_rate", "spec_draft_tokens", "spec_accepted_tokens",
+            "draft_replay_ms", "verify_replay_ms") if k in summ} | {
+            "peak_gib": peak, "launches": counted}
+        engine.close()
+        del engine
+    out.update(launches=launches, report=report, reqs=first[2])
+    return out
+
+
+def shim_phase(model, params, cfg, check, dev) -> dict:
+    """Phase 12 (B): llama3-8b through the forced shim (``paged=False``) on
+    phase 4's workload without prefix sharing: runs (i) sync, (j) async and
+    (k) speculative (``spec_k`` 4, drafts at 2 bits) by
+    :func:`shim_serve`; each request's first token the argmax of a B 1
+    dense-loop prefill of its prompt; and the shim's greedy agreement with
+    the paged engine at the same depth (no prefix sharing) on one history:
+    the paged run's logits and those of a shim run fed its token streams,
+    at least :data:`SHIM_AGREEMENT`."""
+    import torch
+
+    from repro_torch.serve import ServeEngine
+
+    work = serve_workload(cfg.vocab)
+    runs = {"i": {}, "j": dict(async_runtime=True, async_window=ASYNC_WINDOW),
+            "k": dict(spec_k=SPEC_K, spec_bits=SPEC_BITS)}
+    sv = shim_serve(model, params, cfg, check, dev, work, runs, max_seq=SERVE_MAX_SEQ,
+                    path=DENSE_PATH)
+    firsts = []
+    with torch.no_grad():
+        for uid, prompt, _ in work:
+            lg, _ = model.prefill(params, {"tokens": torch.from_numpy(prompt[None]).long()
+                                           .to(dev)}, len(prompt) + 8)
+            firsts.append(int(lg[0, -1].argmax()))
+    got = [r.out_tokens[0] for r in sv["reqs"]]
+    check(got == firsts, f"{cfg.name} shim: every request's first token the argmax of a B 1 "
+                         f"dense-loop prefill of its prompt ({sum(a == b for a, b in zip(got, firsts))}"
+                         f" of {len(work)})")
+    # one history for both: the paged engine's streams
+    rows = {}
+    for name, paged, feed in (("paged", None, None), ("shim", False, True)):
+        engine = ServeEngine(model, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                             paged=paged, share_prefix=False, device=dev)
+        rows[name] = capture_logits(
+            engine, feed={u: rows["paged"][1][u] for u, _, _ in work} if feed else None)
+        with torch.no_grad():
+            drive_engine(engine, work)
+        engine.close()
+        del engine
+    ref = torch.stack([r for u, _, _ in work for r in rows["paged"][0][u]])[:, None]
+    shim = torch.stack([r for u, _, _ in work for r in rows["shim"][0][u]])[:, None]
+    f = fidelity(ref, shim)
+    check(f["greedy_agreement"] >= SHIM_AGREEMENT,
+          f"{cfg.name} shim vs the paged engine on the paged run's token streams: greedy "
+          f"agreement {f['greedy_agreement']:.3f} >= {SHIM_AGREEMENT} over {ref.shape[0]} "
+          f"request-steps (mean KL {f['mean_kl']:.3e}, max |dlogit| "
+          f"{f['max_abs_dlogit']:.3f})")
+    sv.pop("reqs")
+    return sv | {"vs_paged": f | {"request_steps": ref.shape[0]},
+                 "workload": [(len(p), n) for _, p, n in work]}
+
+
 def serve_cli(check) -> dict:
     """``python -m repro_torch.launch.serve --async-runtime`` once, in
     process, at the smoke width on the card."""
@@ -2094,6 +2500,7 @@ def main() -> int:
     from repro_torch.kernels.paged_bitdecode import ops as pg_ops
     from repro_torch.kernels.residual_flush import ops as rf_ops
     from repro_torch.kernels.residual_flush import ref as rf_ref
+    from repro_torch.models.zoo import build_model
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: full f32
@@ -3392,10 +3799,10 @@ def main() -> int:
 
     # ------------------------------------------------------------ 9. hybrid
     name = HYBRID
-    log(f"== 9. {name} at full width and depth: the dense loop and the engine on the Mamba2 "
-        f"hybrid (at {time.perf_counter() - t_start:.1f} s)")
+    log(f"== 9. {name} at full width, cut to {HYBRID_LAYERS} layers: the dense loop and the "
+        f"engine on the Mamba2 hybrid (at {time.perf_counter() - t_start:.1f} s)")
     t_hyb = time.perf_counter()
-    cfg, model, params, n = build_random(name, dev)
+    cfg, model, params, n = build_random(name, dev, n_layers=HYBRID_LAYERS)
     log(f"  hybrid: {model.n_super} super-blocks of {cfg.attn_every} Mamba2 layers and the "
         f"shared attention + MLP block, a tail of {model.tail}; Mamba2 d_inner "
         f"{cfg.mamba_d_inner}, {cfg.mamba_heads} heads, ssm_state {cfg.ssm_state}, groups "
@@ -3406,8 +3813,8 @@ def main() -> int:
     for k in SERVE_PATH:
         cnt = sv["launches"].get(k, 0)
         check(cnt > 0, f"{name}: {k} launched in serve run (a) ({cnt})")
-    family[name] = rep | {"n_params": n, "cut": None, "serve": sv["report"],
-                          "serve_launches": sv["launches"],
+    family[name] = rep | {"n_params": n, "cut": f"cut to {HYBRID_LAYERS} layers",
+                          "serve": sv["report"], "serve_launches": sv["launches"],
                           "async_launches": sv["async_launches"],
                           "spec_launches": sv["spec_launches"],
                           "phase_s": time.perf_counter() - t_hyb}
@@ -3440,12 +3847,47 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # ---------------------------------------- 12. xLSTM and the exact-length shim
+    log(f"== 12. (A) {XLSTM} at full width and depth: the dense loop and the engine's "
+        f"exact-length shim (at {time.perf_counter() - t_start:.1f} s)")
+    t_12 = time.perf_counter()
+    cfg, model, params, n = build_random(XLSTM, dev)
+    log(f"  xLSTM: {model.n_super} super-blocks of {cfg.mlstm_per_slstm} mLSTM + 1 sLSTM, "
+        f"{cfg.n_heads} heads of {cfg.d_model // cfg.n_heads}; chunkwise chunk "
+        f"{cfg.xlstm_time_chunk}")
+    rep = xlstm_phase(model, params, cfg, check, dev)
+    chunked = build_model(cfg.with_(xlstm_chunkwise=True))
+    runs = {"a": {}, "e": dict(async_runtime=True, async_window=ASYNC_WINDOW),
+            "g": dict(spec_k=SPEC_K, spec_bits=SPEC_BITS)}
+    sv = shim_serve(chunked, params, cfg, check, dev, xlstm_workload(cfg.vocab), runs,
+                    max_seq=XLSTM_MAX_SEQ, path=())
+    check(sv["report"]["g"]["spec_accept_rate"] == 1.0,
+          f"{XLSTM} shim run (g): every draft accepted (spec_accept_rate "
+          f"{sv['report']['g']['spec_accept_rate']:.3f}: the draft runs the same math)")
+    family[XLSTM] = rep | {"n_params": n, "cut": None, "serve": sv["report"],
+                           "shim_launches": sv["launches"]}
+    del model, chunked, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    name, change = SHIM
+    log(f"== 12. (B) {name} at full width, cut to {change['n_layers']} layers, through the "
+        f"forced exact-length shim (paged=False) (at {time.perf_counter() - t_start:.1f} s)")
+    cfg, model, params, n = build_random(name, dev, **change)
+    shim = shim_phase(model, params, cfg, check, dev) | {
+        "n_params": n, "cut": f"cut to {change['n_layers']} layers"}
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_12 = time.perf_counter() - t_12
+    family[XLSTM]["phase_s"] = t_12
+    log(f"  phase 12 took {t_12:.1f} s")
+
     # -------------------------------------------------------------- the CLI
     log(f"== the serve CLI, async runtime, smoke llama3-8b (at "
         f"{time.perf_counter() - t_start:.1f} s)")
     cli = serve_cli(check)
 
-    # ------------------------------------------------------------ 12. summary
+    # ------------------------------------------------------------ 13. summary
     rows = []
     for name, meta in KERNELS.items():
         st = stats[name]
@@ -3462,10 +3904,15 @@ def main() -> int:
                 by_path[f"{fam} serve (e), async"] = rep["async_launches"].get(name, 0)
             for r, cnt in rep.get("spec_launches", {}).items():
                 by_path[f"{fam} serve ({r}), spec"] = cnt.get(name, 0)
+            for r, cnt in rep.get("shim_launches", {}).items():
+                by_path[f"{fam} shim ({r})"] = cnt.get(name, 0)
+        for r, cnt in shim["launches"].items():
+            by_path[f"llama3-8b shim ({r})"] = cnt.get(name, 0)
         rows.append({
             "name": name, "route": "cuda", **meta, "launches": launches.get(name, 0),
             "serve_launches": serve["launches"].get(name, 0),
             "async_launches": serve["async_launches"].get(name, 0),
+            "shim_launches": shim["launches"]["i"].get(name, 0),
             "launches_by_path": by_path,
             "parity": "bitwise" if name in BITWISE else TOLERANCE[name],
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
@@ -3483,7 +3930,7 @@ def main() -> int:
         })
     total_s = time.perf_counter() - t_start
     print(json.dumps({"kernels": rows, "e2e": dense, "serve": serve["report"], "family": family,
-                      "cli": cli,
+                      "shim": shim, "cli": cli,
                       "n_params": n_params, "build_s": _build.build_seconds,
                       "total_s": total_s}), flush=True)
     log(f"  chip_smoke took {total_s:.1f} s, the build {_build.build_seconds:.1f} s of it")

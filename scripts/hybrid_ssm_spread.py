@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """How far zamba2-7b's Mamba2 states drift between runs that differ only by
-rounding, at full width and depth (81 layers) on one card: the evidence for
-``chip_smoke.SSM_SPREAD``.
+rounding, at full width and at chip_smoke's depth (``chip_smoke.HYBRID_LAYERS``
+of its 81 layers; ``--layers 81`` for the full depth) on one card: the
+evidence for ``chip_smoke.SSM_SPREAD``.
 
     python3 scripts/hybrid_ssm_spread.py
     python3 scripts/hybrid_ssm_spread.py --seeds 1 2 3
@@ -33,6 +34,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", type=int, nargs="+", default=[1, 2],
                     help="prompt seeds (chip_smoke's dense loop uses 1)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth (default: chip_smoke.HYBRID_LAYERS)")
     args = ap.parse_args()
 
     import torch
@@ -45,7 +48,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     dev = torch.device("cuda")
-    cfg, model, params, _ = cs.build_random(cs.HYBRID, dev)
+    cfg, model, params, _ = cs.build_random(cs.HYBRID, dev,
+                                            n_layers=args.layers or cs.HYBRID_LAYERS)
     m256 = build_model(cfg.with_(attn_block_k=256))
     side = [p for p, _ in model.paged_spec().side_state]
     prompt, steps = cs.HYBRID_PROMPT, cs.HYBRID_STEPS
@@ -82,7 +86,8 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip().splitlines()[0] if card.strip() else "nvidia-smi: not available")
-    print(json.dumps({"ssm_rel_gap": out, "seconds": time.perf_counter() - t0}))
+    print(json.dumps({"layers": cfg.n_layers, "ssm_rel_gap": out,
+                      "seconds": time.perf_counter() - t0}))
     return 0
 
 

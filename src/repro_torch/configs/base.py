@@ -1,7 +1,7 @@
 """Architecture configuration for the models the port runs.
 
 A copy of the fields of the JAX package's ``ArchConfig`` that the dense,
-MoE, MLA, Mamba2-hybrid, encoder-decoder and VLM-stub paths read, with the
+MoE, MLA, Mamba2-hybrid, xLSTM, encoder-decoder and VLM-stub paths read, with the
 JAX defaults.  ``mixer`` and ``rope`` exist so that a config asking for what
 the port does not run yet is refused by
 :class:`repro_torch.models.transformer.DecoderLM`.
@@ -75,6 +75,12 @@ class ArchConfig:
     mamba_groups: int = 1
     mamba_chunk: int = 256
     attn_every: int = 0
+    # xLSTM: super-blocks of mlstm_per_slstm mLSTM blocks and 1 sLSTM block; the
+    # recurrence's time chunk, and the chunkwise-parallel mLSTM prefill (prompts
+    # of whole chunks) in place of the sequential one
+    mlstm_per_slstm: int = 0
+    xlstm_time_chunk: int = 64
+    xlstm_chunkwise: bool = False
 
     # BitDecoding KV cache
     kv_bits: int = 4
@@ -96,8 +102,8 @@ class ArchConfig:
 
 
 _REGISTRY = ["llama3_8b", "llama2_7b", "gemma_7b", "starcoder2_3b", "command_r_35b",
-             "qwen3_moe_235b_a22b", "deepseek_v3_671b", "zamba2_7b", "seamless_m4t_medium",
-             "qwen2_vl_7b"]
+             "qwen3_moe_235b_a22b", "deepseek_v3_671b", "zamba2_7b", "xlstm_1_3b",
+             "seamless_m4t_medium", "qwen2_vl_7b"]
 
 
 def _mod_name(name: str) -> str:

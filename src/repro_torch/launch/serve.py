@@ -20,15 +20,17 @@ pass is one CUDA graph replay); the streams equal ``--spec-k 1``.
 Page-pool sizing, reservations, preemption, the auditor, deadlines,
 ``--strict``, ``--metrics-every`` and tracing (``--trace-out``) work as in
 the JAX launcher.  ``--family`` serves attention (llama3-8b), MLA
-(deepseek-v3-671b) and the Mamba2 hybrid (zamba2-7b: exact-length prefill
-groups, no prefix sharing).  ``--arch seamless-m4t-medium`` (the
-encoder-decoder) and ``--arch qwen2-vl-7b`` (the VLM stub) reach the
-engine's ``ValueError``, as in the JAX launcher: their prefill needs frame
-or patch embeddings that a request does not carry.  Not ported yet, and refused with
-``NotImplementedError`` naming the ROADMAP item: the recurrent family
-(``--family xlstm``) and the exact-length shim (``--dense``, queue A item
-10), and cross-chip split-KV routing (``--splitkv`` other than ``auto``,
-item 11).
+(deepseek-v3-671b), the Mamba2 hybrid (zamba2-7b: exact-length prefill
+groups, no prefix sharing) and the recurrent xLSTM family (xlstm-1.3b,
+through the exact-length shim: no pool, each prompt prefilled alone).
+``--dense`` forces the shim for any family (a dense decode state; for
+attention the dense quantized cache and its kernels).  ``--arch
+seamless-m4t-medium`` (the encoder-decoder) and ``--arch qwen2-vl-7b`` (the
+VLM stub) reach the engine's ``ValueError``, as in the JAX launcher: their
+prefill needs frame or patch embeddings that a request does not carry.  Not
+ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
+item: cross-chip split-KV routing (``--splitkv`` other than ``auto``, queue
+A item 11).
 """
 from __future__ import annotations
 
@@ -117,10 +119,6 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.family not in (None, "attn", "mla", "hybrid"):
-        raise _unported(f"the {args.family} cache family", "10")
-    if args.dense:
-        raise _unported("the exact-length shim (--dense)", "10")
     if args.splitkv != "auto":
         raise _unported("cross-chip split-KV routing (--splitkv)", "11")
 
@@ -141,7 +139,8 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     params = model.init(gen, dev)
     engine = ServeEngine(
-        model, params, slots=args.slots, max_seq=args.max_seq, n_pages=args.pages,
+        model, params, slots=args.slots, max_seq=args.max_seq,
+        paged=False if args.dense else None, n_pages=args.pages,
         share_prefix=not args.no_prefix_sharing, reserve_policy=args.reserve_policy,
         expected_quantile=args.expected_quantile, preempt_policy=args.preempt_policy,
         audit_every=args.audit_every, strict=args.strict, spec_k=args.spec_k,
@@ -149,11 +148,12 @@ def main(argv=None):
         async_runtime=args.async_runtime, async_window=args.async_window,
         trace=args.trace_out is not None, device=dev,
     )
-    print(f"[serve] engine mode: paged, pool={engine.n_pages} pages "
-          f"({engine.kv_page_bytes} B/page)")
+    print(f"[serve] engine mode: {'paged' if engine.paged else 'exact-length shim'}"
+          + (f", pool={engine.n_pages} pages ({engine.kv_page_bytes} B/page)"
+             if engine.paged else ""))
 
     rng = np.random.default_rng(0)
-    sharing_demo = not args.no_prefix_sharing and args.shared_prefix_len > 0
+    sharing_demo = engine.paged and not args.no_prefix_sharing and args.shared_prefix_len > 0
     shared_len = min(args.shared_prefix_len, args.prompt_len)
     prefix = rng.integers(0, cfg.vocab, shared_len).astype(np.int32)
     try:
@@ -200,7 +200,7 @@ def main(argv=None):
               f" discarded_steps={stats['discarded_steps']}"
               f" graph_replays={step.replays if step.graph is not None else 0}"
               f" launches={step.launches}")
-    if not args.no_prefix_sharing:
+    if engine.paged and not args.no_prefix_sharing:
         print(f"[serve] prefix sharing: hit_rate={stats['prefix_hit_rate']:.3f}"
               f" prefill_tokens_saved={stats['prefill_tokens_saved']}"
               f" cow_copies={stats['cow_copies']}")

@@ -2,11 +2,12 @@
 
 Every backbone exposes ``model.paged_spec() -> PagedSpec | None`` and the
 serving engine (``repro_torch.serve.engine``) is driven by the returned spec.
-The port serves three families: attention (``DecoderLM``, split K/V pools),
-MLA (``DecoderLM``, one ``shared_kv`` latent pool) and the Mamba2 hybrid
+The port serves four families: attention (``DecoderLM``, split K/V pools),
+MLA (``DecoderLM``, one ``shared_kv`` latent pool), the Mamba2 hybrid
 (``HybridLM``: split K/V pools for its shared attention block, its Mamba2
 states as ``side_state``, prompts prefilled at their ``exact_prefill``
-length).  The recurrent xLSTM family is not ported yet.
+length) and the recurrent xLSTM family (``XLSTMLM``: ``paged=False``, its
+whole state side state, served by the engine's exact-length shim).
 """
 from __future__ import annotations
 
@@ -46,9 +47,18 @@ def get_path(tree, path: str):
     return node
 
 
+def set_path(tree, path: str, value) -> None:
+    """Set a '/'-joined ``side_state`` path inside a decode state, making
+    the dicts on the way."""
+    *head, last = path.split("/")
+    for part in head:
+        tree = tree.setdefault(part, {})
+    tree[last] = value
+
+
 def tensors_at(tree, path: str) -> list:
     """The tensors under a ``side_state`` path, in a fixed order: the path's
     own tensor, or the leaves of the dict it names (HybridLM's ``{"ssm",
-    "conv"}``)."""
+    "conv"}``, XLSTMLM's ``{"C", "n", "m"}``)."""
     node = get_path(tree, path)
     return list(node.values()) if isinstance(node, dict) else [node]

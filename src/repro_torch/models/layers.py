@@ -85,6 +85,13 @@ def silu(x):
     return x * (1 / (1 + torch.exp(-x)))
 
 
+def softplus(x):
+    """``log(1 + exp(x))`` as JAX writes it, ``logaddexp(x, 0)`` (``max(x,
+    0) + log1p(exp(-|x|))``).  PyTorch's ``F.softplus`` returns x itself
+    above its threshold of 20, which differs."""
+    return torch.logaddexp(x, const(0.0, x))
+
+
 def const(value: float, x) -> torch.Tensor:
     """``value`` rounded to x's dtype, as a 0-d tensor on x's device.  It is
     filled on the device, not copied from the host, so it neither waits on

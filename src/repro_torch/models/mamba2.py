@@ -44,11 +44,6 @@ def _split_proj(cfg, zxbcdt):
     return zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * gn], zxbcdt[..., 2 * di + 2 * gn:]
 
 
-def _softplus(x):
-    """``log(1 + exp(x))`` as JAX writes it (``logaddexp(x, 0)``)."""
-    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
-
-
 def _conv_train(p, xbc):
     """Causal depthwise conv along S of xbc [B, S, C], in xbc's dtype: each
     tap's product and each partial sum rounded, as JAX's
@@ -140,7 +135,7 @@ def _mamba2_forward(p, cfg, x):
     xin = xbc[..., :di].reshape(bsz, s, h, pdim)
     b = xbc[..., di:di + g * n].reshape(bsz, s, g, n)
     c = xbc[..., di + g * n:].reshape(bsz, s, g, n)
-    dt = _softplus(dt.float() + p["dt_bias"])
+    dt = layers.softplus(dt.float() + p["dt_bias"])
     pad = (-s) % cfg.mamba_chunk
 
     def padded(t):  # the tail chunk padded with zero-dt steps: an identity
@@ -190,7 +185,7 @@ def mamba2_decode(p, cfg, x, state):
     rep = h // g
     bh = _repeat_groups(xbc_t[:, di:di + g * n].reshape(-1, g, n), rep, 1)  # [B, H, N]
     ch = _repeat_groups(xbc_t[:, di + g * n:].reshape(-1, g, n), rep, 1)
-    dtv = _softplus(dt[:, 0].float() + p["dt_bias"])  # [B, H]
+    dtv = layers.softplus(dt[:, 0].float() + p["dt_bias"])  # [B, H]
     decay = torch.exp(dtv * -torch.exp(p["a_log"]))
     ssm = (state["ssm"] * decay[:, :, None, None]
            + xin[..., None] * bh[:, :, None, :] * dtv[:, :, None, None])

@@ -26,6 +26,11 @@ with a ``PagedQuantKVCache`` per stack; ``decode_step`` serves both.
 :class:`HybridLM`: the Zamba2 hybrid, a Mamba2 backbone (``models/mamba2.py``)
 with one shared attention + MLP block, each invocation with its own
 quantized cache, and the Mamba2 states as constant-size side state.
+
+:class:`XLSTMLM`: the recurrent xLSTM family, super-blocks of mLSTM blocks
+and one sLSTM block (``models/xlstm.py``), with no KV cache: its whole
+decode state is constant-size side state, served by the engine's
+exact-length shim (``paged=False``).
 """
 from __future__ import annotations
 
@@ -34,11 +39,12 @@ import torch
 from repro_torch.core import qcache
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as mattn
-from repro_torch.models import layers, mamba2, mla, moe
+from repro_torch.models import layers, mamba2, mla, moe, xlstm
 from repro_torch.models.family import PagedSpec
 from repro_torch.models.params import P, init_tree, stack
 
 _LATER = "ROADMAP queue A, item 10 (the other model families)"
+_TRAINING = "ROADMAP queue A, item 12 (training)"
 
 
 def _check_supported(cfg, mixers=("attn", "mla")) -> None:
@@ -555,3 +561,142 @@ def _stack_states(states: list[dict], lead: tuple) -> dict:
     """Per-layer Mamba2 states (in layer order) stacked under ``lead``."""
     return {k: torch.stack([st[k] for st in states]).reshape(*lead, *states[0][k].shape)
             for k in states[0]}
+
+
+class XLSTMLM:
+    """xLSTM: ``n_super`` super-blocks of ``mlstm_per_slstm`` mLSTM blocks
+    and one sLSTM block, each block ``x + mixer(norm(x))``.  The parameter
+    tree is JAX's: ``blocks`` with ``mlstm`` stacked ``[n_super,
+    mlstm_per_slstm, ...]`` and ``slstm`` ``[n_super, ...]``, ``embed``,
+    ``final_norm``, ``unembed``.  The decode state is
+
+        {"blocks": {"mlstm": {"C": f32 [n_super, per, B, H, dh, dh],
+                              "n": f32 [n_super, per, B, H, dh],
+                              "m": f32 [n_super, per, B, H]},
+                    "slstm": {"c", "n", "h", "m": f32 [n_super, B, H, dh]}},
+         "pos": int32 [B]}
+
+    and :meth:`decode_step` updates it in place (``copy_`` into its
+    tensors, so a captured CUDA graph advances it).  No KV cache: the
+    ``impl``/``quant_impl``/``mask``/``draft_bits`` arguments the engine
+    passes change nothing, and prompts prefill at their exact length."""
+
+    def __init__(self, cfg):
+        per = cfg.mlstm_per_slstm + 1
+        if cfg.n_layers % per:
+            raise ValueError(f"n_layers={cfg.n_layers} is not a multiple of the super-block "
+                             f"({cfg.mlstm_per_slstm} mLSTM + 1 sLSTM)")
+        self.cfg = cfg
+        self.n_super = cfg.n_layers // per
+
+    # ------------------------------------------------------------ params
+
+    def _block_def(self, mixer_def):
+        return {"ln": layers.norm_def(self.cfg.norm, self.cfg.d_model), "mixer": mixer_def}
+
+    def param_defs(self):
+        cfg = self.cfg
+        super_def = {"mlstm": stack(self._block_def(xlstm.mlstm_def(cfg)), cfg.mlstm_per_slstm),
+                     "slstm": self._block_def(xlstm.slstm_def(cfg))}
+        return {
+            "embed": layers.embed_def(cfg.padded_vocab, cfg.d_model),
+            "final_norm": layers.norm_def(cfg.norm, cfg.d_model),
+            "unembed": layers.unembed_def(cfg.d_model, cfg.padded_vocab),
+            "blocks": stack(super_def, self.n_super),
+        }
+
+    def init(self, gen: torch.Generator, device=None):
+        """Random parameters drawn from ``gen``, on ``device`` (the card
+        unless given)."""
+        return init_tree(self.param_defs(), gen, device)
+
+    def loss(self, params, batch):
+        raise NotImplementedError(f"training is not ported yet: {_TRAINING}")
+
+    def _logits(self, params, x):
+        x = layers.apply_norm(self.cfg.norm, params["final_norm"], x)
+        return layers.unembed(params["unembed"], x, self.cfg.vocab)
+
+    # ------------------------------------------------------------ the blocks
+
+    def mlstm_layer(self, lp, x, st) -> torch.Tensor:
+        """One mLSTM block over x [B, S, d] from the state ``st`` (views into
+        the stacked state), which takes the new state in place."""
+        out, new = xlstm.mlstm_block(lp["mixer"], self.cfg,
+                                     layers.apply_norm(self.cfg.norm, lp["ln"], x), st)
+        for k, v in new.items():
+            st[k].copy_(v)
+        return x + out
+
+    def slstm_layer(self, lp, x, st) -> torch.Tensor:
+        """One sLSTM block, as :meth:`mlstm_layer`."""
+        out, new = xlstm.slstm_block(lp["mixer"], self.cfg,
+                                     layers.apply_norm(self.cfg.norm, lp["ln"], x), st)
+        for k, v in new.items():
+            st[k].copy_(v)
+        return x + out
+
+    def _forward(self, params, x, blocks):
+        """x [B, S, d] through every block in order, the recurrent states
+        ``blocks`` (the decode state's) updated in place."""
+        for i in range(self.n_super):
+            group = _layer(params["blocks"], i)
+            for j in range(self.cfg.mlstm_per_slstm):
+                x = self.mlstm_layer(_layer(group["mlstm"], j), x,
+                                     {k: v[i, j] for k, v in blocks["mlstm"].items()})
+            x = self.slstm_layer(group["slstm"], x, {k: v[i] for k, v in blocks["slstm"].items()})
+        return x
+
+    # ------------------------------------------------------------ serving
+
+    def paged_spec(self) -> PagedSpec:
+        """No KV anywhere: the whole decode state is constant-size recurrent
+        side state, spliced per slot at admission (the batch on axis 2 of
+        the mLSTM states, 1 of the sLSTM's, after the super-block stacking).
+        ``paged=False`` routes the serving engine's exact-length shim."""
+        return PagedSpec(
+            paged=False, block_n=self.cfg.kv_block, n_kv_heads=0, d_k=0, d_v=0,
+            side_state=(("blocks/mlstm", 2), ("blocks/slstm", 1)), exact_prefill=True,
+        )
+
+    def init_decode_state(self, batch_size: int, max_seq: int = 0, *, device=None):
+        """Fresh recurrent states (``C``, ``n``, ``c``, ``h`` zero, the
+        stabilisers ``m`` at -1e30) and positions on ``device`` (the card
+        unless given); ``max_seq`` is unused (constant-size state)."""
+        cfg = self.cfg
+        device = resolve_device(device)
+
+        def stacked(one, lead):
+            return {k: v.expand(*lead, *v.shape).contiguous() for k, v in one.items()}
+
+        return {"blocks": {
+                    "mlstm": stacked(xlstm.mlstm_init_state(cfg, batch_size, device),
+                                     (self.n_super, cfg.mlstm_per_slstm)),
+                    "slstm": stacked(xlstm.slstm_init_state(cfg, batch_size, device),
+                                     (self.n_super,))},
+                "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device)}
+
+    def prefill(self, params, batch, max_seq: int = 0, *, impl: str = "auto",
+                quant_impl: str = "auto", lengths=None, prior=None, prior_len=None):
+        """Process the prompt ``batch["tokens"]`` [B, S], every row real to
+        its last token, from fresh states.  Returns ``(last_logits [B, 1,
+        V], state)``.  ``lengths`` and ``prior`` raise: the recurrent states
+        would absorb right-padding, and there is no cache to share."""
+        if lengths is not None or prior is not None or prior_len is not None:
+            raise ValueError("xLSTM prefills at the exact length: it takes no lengths, prior "
+                             "or prior_len")
+        tokens = batch["tokens"]
+        x = layers.embed(params["embed"], tokens)
+        state = self.init_decode_state(tokens.shape[0], device=x.device)
+        x = self._forward(params, x, state["blocks"])
+        state["pos"].fill_(tokens.shape[1])
+        return self._logits(params, x[:, -1:]), state
+
+    def decode_step(self, params, state, tokens, *, impl="auto", quant_impl="auto",
+                    num_splits="auto", mask=None, draft_bits=None):
+        """tokens [B, 1] -> (logits [B, 1, V], state): every recurrent state
+        advanced in place on every row (the speculative verify pass restores
+        a dead row's, ``speculative.VerifyPass``); the returned state holds
+        the same tensors and ``pos + 1``."""
+        x = self._forward(params, layers.embed(params["embed"], tokens), state["blocks"])
+        return self._logits(params, x), {**state, "pos": state["pos"] + 1}

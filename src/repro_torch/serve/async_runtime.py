@@ -73,7 +73,6 @@ import torch
 
 from repro_torch.core.device import upload
 from repro_torch.kernels import _build
-from repro_torch.serve import pages as pg
 
 
 class DeadlockError(RuntimeError):
@@ -204,9 +203,10 @@ _WARMUP_STEPS = 2
 
 def _state_tensors(state) -> list[torch.Tensor]:
     """Every tensor of a decode state (each cache field, ``pos``, each
-    tensor of a side state such as the hybrid's Mamba2 states), a tensor
-    expanded over a leading axis (the shared page table) as its one
-    underlying slice: what a step may write in place."""
+    tensor of a side state such as the hybrid's Mamba2 states or xLSTM's
+    nested recurrent states), a tensor expanded over a leading axis (the
+    shared page table) as its one underlying slice: what a step may write in
+    place."""
     out = []
     for key, node in state.items():
         if key == "caches":
@@ -217,8 +217,10 @@ def _state_tensors(state) -> list[torch.Tensor]:
                         while t.dim() and t.stride(0) == 0:
                             t = t[0]
                         out.append(t)
+        elif isinstance(node, dict):
+            out += _state_tensors(node)
         else:
-            out += list(node.values()) if isinstance(node, dict) else [node]
+            out.append(node)
     return out
 
 
@@ -492,31 +494,23 @@ class AsyncRunner:
         eng = self.eng
         if len(self.inflight) >= self.window:
             self._consume_one()
-        with eng._phase("schedule"):
-            eng._service_deferred()
-            eng._expire()
-            if eng.faults is not None and eng.faults.fires("forced_preempt", cycle=eng._cycle):
-                victim = eng._pick_victim()
-                if victim is not None:
-                    eng._preempt(victim)
-            if eng.faults is not None and eng.faults.fires("evict_storm", cycle=eng._cycle):
-                eng.pool.reclaim_retained(eng.faults.storm_pages)
+        eng._lifecycle()
         # prefill admission queues behind the in-flight decode steps; its
-        # first tokens stay on the device (defer_first)
-        self._register_admissions(eng._admit_and_prefill(defer_first=True))
+        # first tokens stay on the device (defer_first); the shim prefills
+        # each request alone at its exact length
+        admit = eng._admit_and_prefill if eng.paged else eng._admit_exact
+        self._register_admissions(admit(defer_first=True))
         if not eng.sched.active:
             return self._drain_progress()
-        with eng._phase("schedule"):
-            eng._ensure_flush_pages(pos_of=self._frontier_pos)
-            if eng.sched.active and eng._table_dirty:
-                pg.set_page_tables(eng.state["caches"], eng._table)
-                eng._table_dirty = False
-        if not eng.sched.active:  # everyone self-preempted under faults
-            return self._drain_progress()
+        if eng.paged:
+            with eng._phase("schedule"):
+                eng._ensure_flush_pages(pos_of=self._frontier_pos)
+                eng._push_table()
+            if not eng.sched.active:  # everyone self-preempted under faults
+                return self._drain_progress()
 
         eng._cycle_worked = True
-        # occupancy at the cycle peak (post-admission, pre-release)
-        eng._occupancy.append(eng.pool.occupancy)
+        eng._note_occupancy()
         with eng._phase("decode_dispatch"):
             self._apply_overrides()
             self.step_fn.replay()

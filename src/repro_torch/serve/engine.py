@@ -1,5 +1,5 @@
 """Paged continuous-batching serving engine, synchronous cycle: the port of
-the JAX package's ``serve/engine.py`` for the attention family.
+the JAX package's ``serve/engine.py``.
 
 The engine composes the serving pieces into one cycle (:meth:`ServeEngine.step`):
 
@@ -65,14 +65,26 @@ admission (:meth:`ServeEngine._splice_side_state`) and whose prompts
 prefill in groups of one exact length (``exact_prefill``: no lengths, no
 right-padding, no prefix sharing).
 
+**The exact-length shim** (``paged=False``, and every family whose spec is
+not paged: the recurrent xLSTM family): no pool, no page table, the model's
+dense decode state (``model.init_decode_state``), and the same scheduler
+without a pool, grouping by exact length.  Each admitted request prefills
+alone at B 1 and its exact length (:meth:`ServeEngine._fill_slot`), and its
+state is spliced into its slot in place: the declared side state on its
+batch axis, every other tensor (the dense quantized caches stacked
+``(L, B, ...)``, ``pos``) on its own.  The decode cycles, the speculative
+passes and the async runtime run over that state as over the paged one; for
+the attention family they read and append the dense cache through the dense
+decode and flush kernels.
+
 A model that declares no cache family (``paged_spec()`` is None: the
 encoder-decoder and the VLM stub, whose prefill needs frame or patch
 embeddings that a request does not carry) is refused with the JAX engine's
-``ValueError``, ``paged=False`` or not.
+``ValueError``, ``paged=False`` or not; so is ``paged=True`` for a family
+that does not page.
 
 Not ported yet, and refused with ``NotImplementedError``: a mesh, the
-split-KV routing and page-affine pools (ROADMAP A11); the exact-length shim
-(``paged=False``) and the recurrent xLSTM family (A10).
+split-KV routing and page-affine pools (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -85,7 +97,12 @@ from repro_torch.core import qcache
 from repro_torch.core.device import resolve_device, upload
 from repro_torch.models.family import tensors_at
 from repro_torch.serve import pages as pg
-from repro_torch.serve.async_runtime import AsyncRunner, CompletionWorker, DeviceTokens
+from repro_torch.serve.async_runtime import (
+    AsyncRunner,
+    CompletionWorker,
+    DeviceTokens,
+    _state_tensors,
+)
 from repro_torch.serve.audit import audit_engine
 from repro_torch.serve.speculative import DraftPass, VerifyPass
 from repro_torch.serve.scheduler import (  # noqa: F401 (Phase/Request re-exported)
@@ -205,23 +222,25 @@ class ServeEngine:
         ``impl`` picks the prefill and decode attention kernels (a suffix
         prefill over a shared prefix stays plain PyTorch), ``quant_impl`` the
         quantize and flush kernels ('auto' | 'cuda' | 'torch').  ``device``:
-        where the state lives (the card unless given)."""
+        where the state lives (the card unless given).  ``paged=None``
+        follows the model's spec, ``paged=False`` forces the exact-length
+        shim (module docstring), ``paged=True`` raises for a family that
+        does not page."""
         if mesh is not None or splitkv != "auto" or page_affine:
             raise _unported("the mesh, split-KV routing and page-affine pools", "11")
         spec = model.paged_spec() if hasattr(model, "paged_spec") else None
         if spec is None:  # the JAX engine's refusal, before any other
             raise ValueError("model declares no serveable cache family (paged_spec() is "
                              "None): its prefill needs inputs beyond tokens")
-        if paged is False:
-            raise _unported("the exact-length shim (paged=False)", "10")
-        if not spec.paged:
-            raise _unported("serving a cache family without paged attention layers", "10")
+        if paged and not spec.paged:
+            raise ValueError("model declares no paged decode capability "
+                             "(see repro_torch.models.family.PagedSpec)")
         if preempt_policy not in ("youngest", "fewest_pages"):
             raise ValueError(f"unknown preempt_policy {preempt_policy!r}")
         self.model = model
         self.params = params
         self.spec = spec
-        self.paged = True
+        self.paged = spec.paged if paged is None else bool(paged)
         self.slots = slots
         self.max_seq = max_seq
         self.eos_id = eos_id
@@ -276,9 +295,44 @@ class ServeEngine:
         self.tokens = np.zeros((slots, 1), np.int32)
         self._occupancy: list[float] = []
 
+        if self.paged:
+            self._init_paged(n_pages, share_prefix, spec_tail, retain_prefix, min_bucket,
+                             reserve_policy, expected_quantile, strict)
+        else:  # the exact-length shim: the dense state, no pool
+            self.pool = None
+            self.retain_prefix = False
+            self.sched = Scheduler(slots=slots, pool=None, block_n=self.block_n,
+                                   max_seq=max_seq, share_prefix=False, spec_tail=False,
+                                   exact_buckets=True, strict=strict, clock=self.clock,
+                                   metrics=self.metrics)
+            self.state = model.init_decode_state(slots, max_seq, device=self.device)
+
+        # --- the speculative passes and the async runtime capture their
+        # graphs over the state above, so they come last
+        self._draft = self._verify = None
+        if self.spec_k > 1:
+            self._draft = DraftPass(model, params, self.state, spec, spec_k=self.spec_k,
+                                    spec_bits=self.spec_bits, impl=impl, quant_impl=quant_impl)
+            self._verify = VerifyPass(model, params, self.state, spec, spec_k=self.spec_k,
+                                      impl=impl, quant_impl=quant_impl)
+        self.async_runtime = bool(async_runtime)
+        self._runner = None
+        self._completions = None
+        if self.async_runtime:
+            self._completions = CompletionWorker(queue_size=completion_queue,
+                                                 watchdog_s=watchdog_s, detokenizer=detokenizer,
+                                                 on_complete=on_complete)
+            if self.spec_k == 1:
+                self._runner = AsyncRunner(self, window=async_window, watchdog_s=watchdog_s)
+
+    def _init_paged(self, n_pages, share_prefix, spec_tail, retain_prefix, min_bucket,
+                    reserve_policy, expected_quantile, strict) -> None:
+        """The paged engine's state, page pool, scheduler and host page
+        table."""
+        spec, slots, max_seq, cfg = self.spec, self.slots, self.max_seq, self.model.cfg
         self.nb_max = -(-max_seq // self.block_n)
         self.n_pages = n_pages if n_pages is not None else slots * self.nb_max + slots
-        self.state = model.init_paged_decode_state(
+        self.state = self.model.init_paged_decode_state(
             slots, n_pages=self.n_pages, nb_max=self.nb_max, device=self.device)
         first = self.state["caches"][0]
         # a shared_kv (latent) pool has no V side: its V width is the declared one
@@ -313,24 +367,6 @@ class ServeEngine:
         self._table = np.broadcast_to(
             np.arange(slots, dtype=np.int32)[:, None], (slots, self.nb_max)).copy()
         self._table_dirty = False
-
-        # --- the speculative passes and the async runtime capture their
-        # graphs over the state above, so they come last
-        self._draft = self._verify = None
-        if self.spec_k > 1:
-            self._draft = DraftPass(model, params, self.state, spec, spec_k=self.spec_k,
-                                    spec_bits=self.spec_bits, impl=impl, quant_impl=quant_impl)
-            self._verify = VerifyPass(model, params, self.state, spec, spec_k=self.spec_k,
-                                      impl=impl, quant_impl=quant_impl)
-        self.async_runtime = bool(async_runtime)
-        self._runner = None
-        self._completions = None
-        if self.async_runtime:
-            self._completions = CompletionWorker(queue_size=completion_queue,
-                                                 watchdog_s=watchdog_s, detokenizer=detokenizer,
-                                                 on_complete=on_complete)
-            if self.spec_k == 1:
-                self._runner = AsyncRunner(self, window=async_window, watchdog_s=watchdog_s)
 
     # ------------------------------------------------------------ public
 
@@ -436,16 +472,19 @@ class ServeEngine:
             "phase_s": {**{name: self.metrics.histogram(h).total
                            for name, h in PHASE_METRICS.items()},
                         "cycle": cycle_total},
-            "occupancy_mean": float(np.mean(self._occupancy)) if self._occupancy else 0.0,
-            "occupancy_max": float(np.max(self._occupancy)) if self._occupancy else 0.0,
-            "kv_page_bytes": self.kv_page_bytes,
-            "kv_bytes_in_use": self.pool.bytes_in_use,
-            "kv_page_layers": self.spec.page_layers,
-            "pages_per_token": self.spec.pages_per_token,
-            "prefix_hit_rate": (sched["prefix_hit_blocks"]
-                                / max(1, sched["prefix_lookup_blocks"])),
-            "pool_pages_retained": self.pool.n_retained,
         }
+        if self.paged:  # the pool's accounting (the shim has no pool)
+            out.update({
+                "occupancy_mean": float(np.mean(self._occupancy)) if self._occupancy else 0.0,
+                "occupancy_max": float(np.max(self._occupancy)) if self._occupancy else 0.0,
+                "kv_page_bytes": self.kv_page_bytes,
+                "kv_bytes_in_use": self.pool.bytes_in_use,
+                "kv_page_layers": self.spec.page_layers,
+                "pages_per_token": self.spec.pages_per_token,
+                "prefix_hit_rate": (sched["prefix_hit_blocks"]
+                                    / max(1, sched["prefix_lookup_blocks"])),
+                "pool_pages_retained": self.pool.n_retained,
+            })
         if self.spec_k > 1:
             out["spec_accept_rate"] = (stats["spec_accepted_tokens"]
                                        / max(1, stats["spec_draft_tokens"]))
@@ -479,32 +518,39 @@ class ServeEngine:
 
     def _schedule_and_admit(self) -> bool:
         """The cycle's skeleton before its decode: deferred releases,
-        expiry, the forced-preempt and evict-storm faults, admission and
-        prefill.  Returns whether any request is active."""
+        expiry, the forced-preempt and evict-storm faults (paged only),
+        admission and prefill.  Returns whether any request is active."""
+        self._lifecycle()
+        if self.paged:
+            self._admit_and_prefill()
+        else:
+            self._admit_exact()
+        return bool(self.sched.active)
+
+    def _lifecycle(self) -> None:
+        """Deferred releases, expiry and the pool's faults (forced preempt,
+        evict storm: paged only), the sync and async cycles' common start."""
         with self._phase("schedule"):
             self._service_deferred()
             self._expire()
-            if self.faults is not None and self.faults.fires("forced_preempt",
-                                                             cycle=self._cycle):
+            if not self.paged or self.faults is None:
+                return
+            if self.faults.fires("forced_preempt", cycle=self._cycle):
                 victim = self._pick_victim()
                 if victim is not None:
                     self._preempt(victim)
-            if self.faults is not None and self.faults.fires("evict_storm",
-                                                             cycle=self._cycle):
+            if self.faults.fires("evict_storm", cycle=self._cycle):
                 self.pool.reclaim_retained(self.faults.storm_pages)
-        self._admit_and_prefill()
-        return bool(self.sched.active)
 
     def _step_once(self, t0: float) -> bool:
         if not self._schedule_and_admit():
             return False
-        with self._phase("schedule"):
-            self._ensure_flush_pages()
-            if self.sched.active and self._table_dirty:
-                pg.set_page_tables(self.state["caches"], self._table)
-                self._table_dirty = False
-        if not self.sched.active:  # everyone self-preempted under faults
-            return False
+        if self.paged:
+            with self._phase("schedule"):
+                self._ensure_flush_pages()
+                self._push_table()
+            if not self.sched.active:  # everyone self-preempted under faults
+                return False
 
         self._cycle_worked = True
         with self._phase("decode_dispatch"):
@@ -531,12 +577,23 @@ class ServeEngine:
                     elif not 0 <= int(nxt[slot]) < rows.shape[-1]:
                         bad[slot] = f"invalid next token id {int(nxt[slot])}"
             self.metrics.inc("steps")
-            # occupancy at the cycle peak: after admission, before release
-            self._occupancy.append(self.pool.occupancy)
+            self._note_occupancy()
             self._advance(nxt, time.perf_counter() - t0, bad=bad)
         if self.audit_every and self._cycle % self.audit_every == 0:
             self.audit().raise_if_violations()
         return True
+
+    def _push_table(self) -> None:
+        """Push the host page table to the device if it changed."""
+        if self.sched.active and self._table_dirty:
+            pg.set_page_tables(self.state["caches"], self._table)
+            self._table_dirty = False
+
+    def _note_occupancy(self) -> None:
+        """The pool's occupancy at the cycle peak (after admission, before
+        release); the shim has no pool."""
+        if self.paged:
+            self._occupancy.append(self.pool.occupancy)
 
     def _finish_cycle(self, t0: float) -> None:
         """Cycle-boundary bookkeeping: fold the phase timers into the
@@ -603,13 +660,12 @@ class ServeEngine:
                 else:
                     limit[slot] = min(k, req.max_new_tokens - len(req.out_tokens))
                 lookahead[slot] = int(limit[slot])
-            self._ensure_flush_pages(lookahead=lookahead)
-            for slot in range(self.slots):
-                if self.sched.active.get(slot) is None:
-                    limit[slot] = 0  # preempted while allocating: feeds nothing
-            if self.sched.active and self._table_dirty:
-                pg.set_page_tables(self.state["caches"], self._table)
-                self._table_dirty = False
+            if self.paged:
+                self._ensure_flush_pages(lookahead=lookahead)
+                for slot in range(self.slots):
+                    if self.sched.active.get(slot) is None:
+                        limit[slot] = 0  # preempted while allocating: feeds nothing
+                self._push_table()
         if not self.sched.active:  # everyone self-preempted under faults
             return False
 
@@ -645,8 +701,7 @@ class ServeEngine:
                         poison.add(slot)
             self.metrics.inc("steps")
             self.metrics.inc("spec_cycles")
-            # occupancy at the cycle peak: after admission, before release
-            self._occupancy.append(self.pool.occupancy)
+            self._note_occupancy()
             self._advance_spec(v, applied.astype(bool), finite.astype(bool), limit,
                                time.perf_counter() - t0, poison)
         if self.audit_every and self._cycle % self.audit_every == 0:
@@ -763,7 +818,7 @@ class ServeEngine:
         if self._runner is not None and req.slot is not None:
             # lagging in-flight steps of this slot are discarded at consumption
             self._runner.on_slot_cleared(req.slot)
-        if req.slot is not None:
+        if self.paged and req.slot is not None:
             self._table[req.slot, :] = req.slot
             self._table_dirty = True
         if (self.faults is not None and req.pages
@@ -827,8 +882,9 @@ class ServeEngine:
             # a still-lazy admission feed becomes a host value first
             self._runner.on_preempt(req)
         pending = req.pending_token if req.replay_left > 0 else int(self.tokens[slot, 0])
-        self._table[slot, :] = slot
-        self._table_dirty = True
+        if self.paged:
+            self._table[slot, :] = slot
+            self._table_dirty = True
         self.metrics.inc("preempted")
         self.metrics.inc("preempt_remat_tokens", len(req.out_tokens))
         if self.tracer is not None:
@@ -998,19 +1054,70 @@ class ServeEngine:
             self.sched.register_prefix(req, req.shared_pages + pages_per_req[r])
         return lazy
 
-    def _splice_side_state(self, dstate, slot_ids: list[int]) -> None:
+    def _splice_side_state(self, dstate, slot_ids: list[int]) -> set[str]:
         """Copy the declared side state (``PagedSpec.side_state``: the
-        hybrid's Mamba2 states) of the just-prefilled rows into their decode
-        slots, in place (prefill row ``r`` -> slot ``slot_ids[r]``), so the
-        captured graphs read it; the page table never sees it."""
+        hybrid's Mamba2 states, xLSTM's recurrent states) of the
+        just-prefilled rows into their decode slots, in place (prefill row
+        ``r`` -> slot ``slot_ids[r]``), so the captured graphs read it; the
+        page table never sees it.  Returns the top-level state keys it
+        covered (the shim splices the others itself)."""
         if not self.spec.side_state:
-            return
+            return set()
         dev = self.device
         sidx = upload(np.asarray(slot_ids, np.int64), dev)
         rows = torch.arange(len(slot_ids), device=dev)
         for path, bdim in self.spec.side_state:
             for dst, src in zip(tensors_at(self.state, path), tensors_at(dstate, path)):
                 dst.index_copy_(bdim, sidx, src.index_select(bdim, rows).to(dst.dtype))
+        return {path.split("/")[0] for path, _ in self.spec.side_state}
+
+    # ------------------------------------------------- exact-length shim
+
+    def _admit_exact(self, *, defer_first: bool = False) -> dict:
+        """The shim's admission: the pool-less scheduler's exact-length
+        groups, each request prefilled alone (:meth:`_fill_slot`).
+        ``defer_first`` as in :meth:`_admit_and_prefill`."""
+        with self._phase("schedule"):
+            groups = self.sched.admit()
+            if groups:
+                self._note_admissions(groups)
+        lazy: dict[int, tuple] = {}
+        for reqs in groups.values():
+            for req in reqs:
+                with self._phase("prefill"):
+                    lazy.update(self._fill_slot(req, defer_first=defer_first))
+        return lazy
+
+    def _fill_slot(self, req: Request, *, defer_first: bool = False) -> dict:
+        """One exact-length prefill at B 1, spliced into ``req``'s slot in
+        place: the declared side state on its batch axis, every other
+        tensor of the state on its own (axis 1 of the caches stacked ``(L,
+        B, ...)``, axis 0 of ``pos``)."""
+        i = req.slot
+        toks = upload(np.asarray(req.prompt, np.int64)[None], self.device)
+        logits, st = self.model.prefill(self.params, {"tokens": toks}, self.max_seq,
+                                        impl=self._impl, quant_impl=self._quant_impl)
+        handled = self._splice_side_state(st, [i])
+        rest = [k for k in self.state if k not in handled]
+        for dst, src in zip(_state_tensors({k: self.state[k] for k in rest}),
+                            _state_tensors({k: st[k] for k in rest})):
+            bdim = 0 if dst.dim() == 1 else 1
+            dst.select(bdim, i).copy_(src.select(bdim, 0))
+        lazy: dict[int, tuple] = {}
+        if defer_first:
+            # async runtime: read at the slot's first consumption boundary
+            lazy[i] = (DeviceTokens(logits[:, -1].argmax(-1)), 0)
+        else:
+            self.tokens[i, 0] = int(logits[0, -1].argmax())
+        self.metrics.inc("prefill_calls")
+        self.metrics.inc("prefill_tokens", req.prompt_len)
+        req.phase = Phase.DECODE
+        req.pos = req.prompt_len
+        req.admit_cycle = self._cycle
+        if self.tracer is not None:
+            self.tracer.end("prefill", uid=req.uid, cat="request")
+            self.tracer.begin("decode", uid=req.uid, cat="request")
+        return lazy
 
     def _ensure_flush_pages(self, pos_of=None, lookahead: dict[int, int] | None = None) -> None:
         """Allocate the destination page of every row whose residual fills on

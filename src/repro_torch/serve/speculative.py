@@ -10,8 +10,10 @@ passes over the engine's decode state exploit it:
   its top ``spec_bits`` bits (the decode kernels' ``draft_bits``), appends
   residual-only into the pass's own copy of the residuals, ``res_len`` and
   ``pos`` (``qcache.widen_residual`` / ``draft_append``), and the recurrent
-  side state (the hybrid's Mamba2 states) advanced in the pass's own copy.
-  No second model, no second table, no pool write.
+  side state (the hybrid's Mamba2 states, xLSTM's states) advanced in the
+  pass's own copy.  No second model, no second table, no pool write.  Over
+  the exact-length shim's dense caches the same holds, the packed blocks
+  read in place of the pools.
 * **verify** (:class:`VerifyPass`): ``spec_k`` full-fidelity decode steps
   over the ``[B, spec_k]`` feed matrix, written in place into the engine's
   state, with a per-row alive mask that freezes a row's cache (the append
@@ -37,7 +39,7 @@ import torch
 
 from repro_torch.core import qcache
 from repro_torch.kernels.bitdecode.ops import RES_TOKENS
-from repro_torch.models.family import tensors_at
+from repro_torch.models.family import get_path, set_path, tensors_at
 from repro_torch.serve.async_runtime import CapturedPass
 
 
@@ -53,7 +55,8 @@ def freeze_dead_lanes(state, st_new, saved: dict, alive, side_state) -> None:
     side-state path (``saved``: its values before the step).  The cache
     appends are masked in the step itself; this covers what the model
     updates unconditionally (``saved[path]``: the path's tensors in
-    ``tensors_at`` order).  Attention models declare no side state."""
+    ``tensors_at`` order).  Attention models declare no side state; xLSTM's
+    is all its state."""
     state["pos"].copy_(torch.where(alive, st_new["pos"], state["pos"]))
     for path, bdim in side_state:
         for dst, new, old in zip(tensors_at(state, path), tensors_at(st_new, path), saved[path]):
@@ -65,14 +68,15 @@ class DraftPass(CapturedPass):
     ``[B]``, the token each row feeds this cycle), :meth:`replay`, read
     :attr:`drafts` (int32 ``[B, spec_k - 1]``).
 
-    Its state (:attr:`dstate`) shares the engine's pools, ``pack_blocks``
-    and page table (read only) and owns residuals widened by ``spec_k - 1``
-    tokens, rounded up to the decode kernel's residual unit
-    (``RES_TOKENS``), plus ``res_len``, ``pos`` and a copy of every
-    ``side_state`` path (the hybrid's Mamba2 states, which a decode step
-    advances in place); each run starts by copying the engine's into them,
-    so the engine's state is never written.  Rows that are not decoding
-    draft garbage the engine ignores."""
+    Its state (:attr:`dstate`) shares the engine's pools (or the shim's
+    dense packed blocks), ``pack_blocks`` and page table (read only) and
+    owns residuals widened by ``spec_k - 1`` tokens, rounded up to the
+    decode kernel's residual unit (``RES_TOKENS``), plus ``res_len``,
+    ``pos`` and a copy of every ``side_state`` path (the hybrid's Mamba2
+    states, xLSTM's states, which a decode step advances in place); each
+    run starts by copying the engine's into them, so the engine's state is
+    never written.  Rows that are not decoding draft garbage the engine
+    ignores."""
 
     what = "the draft pass"
 
@@ -89,27 +93,29 @@ class DraftPass(CapturedPass):
         b = pos.shape[0]
         self.tok0 = torch.zeros((b,), dtype=torch.int32, device=pos.device)
         self.drafts = torch.zeros((b, self.steps), dtype=torch.int32, device=pos.device)
-        caches = [dataclasses.replace(qcache.widen_residual(c, self.steps, multiple=RES_TOKENS),
-                                      res_len=c.res_len.clone())
-                  for c in state["caches"]]
+        self.dstate = {"pos": pos.clone()}
+        if "caches" in state:  # xLSTM has none
+            self.dstate["caches"] = [
+                dataclasses.replace(qcache.widen_residual(c, self.steps, multiple=RES_TOKENS),
+                                    res_len=c.res_len.clone())
+                for c in state["caches"]]
         self.side = tuple(path for path, _ in spec.side_state)
-        self.dstate = {"caches": caches, "pos": pos.clone()}
-        for path in self.side:  # top-level paths (HybridLM's "ssm_main", "ssm_tail")
-            node = state[path]
-            self.dstate[path] = ({k: v.clone() for k, v in node.items()}
-                                 if isinstance(node, dict) else node.clone())
+        for path in self.side:  # HybridLM's "ssm_main", XLSTMLM's "blocks/mlstm", ...
+            node = get_path(state, path)
+            set_path(self.dstate, path, {k: v.clone() for k, v in node.items()}
+                     if isinstance(node, dict) else node.clone())
         self.capture()
 
     def _buffers(self) -> list[torch.Tensor]:
         own = [self.tok0, self.drafts, self.dstate["pos"]]
-        for c in self.dstate["caches"]:
+        for c in self.dstate.get("caches", ()):
             own += [t for t in (c.k_res, c.v_res, c.res_len) if t is not None]
         for path in self.side:
             own += tensors_at(self.dstate, path)
         return own
 
     def _body(self) -> None:
-        for dc, c in zip(self.dstate["caches"], self.state["caches"]):
+        for dc, c in zip(self.dstate.get("caches", ()), self.state.get("caches", ())):
             n = c.k_res.shape[-2]
             dc.k_res[..., :n, :].copy_(c.k_res)
             if c.v_res is not None:  # shared_kv: K's residual alone

@@ -24,7 +24,12 @@ to the eager one (Mamba2 states included) and its engines (async, spec)
 against the sequential one; K6's full mode at S != T (cross attention) and
 the seamless (encoder-decoder) and qwen2-vl (VLM stub, M-RoPE) smoke models
 on the kernels against their plain versions, the engine refusing both
-(``-k "encdec or vlm or cross"``).  The plain versions are
+(``-k "encdec or vlm or cross"``); the xLSTM smoke model's captured step bit
+for bit equal to the eager one, its chunkwise prefill against the
+sequential one, and the exact-length shim's engines (llama3-8b forced to
+it, and xLSTM) on the async runtime and by self-speculation against the
+sync one, no plain version called (``-k "xlstm or shim"``).  The plain
+versions are
 held against the JAX package in test_torch_kernels.py, test_torch_paged.py
 and test_torch_flash_prefill.py.
 """
@@ -1758,3 +1763,139 @@ def test_hybrid_engines_equal_sequential_on_the_card(cuda, mode):
     else:
         assert eng._runner.step_fn.replays == eng._runner.dispatched > 0
     assert eng.pool.n_free == eng.pool.capacity
+
+
+# --------------------------------------------------------------------------
+# the recurrent xLSTM family and the engine's exact-length shim
+# (``-k "xlstm or shim"``)
+# --------------------------------------------------------------------------
+
+# the plain versions of the kernels: none may run on the shim's kernel path
+_PLAIN_VERSIONS = (
+    ("repro_torch.kernels.kv_quant.ref", ("quantize_kv_ref", "quantize_kv_pair_ref")),
+    ("repro_torch.kernels.residual_flush.ref", ("residual_flush_ref", "append_flush_ref")),
+    ("repro_torch.kernels.bitdecode.ref", ("bitdecode_attention_ref", "merge_partials")),
+    ("repro_torch.kernels.flash_prefill.ref", ("flash_prefill_ref",)),
+    ("repro_torch.core.attention", ("blockwise_attention_plain",)),
+)
+
+
+def _count_plain(monkeypatch) -> dict:
+    """Count every call of a kernel's plain version from now on."""
+    import importlib
+
+    seen: dict = {}
+    for mod_name, names in _PLAIN_VERSIONS:
+        mod = importlib.import_module(mod_name)
+        for n in names:
+            fn = getattr(mod, n)
+
+            def counted(*a, _n=n, _fn=fn, **kw):
+                seen[_n] = seen.get(_n, 0) + 1
+                return _fn(*a, **kw)
+
+            monkeypatch.setattr(mod, n, counted)
+    return seen
+
+
+def _xlstm_smoke(**change):
+    """The xlstm smoke model (2 super-blocks of 1 mLSTM + 1 sLSTM, d 64)
+    and its parameters on the card."""
+    model = build_model(smoke_config("xlstm-1.3b").with_(**change))
+    return model, model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+
+def _xlstm_fields(state) -> list:
+    """Every tensor of an xLSTM decode state."""
+    return [t for kind in ("mlstm", "slstm") for t in state["blocks"][kind].values()] + [
+        state["pos"]]
+
+
+def test_captured_xlstm_step_equals_eager_bitwise(cuda):
+    """40 replays of the xLSTM smoke model's captured step against 40
+    eager steps fed the same tokens, from a 40-token prefill of 3 rows:
+    every recurrent state bit for bit after every step (the step updates
+    them in place, so the graph advances them); capture leaves the state as
+    it found it and records no kernel launch (no KV cache)."""
+    from repro_torch.serve.async_runtime import CapturedDecodeStep
+
+    model, params = _xlstm_smoke()
+    tokens = torch.randint(0, model.cfg.vocab, (3, 40), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(4))
+    with torch.no_grad():
+        eager, graphed = (model.prefill(params, {"tokens": tokens})[1] for _ in range(2))
+        before = [t.clone() for t in _xlstm_fields(graphed)]
+        step = CapturedDecodeStep(model, params, graphed)
+        for a, b in zip(_xlstm_fields(graphed), before):
+            assert torch.equal(a, b)
+        assert step.graph is not None and not step.capture_launches
+        feed = torch.zeros((3, 1), dtype=torch.int32, device=cuda)
+        step.tokens.copy_(feed)
+        for i in range(40):
+            logits, eager = model.decode_step(params, eager, feed)
+            step.replay()
+            want = logits[:, 0].argmax(-1).to(torch.int32)
+            assert torch.equal(step.nxt, want), i
+            for a, b in zip(_xlstm_fields(eager), _xlstm_fields(graphed)):
+                assert torch.equal(a, b), f"step {i}"
+            feed = want[:, None]
+    assert not torch.equal(graphed["blocks"]["mlstm"]["C"], before[0])  # the states advanced
+
+
+def test_xlstm_chunkwise_prefill_on_the_card(cuda):
+    """The chunkwise mLSTM prefill (``xlstm_chunkwise``, chunk 64) against
+    the sequential one on the card, two 128-token prompts: the last logits
+    within rtol 2e-2 / atol 3e-1, the states within 2e-2 in relative
+    norm."""
+    model, params = _xlstm_smoke()
+    chunked = build_model(model.cfg.with_(xlstm_chunkwise=True))
+    tokens = torch.randint(0, model.cfg.vocab, (2, 128), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(5))
+    with torch.no_grad():
+        (ls, ss), (lc, sc) = (m.prefill(params, {"tokens": tokens}) for m in (model, chunked))
+    torch.testing.assert_close(lc, ls, rtol=2e-2, atol=3e-1)
+    for a, b in zip(_xlstm_fields(sc)[:-1], _xlstm_fields(ss)[:-1]):
+        assert float((a - b).norm() / b.norm().clamp_min(1e-30)) < 2e-2
+
+
+@pytest.mark.parametrize("mode", ["async", "spec", "spec_async"])
+@pytest.mark.parametrize("family", ["attn", "xlstm"])
+def test_shim_engines_equal_sequential_on_the_card(cuda, monkeypatch, family, mode):
+    """The exact-length shim on the card: the llama3-8b smoke model forced
+    to it (``paged=False``: one B 1 prefill a request through flash_prefill
+    and kv_quant, the dense caches appended by residual_flush and read by
+    bitdecode) and the xLSTM smoke model, on the async runtime, by
+    self-speculation (``spec_k = 4``, drafts at 2 bits: the draft reads the
+    dense cache at 2 bits, the verify pass appends with the row mask) and
+    both: streams and phases bit for bit the sync engine's, each decode
+    step or pass one graph replay, and no plain version of a kernel
+    called."""
+    if family == "attn":
+        model = build_model(smoke_config("llama3-8b").with_(kv_block=32))
+        params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    else:
+        model, params = _xlstm_smoke()
+    kw = dict(slots=3, max_seq=192, audit_every=1, paged=False)
+    spec = dict(spec_k=4, spec_bits=2) if mode.startswith("spec") else {}
+    plain = _count_plain(monkeypatch)
+    with torch.no_grad():
+        _build.launches.clear()
+        want = _drive(ServeEngine(model, params, **kw), _gpu_workload(model.cfg))
+        sync_launches = dict(_build.launches)
+        eng = ServeEngine(model, params, async_runtime=mode.endswith("async"), **spec, **kw)
+        got = _drive(eng, _gpu_workload(model.cfg))
+    assert got == want and not plain, plain
+    assert not eng.paged and eng.pool is None
+    if family == "attn":
+        assert min(sync_launches.get(k, 0) for k in ("kv_quant", "flash_prefill",
+                                                     "residual_flush", "bitdecode")) > 0
+        assert not any(k.startswith("paged_") for k in sync_launches), sync_launches
+    else:
+        assert not sync_launches
+    if spec:
+        assert eng._draft.graph is not None and eng._verify.graph is not None
+        assert eng._verify.replays == eng.stats["spec_cycles"] > 0
+        if family == "xlstm":
+            assert eng.stats["spec_rejected_tokens"] == 0
+    else:
+        assert eng._runner.step_fn.replays == eng._runner.dispatched > 0

@@ -81,7 +81,7 @@ def test_quant_params_float16_bitwise():
 
 @pytest.mark.parametrize("name", ["llama3-8b", "llama2-7b", "gemma-7b", "starcoder2-3b",
                                   "command-r-35b", "qwen3-moe-235b-a22b",
-                                  "deepseek-v3-671b", "zamba2-7b"])
+                                  "deepseek-v3-671b", "zamba2-7b", "xlstm-1.3b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_copy_matches_jax(name, smoke):
     get_t = tconfigs.smoke_config if smoke else tconfigs.get_config

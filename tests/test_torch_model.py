@@ -15,6 +15,7 @@ from repro_torch.configs import smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.core import qcache as tq
 from repro_torch.models.params import leaves
+from repro_torch.models.transformer import XLSTMLM
 from repro_torch.models.zoo import build_model
 
 MAX_SEQ, PROMPT, STEPS = 256, 48, 20
@@ -121,9 +122,22 @@ def test_random_init_matches_jax_shapes_and_scales():
                                           ("llama3-8b", dict(rope=False))])
 def test_unported_families_raise(arch, change):
     """What the port does not carry yet raises, the hybrid's shared block
-    included (``HybridLM`` runs the same refusals)."""
+    included (``HybridLM`` runs the same refusals).  ``mixer="xlstm"`` is
+    ported: it builds ``XLSTMLM`` (here with no mLSTM block a super-block),
+    which prefills and decodes."""
+    cfg = smoke_config(arch).with_(**change)
+    if cfg.mixer == "xlstm":
+        m = build_model(cfg)
+        assert isinstance(m, XLSTMLM) and m.n_super == cfg.n_layers
+        params = m.init(torch.Generator().manual_seed(0), "cpu")
+        with torch.no_grad():
+            logits, st = m.prefill(params, {"tokens": torch.arange(5)[None]})
+            logits, st = m.decode_step(params, st, logits[:, -1].argmax(-1)[:, None])
+        assert logits.shape == (1, 1, cfg.padded_vocab) and st["pos"].tolist() == [6]
+        assert bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(smoke_config(arch).with_(**change))
+        build_model(cfg)
 
 
 def test_suffix_prefill_raises():

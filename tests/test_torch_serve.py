@@ -352,7 +352,20 @@ def test_cow_pair_equals_solo_runs(small_model):
                                 dict(mesh=object()), dict(splitkv="always"),
                                 dict(page_affine=True), dict(paged=False)])
 def test_unported_options_raise(small_model, kw):
-    _, model, params = small_model
+    """The mesh, the split-KV routing and page-affine pools raise (ROADMAP
+    A11); ``paged=False``, the exact-length shim, is ported and serves
+    (its streams against the paged engine's: tests/test_torch_xlstm.py)."""
+    cfg, model, params = small_model
+    if kw == dict(paged=False):
+        engine = _engine(model, params, **kw)
+        assert not engine.paged and engine.pool is None
+        req = Request(uid=0, prompt=np.arange(20, dtype=np.int32) % cfg.vocab,
+                      max_new_tokens=3)
+        engine.submit(req)
+        summary = engine.run()
+        assert req.done and req.pos == 23 and summary["prefill_calls"] == 1
+        assert "kv_page_bytes" not in summary
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _engine(model, params, **kw)
 
