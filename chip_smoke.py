@@ -81,7 +81,15 @@ Phases:
      S > T (2,048 over 512), S < 16, T < one KV tile and d 256, and through
      ``blockwise_attention(causal=False)``, causal at S != T refused;
      bitdecode at qwen2-vl-7b's g 7 and at the static cross read (g 1, d 64,
-     32 blocks, an empty residual);
+     32 blocks, an empty residual); the split-KV modes at llama3-8b's decode
+     shape over 4 ranks' windows: bitdecode's block window and
+     paged_bitdecode's column window with ``page_lo`` (page-affine pools)
+     bit for bit the same kernel over a contiguous copy of the window, the
+     windows' partials merged within out 2e-2 of the whole call, and
+     paged_residual_flush's page range over 261 steps (pages outside a
+     range unchanged, inside bit for bit the whole pool's, residuals and
+     lengths equal, the plain version bit for bit), each window timed beside
+     the whole call;
   3. the dense path end to end: llama3-8b at full width and depth (32
      layers, random bf16 weights from a seeded torch.Generator), 4 ragged
      prompts prefilled (flash_prefill) into the 4-bit cache, 160 greedy
@@ -114,7 +122,11 @@ Phases:
      terminal phases bit for bit equal to (a)'s, the spec counters
      conserved, tokens/s, TTFT, TPOT, cycles, spec_accept_rate and ms a
      draft and a verify replay (CUDA events) beside (a)'s and (e)'s; every
-     run audited every cycle; then
+     run audited every cycle; (l) and (m): run (e) with a one-rank NCCL
+     mesh and ``splitkv="always"``, (m) with page-affine pools as well:
+     every decode step the captured split-KV step (its all-gather and the
+     cross-rank merge in the graph), token streams and terminal phases bit
+     for bit run (e)'s, no plain version called; then
      three engine cycles of four decoding slots under the profiler, as in
      phase 3.  Launches of a captured step or pass are counted at the
      capture: a path's count is the capture's count times the replays;
@@ -193,11 +205,12 @@ Phases:
   12. (A) xlstm-1.3b at full width and depth (48 blocks: 6 super-blocks of
      7 mLSTM + 1 sLSTM, d 2,048, 4 heads of 512, vocab 50,304; ~1.24 B
      parameters): B 4 prompts of 1,024 tokens prefilled through the
-     config's sequential recurrence and through the chunkwise mLSTM (block
-     0's output within rtol 2e-2 / atol 3e-1 and its state within 1e-3; at
-     full depth the last logits' and the states' gaps no larger than a
-     rounding witness's: random weights amplify rounding from block to
-     block), 64 greedy decode steps eager and as replays of the captured
+     chunkwise mLSTM, and their first 512 tokens through the config's
+     sequential recurrence and the chunkwise mLSTM (block 0's output within
+     rtol 2e-2 / atol 3e-1 and its state within 1e-3; at full depth the last
+     logits' and the states' gaps no larger than a rounding witness's:
+     random weights amplify rounding from block to block), from the
+     1,024-token state 64 greedy decode steps eager and as replays of the captured
      step, bit for bit equal, one eager step by part (mLSTM blocks, sLSTM
      blocks, unembed, the rest) beside its bound; then the engine's
      exact-length shim on eight requests of 128-512 tokens (whole 64-token
@@ -216,7 +229,23 @@ Phases:
      streams greedy agreement with the paged engine (no prefix sharing) of
      at least 0.9;
   then ``repro_torch.launch.serve --async-runtime`` once at the smoke width;
-  13. a JSON line per kernel, the card's name and power limit, and the
+  13. split-KV across 4 ranks that share the card on gloo (the script
+     started again once a rank, ``--rank r``; NCCL takes one rank a card):
+     (A) llama3-8b's decode shape at the paper's long context (B 1, H_kv 8,
+     g 4, d 128, 131,072 tokens: 1,024 blocks, ~128 MB of 4-bit K+V, a row
+     whose blocks end before the last rank's window), each rank bitdecode
+     over its window and paged_bitdecode over its column slice of rank-local
+     page-affine pools, merged across the ranks within out 2e-2 of one
+     unsplit call, every rank's bits the same, each rank's window timed
+     alone beside the whole call; (B) llama3-8b at full width cut to 2
+     layers, the JAX package's page-affine serving schedule at kv_block 128
+     (a donor, a mid-block prefix of it copied on write, a prompt served
+     twice: a retained prefix hit), eager and sync: page-affine streams
+     bit for bit the replicated-pool split walk's, the short requests the
+     unsplit engine's (a near tie may turn one), one copy on write, split
+     steps, four pool shards of a quarter of the pages each, every rank's
+     streams and free lists rank 0's; a rank that fails fails the script;
+  14. a JSON line per kernel, the card's name and power limit, and the
      result line.
 
 Every kernel run (the dense loops' kernel runs, every serve run) counts the
@@ -362,6 +391,10 @@ CROSS_PB, CROSS_RL = [4096 // BLOCK_N] * 4, [0] * 4
 # prefill takes the chunkwise mLSTM (the config's ``xlstm_chunkwise``)
 XLSTM = "xlstm-1.3b"
 XLSTM_PROMPT, XLSTM_STEPS = 1024, 64
+# the sequential prefill's prompts (and its comparison with a chunkwise one of
+# the same tokens): the first 512 of the 1,024, for the script's time (phase
+# 13 came); the chunkwise 1,024-token prefill and the decode from it stay
+XLSTM_SEQ_PROMPT = 512
 XLSTM_PARTS = ("mlstm_layer", "slstm_layer")  # XLSTMLM's methods, timed by name
 XLSTM_MAX_SEQ = 1024
 # the chunkwise prefill is exact in exact arithmetic and sums in another order
@@ -1878,7 +1911,8 @@ def serve_phase(model, params, cfg, check, dev, names="abcefgh", profile_replay=
         | {"peak_gib": r["peak"], "launches": r["launches"],
            "replay_profile": r["summary"].get("replay_profile")} for n, r in runs.items()}
     out = {"launches": launches, "async_launches": async_launches,
-           "spec_launches": spec_launches, "report": report}
+           "spec_launches": spec_launches, "report": report,
+           "streams": {n: (r["out"], r["phases"]) for n, r in runs.items()}}
     if "a" not in runs:
         return out
     a = runs["a"]
@@ -2148,10 +2182,11 @@ def _rel_gaps(a: dict, b: dict) -> dict:
 
 def xlstm_phase(model, params, cfg, check, dev) -> dict:
     """Phase 12 (A), the dense loop of xlstm-1.3b: B 4 prompts of
-    :data:`XLSTM_PROMPT` tokens prefilled through the config's sequential
-    recurrence and through the chunkwise mLSTM: block 0's output within
-    rtol 2e-2 / atol 3e-1 and its state within 1e-3 in relative norm; at
-    full depth the last logits' and every state's gap at most
+    :data:`XLSTM_PROMPT` tokens prefilled through the chunkwise mLSTM, and
+    their first :data:`XLSTM_SEQ_PROMPT` tokens through the config's
+    sequential recurrence and through the chunkwise mLSTM: block 0's output
+    within rtol 2e-2 / atol 3e-1 and its state within 1e-3 in relative
+    norm; at full depth the last logits' and every state's gap at most
     :data:`XLSTM_SPREAD` times the rounding witness's (the chunkwise form
     on the input with every 101st element one bf16 ulp up); then
     :data:`XLSTM_STEPS` greedy decode steps from the chunkwise state, eager
@@ -2184,11 +2219,14 @@ def xlstm_phase(model, params, cfg, check, dev) -> dict:
         del lg, st
         torch.cuda.reset_peak_memory_stats()
         _build.launches.clear()
+        short = tokens[:, :XLSTM_SEQ_PROMPT]
         with plain_calls() as plain:
-            (lg_s, st_s), t_seq = timed(lambda: model.prefill(params, {"tokens": tokens}))
+            (lg_s, st_s), t_seq = timed(lambda: model.prefill(params, {"tokens": short}))
+            (lg_cs, st_cs), t_chunk_short = timed(lambda: chunked.prefill(params,
+                                                                          {"tokens": short}))
             (lg_c, st_c), t_chunk = timed(lambda: chunked.prefill(params, {"tokens": tokens}))
-            lg_w, st_w = _xlstm_prefill(chunked, params, tokens, perturb=True)
-            (o0_s, s0_s), (o0_c, s0_c) = (_xlstm_prefill(m, params, tokens, block0=True)
+            lg_w, st_w = _xlstm_prefill(chunked, params, short, perturb=True)
+            (o0_s, s0_s), (o0_c, s0_c) = (_xlstm_prefill(m, params, short, block0=True)
                                           for m in (model, chunked))
             eager, graphed = _clone_tree(st_c), _clone_tree(st_c)
             tok, want = lg_c[:, -1].argmax(-1)[:, None], []
@@ -2216,7 +2254,7 @@ def xlstm_phase(model, params, cfg, check, dev) -> dict:
             _, t_graph = timed(replays)
         launches = dict(_build.launches)
         peak = torch.cuda.max_memory_allocated() / 2**30
-    err = (lg_c - lg_s).abs().max().item()
+    err = (lg_cs - lg_s).abs().max().item()
     check(bool(torch.isfinite(lg_c).all()) and lg_c.shape == (b, 1, cfg.padded_vocab),
           f"{name}: prefill logits finite, shaped (the vocab padded to {cfg.padded_vocab})")
     err0, gaps0 = (o0_c - o0_s).abs().max().item(), _rel_gaps(s0_c, s0_s)
@@ -2224,15 +2262,16 @@ def xlstm_phase(model, params, cfg, check, dev) -> dict:
           f"{name}: block 0's chunkwise output within rtol 2e-2 / atol 3e-1 of the sequential "
           f"one's (max |d| {err0:.3e}), its state within 1e-3 in relative norm ("
           + ", ".join(f"{k} {v:.2e}" for k, v in gaps0.items()) + ")")
-    gaps, wit = _rel_gaps(st_c["blocks"], st_s["blocks"]), _rel_gaps(st_w, st_c["blocks"])
-    err_w = (lg_w - lg_c).abs().max().item()
+    gaps, wit = _rel_gaps(st_cs["blocks"], st_s["blocks"]), _rel_gaps(st_w, st_cs["blocks"])
+    err_w = (lg_w - lg_cs).abs().max().item()
     check(err <= XLSTM_SPREAD * err_w and all(g <= XLSTM_SPREAD * wit[k] for k, g in gaps.items()),
           f"{name}: at full depth the chunkwise prefill departs from the sequential one (last "
           f"logits max |d| {err:.3f}; states " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
           + f") at most {XLSTM_SPREAD:g}x as far as the rounding witness does (max |d| "
           f"{err_w:.3f}; " + ", ".join(f"{k} {v:.2e}" for k, v in wit.items()) + ")")
-    log(f"  {name} prefill of B {b} x {XLSTM_PROMPT} tokens: sequential {t_seq:.2f} s, "
-        f"chunkwise {t_chunk:.2f} s")
+    log(f"  {name} prefill of B {b} x {XLSTM_SEQ_PROMPT} tokens: sequential {t_seq:.2f} s, "
+        f"chunkwise {t_chunk_short:.2f} s; of B {b} x {XLSTM_PROMPT} tokens: chunkwise "
+        f"{t_chunk:.2f} s")
     same = [bitwise(a, c) for kind in ("mlstm", "slstm")
             for a, c in zip(eager["blocks"][kind].values(), graphed["blocks"][kind].values())]
     check(torch.equal(torch.stack(got), torch.stack(want)) and all(same)
@@ -2247,7 +2286,8 @@ def xlstm_phase(model, params, cfg, check, dev) -> dict:
         f"{t_graph / steps * 1e3:.2f} ms/step (capture with warm-up {t_capture:.2f} s); peak "
         f"device memory {peak:.2f} GiB")
     prof = xlstm_step_profile(chunked, params, cfg, eager, lg_e[:, -1])
-    return {"prefill_s": {"sequential": t_seq, "chunkwise": t_chunk},
+    return {"prefill_s": {"sequential": t_seq, "chunkwise_short": t_chunk_short,
+                          "chunkwise": t_chunk, "sequential_prompt_len": XLSTM_SEQ_PROMPT},
             "chunkwise_vs_sequential": {"max_abs_dlogit": err, "state_rel_gap": gaps,
                                         "block0_max_abs_d": err0, "block0_state_rel_gap": gaps0},
             "rounding_witness": {"max_abs_dlogit": err_w, "state_rel_gap": wit},
@@ -2440,6 +2480,638 @@ def serve_cli(check) -> dict:
                                   "host_stall_fraction", "discarded_steps")}
 
 
+# ------------------------------------------------------------------ split-KV
+SPLIT_RANKS = 4  # phase 2's windows and phase 13: the ranks of one split-KV walk
+# phase 13 (A): llama3-8b's decode shape at the paper's long context, one row
+# whose blocks end before the last rank's window (that rank reads the
+# residual alone)
+LONG_TOKENS, LONG_PB, LONG_RL = 131_072, [700], [77]
+# phase 13 (B): the engine on four ranks, llama3-8b cut to 2 layers
+SPLIT_ENGINE_LAYERS = 2
+# phase 13's ranks start before phase 12 (B) (their imports and process
+# group set up meanwhile) and wait at most this long for the go
+SPLIT_RANKS_WAIT_S = 900
+
+
+def splitkv_kernel_phase(check, stats, dev, gen, time_ms) -> None:
+    """Phase 2's split-KV checks at llama3-8b's decode shapes (B 4, H_kv 8,
+    g 4, d 128): K3's block window and K4's column window with ``page_lo``
+    over SPLIT_RANKS ranks' windows against the same kernel over a
+    contiguous copy of the window, bit for bit (rank 3's window holds no
+    valid block of row 0); the four windows' partials merged against the
+    whole call; K5's page range over a guard-filled pool (pages outside the
+    range unchanged, pages inside bit for bit the whole pool's, residuals
+    and lengths equal, the plain version bit for bit on one range); then
+    the windowed calls timed beside the whole ones."""
+    import torch
+
+    from repro_torch.kernels.bitdecode import ops as bd_ops
+    from repro_torch.kernels.kv_quant import ops as kq_ops
+    from repro_torch.kernels.paged_bitdecode import ops as pg_ops
+    from repro_torch.kernels.residual_flush import ops as rf_ops
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def ints(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    b, h, g, d, bn, n = 4, 8, 4, 128, BLOCK_N, SPLIT_RANKS
+    nb = -(-(max(PROMPT_LENS) + DECODE_STEPS) // bn)  # the dense loop's cache: 18 blocks
+    nb_local = -(-nb // n)
+    pb, rl = [14, 15, 16, 16], [108, 80, 2, 52]
+    v_off = 2.0 * torch.randn(d, generator=gen, device=dev)
+    packed = [*kq_ops.quantize_kv(randn(b, h, nb * bn, d), BITS, "channel", block_n=bn),
+              *kq_ops.quantize_kv((randn(b, h, nb * bn, d) + v_off).to(torch.bfloat16), BITS,
+                                  "tensor", block_n=bn)]
+    q, res = randn(b, h, g, d), [randn(b, h, bn, d), (randn(b, h, bn, d) + v_off).to(
+        torch.bfloat16)]
+    pbt, rlt = ints(pb), ints(rl)
+    kw = dict(bits=BITS, block_n=bn, k_gran="channel", return_lse=True, impl="cuda")
+
+    def window_copy(arrays, lo):
+        hi = min(nb, lo + nb_local)
+        return [torch.cat([x[:, :, lo:hi], torch.zeros_like(x[:, :, :lo + nb_local - hi])],
+                          dim=2).contiguous() for x in arrays]
+
+    parts, same = [], []
+    for r in range(n):
+        lo, last = r * nb_local, r == n - 1
+        got = bd_ops.bitdecode_attention(q, *packed, *res, pbt, rlt, block_lo=lo,
+                                         n_blocks=nb_local, read_res=last, **kw)
+        want = bd_ops.bitdecode_attention(q, *window_copy(packed, lo), *res,
+                                          torch.clamp(pbt - lo, 0, nb_local),
+                                          rlt if last else torch.zeros_like(rlt), **kw)
+        same.append(bitwise(got[0], want[0]) and bitwise(got[1], want[1]))
+        parts.append(got)
+    check(all(same), f"bitdecode's block window over {n} ranks' windows of {nb} blocks equals "
+                     f"the call over a contiguous copy bit for bit ({same})")
+    merged = bd_ops.merge_cuda(torch.stack([p[0] for p in parts]),
+                               torch.stack([p[1] for p in parts]))[0]
+    whole = bd_ops.bitdecode_attention(q, *packed, *res, pbt, rlt, **kw)
+    err = (merged - whole[0]).abs().max().item()
+    check(torch.allclose(merged, whole[0], rtol=2e-2, atol=2e-2),
+          f"bitdecode: the {n} windows' partials merged equal the whole call within out 2e-2 "
+          f"(max |d| {err:.2e})")
+
+    # K4: page-affine pools, column j of row b in page j * B + b (shard j // nb_local)
+    nb_al = nb_local * n
+    full = [torch.cat([x, torch.zeros_like(x[:, :, :nb_al - nb])], dim=2) for x in packed]
+    pool = [x.movedim(2, 0).reshape(nb_al * b, *x.shape[1:2], *x.shape[3:]).contiguous()
+            for x in full]  # page j * b + row
+    table = (torch.arange(nb_al, device=dev)[None] * b + torch.arange(b, device=dev)[:, None]
+             ).to(torch.int32)
+    pp = nb_al * b // n
+    same = []
+    for r in range(n):
+        lo, last, page_lo = r * nb_local, r == n - 1, r * pp
+        local = [x[page_lo:page_lo + pp] for x in pool]
+        got = pg_ops.paged_bitdecode_attention(q, *local, *res, table, pbt, rlt, block_lo=lo,
+                                               n_blocks=nb_local, read_res=last,
+                                               page_lo=page_lo, **kw)
+        sub = torch.clamp(table[:, lo:lo + nb_local] - page_lo, 0, pp - 1).to(
+            torch.int32).contiguous()
+        want = pg_ops.paged_bitdecode_attention(
+            q, *[x.clone() for x in local], *res, sub, torch.clamp(pbt - lo, 0, nb_local),
+            rlt if last else torch.zeros_like(rlt), **kw)
+        same.append(bitwise(got[0], want[0]) and bitwise(got[1], want[1]))
+    check(all(same), f"paged_bitdecode's column window and page_lo over {n} ranks' page-affine "
+                     f"pools equal the call over a copy of the sliced table bit for bit ({same})")
+
+    # K5: the page range over a guard-filled pool, against the whole pool
+    pages = nb_al * b
+    guard = [torch.randint(-2**30, 2**30, x.shape, generator=gen, device=dev, dtype=x.dtype)
+             if x.dtype == torch.int32 else randn(*x.shape) for x in pool]
+    whole_a = [x.clone() for x in guard]
+    ranged = [[x.clone() for x in guard] for _ in range(n)]
+    plain = [x[pp:2 * pp].clone() for x in guard]
+    res0 = [randn(b, h, bn, d) for _ in range(2)]
+    start = [ints(pb), ints([5, 77, 120, 126])]
+
+    def lens():
+        return [x.clone() for x in start] + [ints([0] * b)]
+
+    whole_l, ranged_l = lens(), [lens() for _ in range(n)]
+    whole_r, ranged_r = [x.clone() for x in res0], [[x.clone() for x in res0] for _ in range(n)]
+    plain_l, plain_r = lens(), [x.clone() for x in res0]
+    fkw = dict(bits=BITS, block_n=bn, k_gran="channel")
+    ok = True
+    for step in range(2 * bn + 5):
+        k_new, v_new = randn(b, 1, h, d).transpose(1, 2), randn(b, 1, h, d).transpose(1, 2)
+        rf_ops.paged_append_flush(*whole_a, *whole_r, k_new, v_new, table, *whole_l,
+                                  impl="cuda", **fkw)
+        for r in range(n):
+            rf_ops.paged_append_flush(*[x[r * pp:(r + 1) * pp] for x in ranged[r]],
+                                      *ranged_r[r], k_new, v_new, table, *ranged_l[r],
+                                      impl="cuda", page_lo=r * pp, pages_total=pages, **fkw)
+        rf_ops.paged_append_flush(*plain, *plain_r, k_new, v_new, table, *plain_l,
+                                  impl="torch", page_lo=pp, pages_total=pages, **fkw)
+        for r in range(n):
+            inside = slice(r * pp, (r + 1) * pp)
+            ok &= all(bitwise(x[inside], y[inside]) for x, y in zip(ranged[r], whole_a))
+            ok &= all(bitwise(torch.cat([x[:inside.start], x[inside.stop:]]),
+                              torch.cat([y[:inside.start], y[inside.stop:]]))
+                      for x, y in zip(ranged[r], guard))
+            ok &= all(bitwise(x, y) for x, y in zip(ranged_r[r] + ranged_l[r],
+                                                     whole_r + whole_l))
+        ok &= all(bitwise(x, y[pp:2 * pp]) for x, y in zip(plain, ranged[1]))
+        ok &= all(bitwise(x, y) for x, y in zip(plain_r + plain_l, whole_r + whole_l))
+    flushed = (whole_l[0] - start[0]).tolist()
+    check(ok and min(flushed) >= 2, f"paged_residual_flush's page range over {n} ranges of "
+          f"{pp} pages: inside bit for bit the whole pool's, outside unchanged, residuals and "
+          f"lengths equal, the plain version bit for bit, {2 * bn + 5} steps (flushes {flushed})")
+
+    # the windowed calls beside the whole ones
+    st, sp, sf = stats["bitdecode"], stats["paged_bitdecode"], stats["paged_residual_flush"]
+    st["window_whole_ms"] = time_ms(lambda: bd_ops.bitdecode_attention(
+        q, *packed, *res, pbt, rlt, **kw))
+    st["window_ms"] = [time_ms(lambda r=r: bd_ops.bitdecode_attention(
+        q, *packed, *res, pbt, rlt, block_lo=r * nb_local, n_blocks=nb_local,
+        read_res=r == n - 1, **kw)) for r in range(n)]
+    sp["window_whole_ms"] = time_ms(lambda: pg_ops.paged_bitdecode_attention(
+        q, *pool, *res, table, pbt, rlt, **kw))
+    sp["window_ms"] = [time_ms(lambda r=r: pg_ops.paged_bitdecode_attention(
+        q, *[x[r * pp:(r + 1) * pp] for x in pool], *res, table, pbt, rlt,
+        block_lo=r * nb_local, n_blocks=nb_local, read_res=r == n - 1, page_lo=r * pp, **kw))
+        for r in range(n)]
+    full_rl = ints([bn - 1] * b)  # every row flushes: reset on the card before each call
+
+    def flush_prep(lens_):
+        return lambda: (lens_[0].copy_(start[0]), lens_[1].copy_(full_rl))
+
+    sf["window_whole_ms"] = time_ms(lambda: rf_ops.paged_append_flush(
+        *whole_a, *whole_r, k_new, v_new, table, *whole_l, impl="cuda", **fkw),
+        prep=flush_prep(whole_l))
+    sf["window_ms"] = [time_ms(lambda r=r: rf_ops.paged_append_flush(
+        *[x[r * pp:(r + 1) * pp] for x in ranged[r]], *ranged_r[r], k_new, v_new, table,
+        *ranged_l[r], impl="cuda", page_lo=r * pp, pages_total=pages, **fkw),
+        prep=flush_prep(ranged_l[r])) for r in range(n)]
+    for name, s in (("bitdecode", st), ("paged_bitdecode", sp), ("paged_residual_flush", sf)):
+        s["window_shape"] = dict(B=b, H_kv=h, g=g, d=d, nb=nb, ranks=n, nb_local=nb_local,
+                                 pack_blocks=pb, res_len=rl)
+        log(f"  time {name} split-KV windows of {n} ranks ({nb_local} of {nb} blocks"
+            f"{'; pages ' + str(pp) + ' of ' + str(pages) if name != 'bitdecode' else ''}): "
+            f"whole {s['window_whole_ms'] * 1e3:.1f} us, ranks "
+            + ", ".join(f"{t * 1e3:.1f}" for t in s["window_ms"]) + " us"
+            + (" (a step where every row flushes)" if name == "paged_residual_flush" else ""))
+
+
+def one_rank_mesh():
+    """A one-rank NCCL process group on the card and its 1-D mesh over axis
+    "data" (what runs (l) and (m) walk split over)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    return init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def splitkv_serve_runs(model, params, cfg, check, dev, streams) -> dict:
+    """Runs (l) and (m) of phase 4: run (e) (async runtime, two steps in
+    flight) with a one-rank NCCL mesh and ``splitkv="always"``, (m) with
+    page-affine pools as well: every decode step the split-KV step (its
+    all-gather and the cross-rank merge captured in the graph), streams and
+    terminal phases bit for bit run (e)'s (the merge of one partial is
+    o * exp(0) / 1), no plain version called; launches counted as (e)'s."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build
+    from repro_torch.serve import ServeEngine
+
+    work = serve_workload(cfg.vocab)
+    e_kw = serve_runs(work)["e"]
+    mesh = one_rank_mesh()
+    out = {}
+    for name, extra in (("l", {}), ("m", dict(page_affine=True))):
+        t0 = time.perf_counter()
+        engine = ServeEngine(model, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                             device=dev, mesh=mesh, splitkv="always", **e_kw, **extra)
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        with plain_calls() as plain:
+            reqs, summ = drive_engine(engine, work)
+        torch.cuda.synchronize()
+        runner, step = engine._runner, engine._runner.step_fn
+        total = dict(_build.launches)
+        for k, v in step.launches.items():
+            total[k] = total.get(k, 0) + v
+        n = engine.spec.page_layers
+        got = ({r.uid: list(r.out_tokens) for r in reqs}, {r.uid: r.phase for r in reqs})
+        diff = [u for u in got[0] if (got[0][u], got[1][u]) != (streams["e"][0][u],
+                                                              streams["e"][1][u])]
+        check(not diff, f"run ({name}) token streams and terminal phases equal run (e)'s bit "
+                        f"for bit (differ: {diff})")
+        check(not plain, f"run ({name}): no plain kernel version ran ({dict(plain)})")
+        check(step.graph is not None and step.replays == runner.dispatched == summ["steps"]
+              == summ["splitkv_steps"] > 0 and step.splitkv is not None,
+              f"run ({name}): every decode step one replay of the captured split-KV step "
+              f"({summ['splitkv_steps']} split steps, {step.replays} replays)")
+        check(all(step.capture_launches.get(k, 0) >= n for k in
+                  ("paged_bitdecode", "paged_residual_flush", "bitdecode_merge"))
+              and all(total.get(k, 0) > 0 for k in SERVE_PATH),
+              f"run ({name}): the captured step launches K4, K5 and the merge once a layer "
+              f"at least ({dict(step.capture_launches)}), every serve kernel launched")
+        check(summ["pool_shards"] == (1 if not extra else dist.get_world_size()),
+              f"run ({name}): pool_shards {summ['pool_shards']}")
+        wall = time.perf_counter() - t0
+        log(f"  run ({name}) = (e) + mesh of 1 rank, splitkv always{', page_affine' if extra else ''}"
+            f": {summ['steps']} cycles, {summ['decoded_tokens']} tokens, "
+            f"{summ['tokens_per_s']:.1f} tokens/s, TPOT p50 {summ['tpot_p50_ms']:.1f} ms, "
+            f"split steps {summ['splitkv_steps']}, {wall:.1f} s with the engine's set-up; "
+            f"capture {dict(step.capture_launches)}")
+        out[name] = {k: summ[k] for k in ("steps", "decoded_tokens", "tokens_per_s",
+                                          "tpot_p50_ms", "ttft_p50_ms", "splitkv_steps",
+                                          "pool_shards", "wall_s")} | {
+            "launches": total, "capture_launches": dict(step.capture_launches),
+            "run_s": wall}
+        engine.close()
+        del engine
+    dist.destroy_process_group()
+    return out
+
+
+def _time_alone(rank: int, world: int, fn, iters: int = 10) -> float:
+    """ms of ``fn`` on the card (None: this rank times nothing), the ranks
+    taking turns (the four ranks share one card): a barrier between turns,
+    CUDA events around calls queued behind a spin kernel, so they bracket
+    device work, not the host's launches."""
+    import torch
+    import torch.distributed as dist
+
+    ms = 0.0
+    for r in range(world):
+        dist.barrier()
+        if r == rank and fn is not None:
+            fn()
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(50_000_000)  # the host queues every call meanwhile
+            e0.record()
+            for _ in range(iters):
+                fn()
+            e1.record()
+            torch.cuda.synchronize()
+            ms = e0.elapsed_time(e1) / iters
+    dist.barrier()
+    return ms
+
+
+def _time_together(fn, iters: int = 5) -> float:
+    """ms of ``fn``, a collective every rank runs at once, on this rank's
+    CUDA events: gloo stages a CUDA all-gather through the host, so the
+    host's part is in it."""
+    import torch
+    import torch.distributed as dist
+
+    fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def affine_schedule(model, params, cfg, dev, **kw) -> dict:
+    """The JAX package's page-affine serving schedule (``tests/
+    test_distributed.py``) at ``cfg.kv_block`` through ``ServeEngine(**kw)``,
+    eager and sync: a donor of one block and 8 tokens, a strict mid-block
+    prefix of it (copied on write at its first flush), a prompt of three
+    blocks served twice (the second a retained prefix hit).  Without a mesh
+    it also records the top logit and the top-2 gap of every step (what
+    :func:`near_tie` reads)."""
+    import numpy as np
+
+    from repro_torch.serve import Request, ServeEngine
+
+    bn = cfg.kv_block
+    rng = np.random.default_rng(7)
+    pa = rng.integers(0, cfg.vocab, bn + 8).astype(np.int32)
+    pb = pa[:8].copy()
+    pc = rng.integers(0, cfg.vocab, 3 * bn).astype(np.int32)
+    eng = ServeEngine(model, params, slots=2, max_seq=8 * bn, retain_prefix=True, device=dev,
+                      **kw)
+    tops: dict = {}  # unsplit: uid -> (top logit, top-2 gap) a step
+    if "mesh" not in kw:
+        step = eng._step
+
+        def recording(p, s, t):
+            logits, s = step(p, s, t)
+            for slot, req in eng.sched.active.items():
+                top = logits[slot, 0].float().topk(2).values.tolist()
+                tops.setdefault(req.uid, []).append((top[0], top[0] - top[1]))
+            return logits, s
+
+        eng._step = recording
+    reqs = [Request(uid=0, prompt=pa.copy(), max_new_tokens=2 * bn),
+            Request(uid=1, prompt=pb.copy(), max_new_tokens=bn)]
+    eng.submit(reqs[0])
+    eng.step()
+    eng.submit(reqs[1])
+    eng.run()
+    for uid in (2, 3):  # the second a retained prefix hit
+        reqs.append(Request(uid=uid, prompt=pc.copy(), max_new_tokens=4))
+        eng.submit(reqs[-1])
+        eng.run()
+    summ = eng.summary()
+    kwp = eng.state["caches"][0].kw
+    eng.close()
+    return {"out": [list(r.out_tokens) for r in reqs], "tops": tops, "cow": summ["cow_copies"],
+            "splitkv_steps": summ["splitkv_steps"], "pool_shards": summ["pool_shards"],
+            "retained_hits": eng.sched.stats["prefix_retained_hits"], "n_pages": eng.n_pages,
+            "local_pages": kwp.shape[kwp.dim() - 4], "free": eng.pool.free_pages(),
+            "steps": summ["steps"]}
+
+
+def phase13_rank(rank: int, world: int, port: int, out: str) -> int:
+    """One rank of phase 13 (a process of its own; the ranks share one card
+    on gloo, whose all-gather takes CUDA tensors).  Started ahead of the
+    phase: it sets up its process group and mesh, then waits for the file
+    ``out/go`` before it touches the card.  (A) the split walk at
+    llama3-8b's decode shape over 131,072 tokens, K3 over this rank's window
+    of the dense cache and K4 over its column slice of rank-local
+    page-affine pools, merged across the ranks, against one unsplit call;
+    (B) JAX's page-affine serving schedule (:func:`affine_schedule`) on
+    llama3-8b at full width, cut to 2 layers, split over replicated and over
+    page-affine pools (the unsplit run is the main process's).  Writes its
+    results to ``out/rank<r>.json``."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import attention as catt
+    from repro_torch.core import qcache
+    from repro_torch.dist import splitkv as sk
+    from repro_torch.dist import state_specs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bitdecode import ops as bd_ops
+    from repro_torch.kernels.kv_quant import ops as kq_ops
+    from repro_torch.kernels.paged_bitdecode import ops as pg_ops
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank)
+    res: dict = {"rank": rank}
+    try:
+        mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+        go, t_wait = Path(out) / "go", time.perf_counter()
+        while not go.exists():
+            if time.perf_counter() - t_wait > SPLIT_RANKS_WAIT_S:
+                raise TimeoutError(f"no go from the main process in {SPLIT_RANKS_WAIT_S} s")
+            time.sleep(0.05)
+        t0 = time.perf_counter()
+        # ---- (A) the walk
+        gen = torch.Generator(device=dev).manual_seed(13)  # the same data on every rank
+        b, h, g, d, bn = 1, 8, 4, 128, BLOCK_N
+        nb = LONG_TOKENS // bn
+        v_off = 2.0 * torch.randn(d, generator=gen, device=dev)
+
+        def randn(*shape, off=None):
+            x = torch.randn(shape, generator=gen, device=dev)
+            return (x if off is None else x + off).to(torch.bfloat16)
+
+        with torch.no_grad():
+            kw_, ks, kz = kq_ops.quantize_kv(randn(b, h, nb * bn, d), BITS, "channel",
+                                             block_n=bn)
+            vw, vs, vz = kq_ops.quantize_kv(randn(b, h, nb * bn, d, off=v_off), BITS, "tensor",
+                                            block_n=bn)
+            q = randn(b, 1, h * g, d)
+            k_res, v_res = randn(b, h, bn, d), randn(b, h, bn, d, off=v_off)
+            ints = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+            cache = qcache.QuantKVCache(kw_, ks, kz, vw, vs, vz, k_res, v_res, ints(LONG_PB),
+                                        ints(LONG_RL), ints([0]), bits=BITS, block_n=bn,
+                                        k_gran="channel")
+            torch.cuda.synchronize()
+            _build.launches.clear()
+            split = sk.splitkv_decode_attention(q, cache, mesh)
+            whole = catt.decode_attention(q, cache)
+            res["dense_err"] = (split - whole).abs().max().item()
+            res["dense_ok"] = bool(torch.allclose(split, whole, rtol=2e-2, atol=2e-2))
+            # the paged walk: page j holds block j (one row), the pools cut to
+            # this rank's range by the placements' helper
+            pools = [x[0].movedim(1, 0).contiguous() for x in (kw_, ks, kz, vw, vs, vz)]
+            paged = qcache.PagedQuantKVCache(
+                *pools, k_res, v_res, torch.arange(nb, dtype=torch.int32, device=dev)[None],
+                ints(LONG_PB), ints(LONG_RL), ints([0]), bits=BITS, block_n=bn,
+                k_gran="channel")
+            specs = {"caches": [dataclasses.replace(paged, **{
+                f: state_specs.to_placements(("data",), mesh) for f in qcache._PAGED_POOL_FIELDS})]}
+            local = state_specs.local_pools({"caches": [paged]}, specs, mesh, "data")["caches"][0]
+            res["local_pages"] = local.n_pages
+            psplit = sk.splitkv_paged_decode_attention(q, local, mesh, page_affine=True)
+            pwhole = catt.decode_attention(q, paged)
+            res["paged_err"] = (psplit - pwhole).abs().max().item()
+            res["paged_ok"] = bool(torch.allclose(psplit, pwhole, rtol=2e-2, atol=2e-2))
+            res["ranks_bitwise"] = [hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
+                                    for x in (split, psplit)]
+            res["walk_launches"] = dict(_build.launches)
+            nb_local = -(-nb // world)
+            qt = catt.query_transform(q, h)
+            win = dict(block_lo=rank * nb_local, n_blocks=nb_local, read_res=rank == world - 1,
+                       return_lse=True)
+            fields = (kw_, ks, kz, vw, vs, vz, k_res, v_res, cache.pack_blocks, cache.res_len)
+            kwk = dict(bits=BITS, block_n=bn, k_gran="channel")
+            res["window_ms"] = _time_alone(rank, world, lambda: bd_ops.bitdecode_attention(
+                qt, *fields, **kwk, **win))
+            res["whole_ms"] = _time_alone(rank, world, (lambda: bd_ops.bitdecode_attention(
+                qt, *fields, **kwk)) if rank == 0 else None)
+            lp = (*[getattr(local, f) for f in qcache._PAGED_POOL_FIELDS], k_res, v_res,
+                  paged.page_table, paged.pack_blocks, paged.res_len)
+            res["paged_window_ms"] = _time_alone(rank, world, lambda: pg_ops.paged_bitdecode_attention(
+                qt, *lp, page_lo=local.page_lo, **kwk, **win))
+            res["split_call_ms"] = _time_together(lambda: sk.splitkv_decode_attention(
+                q, cache, mesh))
+            res["walk_s"] = time.perf_counter() - t0
+            del kw_, ks, kz, vw, vs, vz, cache, paged, local, pools, fields, lp
+            torch.cuda.empty_cache()
+
+        # ---- (B) the engine: JAX's page-affine schedule at kv_block 128
+        t1 = time.perf_counter()
+        cfg, model, params, _ = build_random("llama3-8b", dev, n_layers=SPLIT_ENGINE_LAYERS)
+        with torch.no_grad():
+            _build.launches.clear()
+            with plain_calls() as plain:
+                res["sk"] = affine_schedule(model, params, cfg, dev, mesh=mesh,
+                                            splitkv="always")
+                res["aff"] = affine_schedule(model, params, cfg, dev, mesh=mesh,
+                                             splitkv="always", page_affine=True)
+            res["plain_calls"] = dict(plain)
+            res["engine_launches"] = dict(_build.launches)
+        res["engine_s"] = time.perf_counter() - t1
+        res["ok"] = True
+    except Exception as err:  # the parent fails the phase on it
+        import traceback
+
+        res["ok"] = False
+        res["error"] = traceback.format_exc()[-4000:]
+    finally:
+        (Path(out) / f"rank{rank}.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+    return 0 if res["ok"] else 1
+
+
+def near_tie(got: list, want: list, tops: list):
+    """None when ``got`` equals ``want``; else (index, top logit, gap) of the
+    first difference if the unsplit engine chose that token at a near tie
+    (its top two logits within two bf16 ulps of the top: the split walk's
+    other summation order may turn it, and the histories part after it),
+    and False if not.  Token 0 is the prefill's, never split."""
+    import math
+
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            if k == 0:
+                return False
+            top, gap = tops[k - 1]
+            ulp = 2.0 ** (math.floor(math.log2(abs(top))) - 7) if top else 0.0
+            return (k, top, gap) if gap <= 2 * ulp else False
+    return None if len(got) == len(want) else False
+
+
+class SplitRanks:
+    """Phase 13's SPLIT_RANKS rank processes (``chip_smoke.py --rank r``),
+    started ahead of the phase: they wait for :meth:`go` before they touch
+    the card.  :meth:`close` stops any still running (also at exit)."""
+
+    def __init__(self):
+        import atexit
+        import tempfile
+
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+        port = free_port()
+        self.procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank", str(r), "--world",
+             str(SPLIT_RANKS), "--port", str(port), "--out", self.tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(SPLIT_RANKS)]
+        atexit.register(self.close)
+
+    def go(self) -> None:
+        (Path(self.tmp) / "go").write_text("go")
+
+    def wait(self, timeout: float) -> list | None:
+        """Each rank's results, or None if one did not finish in time."""
+        logs = []
+        try:
+            for p in self.procs:
+                logs.append(p.communicate(timeout=timeout)[0])
+        except subprocess.TimeoutExpired:
+            self.close()
+            return None
+        ranks = []
+        for r, p in enumerate(self.procs):
+            f = Path(self.tmp) / f"rank{r}.json"
+            got = json.loads(f.read_text()) if f.exists() else {"ok": False}
+            if not got.get("ok"):
+                log(f"  rank {r} failed (exit {p.returncode}):\n{got.get('error', '')}\n"
+                    f"{logs[r][-3000:]}")
+            ranks.append(got)
+        return ranks
+
+    def close(self) -> None:
+        import shutil
+
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def splitkv_ranks_phase(check, job: SplitRanks, dev) -> dict:
+    """Phase 13 on the ranks of ``job``: first the unsplit engine of (B) here
+    (llama3-8b cut to SPLIT_ENGINE_LAYERS layers), then the go.  Every rank
+    must finish; a rank that fails fails the phase.  (A) the merged walks
+    within K3's output tolerance of one unsplit call, every rank's merged
+    bits the same; (B) the page-affine streams bit for bit the
+    replicated-pool split walk's, the short requests the unsplit engine's
+    but for near ties, one copy on write, split steps, a retained prefix
+    hit, four pool shards, each rank's pools a quarter of the pages, every
+    rank's streams and free lists rank 0's."""
+    import torch
+
+    t0 = time.perf_counter()
+    n = SPLIT_RANKS
+    cfg, model, params, _ = build_random("llama3-8b", dev, n_layers=SPLIT_ENGINE_LAYERS)
+    with torch.no_grad(), plain_calls() as plain:
+        base = affine_schedule(model, params, cfg, dev)
+    check(not plain, f"phase 13 (B): the unsplit engine called no plain kernel version "
+                     f"({dict(plain)})")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_base = time.perf_counter() - t0
+    job.go()
+    ranks = job.wait(timeout=300)
+    if ranks is None:
+        check(False, "phase 13: a rank did not finish within 300 s")
+        return {}
+    job.close()
+    ok = all(r.get("ok") for r in ranks)
+    check(ok, f"phase 13: all {n} ranks finished ({[r.get('ok') for r in ranks]})")
+    if not ok:
+        return {"ranks": ranks}
+    r0 = ranks[0]
+    check(all(r["dense_ok"] and r["paged_ok"] for r in ranks),
+          f"phase 13 (A): the {n}-rank split walks (K3 window, K4 page-affine slice, the "
+          f"cross-rank merge) within out 2e-2 of the unsplit call (max |d| dense "
+          f"{max(r['dense_err'] for r in ranks):.2e}, paged {max(r['paged_err'] for r in ranks):.2e})")
+    check(all(r["ranks_bitwise"] == r0["ranks_bitwise"] for r in ranks)
+          and all(r["local_pages"] == LONG_TOKENS // BLOCK_N // n for r in ranks),
+          f"phase 13 (A): every rank's merged output the same, each rank's pools "
+          f"{r0['local_pages']} pages")
+    skr, aff = r0["sk"], r0["aff"]
+    check(aff["out"] == skr["out"], "phase 13 (B): page-affine streams equal the "
+          "replicated-pool split walk's bit for bit")
+    ties = [near_tie(aff["out"][u], base["out"][u], base["tops"][u]) for u in (1, 2, 3)]
+    check(all(t is not False for t in ties) and sum(t is not None for t in ties) <= 1,
+          f"phase 13 (B): the short requests equal the unsplit engine's but for a near tie "
+          f"(first difference, the unsplit step's top logit and top-2 gap: {ties})")
+    check(aff["cow"] == 1 and base["cow"] == 1 and aff["splitkv_steps"] > 0
+          and aff["retained_hits"] > 0 and aff["pool_shards"] == n
+          and all(r["aff"]["local_pages"] == aff["n_pages"] // n for r in ranks),
+          f"phase 13 (B): cow {aff['cow']}, split steps {aff['splitkv_steps']}, retained hits "
+          f"{aff['retained_hits']}, pool shards {aff['pool_shards']}, each rank's pools "
+          f"{[r['aff']['local_pages'] for r in ranks]} of {aff['n_pages']} pages")
+    check(all(r[k] == r0[k] for r in ranks for k in ("sk", "aff")),
+          "phase 13 (B): every rank's streams and free lists equal rank 0's")
+    check(not any(r["plain_calls"] for r in ranks), "phase 13 (B): no plain kernel version ran")
+    wall = time.perf_counter() - t0
+    log(f"  phase 13 (A) llama3-8b decode, B 1, H_kv 8, g 4, d 128, {LONG_TOKENS} tokens "
+        f"(pack_blocks {LONG_PB}, res_len {LONG_RL}): whole K3 call "
+        f"{r0['whole_ms'] * 1e3:.1f} us; each rank's window "
+        + ", ".join(f"{r['window_ms'] * 1e3:.1f}" for r in ranks) + " us (K3), "
+        + ", ".join(f"{r['paged_window_ms'] * 1e3:.1f}" for r in ranks) + " us (K4 over "
+        "its own pages); the split call with the gloo all-gather (through the host) and "
+        "merge "
+        + ", ".join(f"{r['split_call_ms'] * 1e3:.1f}" for r in ranks) + " us; max |d| dense "
+        f"{max(r['dense_err'] for r in ranks):.2e}, paged {max(r['paged_err'] for r in ranks):.2e}")
+    log(f"  phase 13 (B) llama3-8b cut to {SPLIT_ENGINE_LAYERS} layers on {n} ranks: "
+        f"streams {[len(o) for o in aff['out']]} tokens, cow {aff['cow']}, split steps "
+        f"{aff['splitkv_steps']}, retained hits {aff['retained_hits']}, pool shards "
+        f"{aff['pool_shards']}, pages a rank {aff['local_pages']} of {aff['n_pages']}; the "
+        f"unsplit engine here {t_base:.1f} s, the split ones {max(r['engine_s'] for r in ranks):.1f}"
+        f" s a rank; phase 13 took {wall:.1f} s")
+    return {"ranks": [{k: v for k, v in r.items() if k != "sk"} for r in ranks],
+            "base": {k: v for k, v in base.items() if k != "tops"}, "wall_s": wall}
+
+
 def jax_init_witness(dev) -> int:
     """Full-width llama3-8b at the JAX package's init scales: the plain path
     split one way and three ways, and the kernels, over WITNESS_STEPS steps."""
@@ -2485,10 +3157,17 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--jax-init", action="store_true",
                         help="run the init-scale witness instead of the smoke phases")
+    # phase 13 starts the script again once a rank with these
+    parser.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--world", type=int, default=SPLIT_RANKS, help=argparse.SUPPRESS)
+    parser.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.rank is not None:
+        return phase13_rank(args.rank, args.world, args.port, args.out)
 
     from repro_torch.core import attention as catt
     from repro_torch.core import qcache
@@ -3691,6 +4370,7 @@ def main() -> int:
                 decode_cache(False, 4, 16, 64, CROSS_PB[0]))
     time_decode("qwen2vl_", False, 4, 4, 7, 128, VLM_PB, VLM_RL,
                 decode_cache(False, 4, 4, 128, max(VLM_PB) + 1))
+    splitkv_kernel_phase(check, stats, dev, gen, time_ms)
     for name, st in stats.items():
         if name != "flash_prefill":  # its shapes are printed above
             log(f"  time {name}: kernel {st['ms'] * 1e3:.1f} us, plain {st['plain_ms'] * 1e3:.1f} "
@@ -3709,6 +4389,10 @@ def main() -> int:
     log(f"== 4. serve: llama3-8b behind the paged engine, full width and depth (at "
         f"{time.perf_counter() - t_start:.1f} s)")
     serve = serve_phase(model, params, cfg, check, dev)
+    t_lm = time.perf_counter()
+    serve["splitkv"] = splitkv_serve_runs(model, params, cfg, check, dev, serve.pop("streams"))
+    serve["report"]["splitkv"] = serve["splitkv"]
+    log(f"  runs (l) and (m) took {time.perf_counter() - t_lm:.1f} s")
     serve["report"]["device_profile"] = serve_profile(model, params, cfg, dev)
     log_profile("serve engine cycle, 4 slots decoding", serve["report"]["device_profile"])
     launches.update({k: v for k, v in serve["launches"].items() if k not in DENSE_PATH})
@@ -3872,6 +4556,7 @@ def main() -> int:
     name, change = SHIM
     log(f"== 12. (B) {name} at full width, cut to {change['n_layers']} layers, through the "
         f"forced exact-length shim (paged=False) (at {time.perf_counter() - t_start:.1f} s)")
+    split_ranks = SplitRanks()  # phase 13's ranks set up meanwhile, off the card
     cfg, model, params, n = build_random(name, dev, **change)
     shim = shim_phase(model, params, cfg, check, dev) | {
         "n_params": n, "cut": f"cut to {change['n_layers']} layers"}
@@ -3887,7 +4572,13 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s)")
     cli = serve_cli(check)
 
-    # ------------------------------------------------------------ 13. summary
+    # ----------------------------------------------- 13. split-KV on 4 ranks
+    log(f"== 13. split-KV on {SPLIT_RANKS} ranks sharing the card (gloo): (A) the walk at "
+        f"{LONG_TOKENS} tokens, (B) the page-affine engine (at "
+        f"{time.perf_counter() - t_start:.1f} s)")
+    ranks = splitkv_ranks_phase(check, split_ranks, dev)
+
+    # ------------------------------------------------------------ 14. summary
     rows = []
     for name, meta in KERNELS.items():
         st = stats[name]
@@ -3908,6 +4599,12 @@ def main() -> int:
                 by_path[f"{fam} shim ({r})"] = cnt.get(name, 0)
         for r, cnt in shim["launches"].items():
             by_path[f"llama3-8b shim ({r})"] = cnt.get(name, 0)
+        for r, rep in serve["splitkv"].items():
+            by_path[f"llama3-8b serve ({r}), split-KV async"] = rep["launches"].get(name, 0)
+        for rep in ranks.get("ranks", ()):
+            by_path[f"phase 13 rank {rep['rank']}, walk + engine"] = (
+                rep.get("walk_launches", {}).get(name, 0)
+                + rep.get("engine_launches", {}).get(name, 0))
         rows.append({
             "name": name, "route": "cuda", **meta, "launches": launches.get(name, 0),
             "serve_launches": serve["launches"].get(name, 0),
@@ -3925,12 +4622,12 @@ def main() -> int:
                or k.startswith(("gemma_", "long_", "starcoder2_", "unfused_", "flush_mode_",
                                 "bound_ms_no_flush", "launch_floor", "v_", "pair_",
                                 "fill_parent_", "draft_", "mla_", "zamba2_", "cross_",
-                                "qwen2vl_"))
+                                "qwen2vl_", "window_"))
                or k in ("tflops", "share_of_bound", "vs_library")},
         })
     total_s = time.perf_counter() - t_start
     print(json.dumps({"kernels": rows, "e2e": dense, "serve": serve["report"], "family": family,
-                      "shim": shim, "cli": cli,
+                      "shim": shim, "cli": cli, "splitkv_ranks": ranks,
                       "n_params": n_params, "build_s": _build.build_seconds,
                       "total_s": total_s}), flush=True)
     log(f"  chip_smoke took {total_s:.1f} s, the build {_build.build_seconds:.1f} s of it")

@@ -37,6 +37,34 @@ def inverse_query_transform(o: torch.Tensor) -> torch.Tensor:
     return o.reshape(b, 1, h_kv * g_q, d_v)
 
 
+# Split-KV (sequence-parallel) decode context: when a mesh is set,
+# decode_attention walks this rank's window of the cache and merges the
+# ranks' partials across the mesh axis (dist/splitkv.py).  page_affine
+# declares the pools' pages split along the same axis (the page-affine
+# allocator, serve/pages.py): each rank reads only the pages it holds.
+_SPLITKV: dict = {"mesh": None, "axis": "data", "page_affine": False}
+
+
+class use_splitkv:
+    """Context manager enabling cross-device split-KV decode (long-context,
+    small-batch shapes) over ``mesh`` (a ``DeviceMesh``) axis ``axis``: the
+    serving engine enters it around its split-KV decode step."""
+
+    def __init__(self, mesh, axis: str = "data", *, page_affine: bool = False):
+        self.mesh, self.axis = mesh, axis
+        self.page_affine = page_affine
+
+    def __enter__(self):
+        self._prev = dict(_SPLITKV)
+        _SPLITKV["mesh"], _SPLITKV["axis"] = self.mesh, self.axis
+        _SPLITKV["page_affine"] = self.page_affine
+        return self
+
+    def __exit__(self, *exc):
+        _SPLITKV.update(self._prev)
+        return False
+
+
 def decode_attention(q, cache: QuantKVCache | PagedQuantKVCache, *,
                      sm_scale: float | None = None, impl: str = "auto",
                      num_splits="auto", draft_bits: int | None = None,
@@ -47,8 +75,24 @@ def decode_attention(q, cache: QuantKVCache | PagedQuantKVCache, *,
     that truncated width (the speculative draft read; None or >= the
     cache's bits is the normal read).  A shared_kv cache (the MLA latent)
     reads V as the first ``d_v`` channels of K.  A paged cache goes through
-    the page table (:func:`_paged_decode_attention`)."""
-    if isinstance(cache, PagedQuantKVCache):
+    the page table (:func:`_paged_decode_attention`).
+
+    Under :class:`use_splitkv` the read walks this rank's window and merges
+    across the mesh axis (``dist.splitkv``); a draft read stays unsplit, as
+    in the JAX package, except over page-affine pools, which no rank holds
+    whole."""
+    mesh = _SPLITKV["mesh"]
+    paged = isinstance(cache, PagedQuantKVCache)
+    affine = paged and _SPLITKV["page_affine"]
+    if mesh is not None and (draft_bits is None or affine):
+        from repro_torch.dist import splitkv as sk
+
+        kw = dict(axis=_SPLITKV["axis"], sm_scale=sm_scale, d_v=d_v, impl=impl,
+                  num_splits=num_splits, draft_bits=draft_bits)
+        if paged:
+            return sk.splitkv_paged_decode_attention(q, cache, mesh, page_affine=affine, **kw)
+        return sk.splitkv_decode_attention(q, cache, mesh, **kw)
+    if paged:
         return _paged_decode_attention(q, cache, sm_scale=sm_scale, impl=impl,
                                        num_splits=num_splits, draft_bits=draft_bits,
                                        d_v=d_v)

@@ -85,15 +85,31 @@ def stack_caches(caches: list[QuantKVCache]) -> QuantKVCache:
         for f in _FIELDS if getattr(caches[0], f) is not None})
 
 
+def splitkv_block_align(mesh, axis: str | None) -> int | None:
+    """Block-axis alignment implied by a split-KV mesh axis (None when no
+    mesh or an unknown axis): the ``block_align`` to pass to
+    :func:`init_cache` so every rank's window of the block axis
+    (``dist.splitkv``) is equally wide."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if mesh is None or axis is None or axis not in names:
+        return None
+    return int(mesh.size(names.index(axis)))
+
+
 def init_cache(batch: int, h_kv: int, d: int, max_seq: int, *, d_v: int | None = None,
                bits: int = 4, block_n: int = 128, k_gran: str = "channel",
-               shared_kv: bool = False, device=None) -> QuantKVCache:
+               shared_kv: bool = False, block_align: int | None = None,
+               device=None) -> QuantKVCache:
     """Allocate an empty cache with capacity >= max_seq tokens: bf16 params
     and a bf16 residual, K of head width ``d`` and V of ``d_v`` (default
     ``d``), on ``device`` (the card unless given).  ``shared_kv``: K alone
-    (the V side is None)."""
+    (the V side is None).  ``block_align`` rounds the packed block count up
+    to a multiple (the split-KV mesh axis's size, through
+    ``model.init_decode_state(..., mesh=...)``)."""
     device = resolve_device(device)
     nb = max(1, -(-max_seq // block_n))
+    if block_align and block_align > 1:
+        nb = -(-nb // block_align) * block_align
     npr = layout.words_per_block(block_n, bits)
     kp = d if k_gran == "channel" else block_n
     d_v = d if d_v is None else d_v
@@ -274,6 +290,13 @@ class PagedQuantKVCache:
     every field; its ``page_table`` is one ``[B, nb_max]`` tensor expanded
     over the layers, so one in-place copy updates every layer's view
     (``serve.pages.set_page_tables``).
+
+    ``page_lo`` / ``pages_total``: the pools may hold one page range, pages
+    ``[page_lo, page_lo + P)`` of a pool of ``pages_total`` (a rank's share
+    of page-affine pools, ``dist.state_specs.local_pools``); the table keeps
+    the global page ids, and the append, :func:`copy_pages` and
+    ``serve.pages.adopt_prefill`` write only the pages in the range.
+    ``pages_total`` None: the pools are whole.
     """
 
     kw: torch.Tensor        # int32 [P, H, npr, d_k]
@@ -292,6 +315,8 @@ class PagedQuantKVCache:
     block_n: int
     k_gran: str
     shared_kv: bool = False
+    page_lo: int = 0
+    pages_total: int | None = None
 
     @property
     def length(self) -> torch.Tensor:
@@ -299,7 +324,16 @@ class PagedQuantKVCache:
 
     @property
     def n_pages(self) -> int:
+        """Pages the pools hold (this rank's range under page affinity)."""
         return self.kw.shape[-4]
+
+    def local_pages(self, pages) -> tuple[list[int], list[int]]:
+        """(positions in ``pages``, local ids) of the global page ids this
+        cache's pools hold."""
+        if self.pages_total is None:
+            return list(range(len(pages))), [int(p) for p in pages]
+        pos = [i for i, p in enumerate(pages) if 0 <= p - self.page_lo < self.n_pages]
+        return pos, [int(pages[i]) - self.page_lo for i in pos]
 
     def layer(self, i: int) -> "PagedQuantKVCache":
         """Layer ``i`` of a cache stacked over layers, as views."""
@@ -369,6 +403,7 @@ def paged_append_decode(cache: PagedQuantKVCache, k_new, v_new, *,
         cache.k_res, cache.v_res, k_new, v_new, cache.page_table, cache.pack_blocks,
         cache.res_len, cache.arrive, mask=mask, bits=cache.bits, block_n=cache.block_n,
         k_gran=cache.k_gran, shared_kv=cache.shared_kv, impl=quant_impl,
+        page_lo=cache.page_lo, pages_total=cache.pages_total,
     )
     return cache
 
@@ -398,7 +433,16 @@ def copy_pages(cache: PagedQuantKVCache, src, dst) -> PagedQuantKVCache:
     """Copy-on-write primitive, in place: pool page ``dst[i]`` becomes a
     bitwise replica of ``src[i]`` in every pool field (K's three alone when
     shared_kv) and every stacked layer.  ``dst`` entries are pairwise
-    distinct and disjoint from ``src``."""
+    distinct and disjoint from ``src``.  Pools that hold a page range copy
+    the pairs in it (a page-affine copy never leaves its rank's range)."""
+    if cache.pages_total is not None:
+        pos, src_l = cache.local_pages(src)
+        pos_d, dst_l = cache.local_pages(dst)
+        if pos != pos_d:
+            raise ValueError(f"copy on write across page ranges: {list(src)} -> {list(dst)}")
+        if not pos:
+            return cache
+        src, dst = src_l, dst_l
     src, dst = (_index(x, cache.kw.device) for x in (src, dst))
     for f in _PAGED_POOL_FIELDS:
         pool = getattr(cache, f)
@@ -409,7 +453,7 @@ def copy_pages(cache: PagedQuantKVCache, src, dst) -> PagedQuantKVCache:
     return cache
 
 
-def dequant_prior(cache: PagedQuantKVCache, pages):
+def dequant_prior(cache: PagedQuantKVCache, pages, *, fetch=None):
     """Gather pool pages ``pages`` (int [B, J], rows right-padded; the caller
     masks the padding through ``prior_len``) and dequantize them into bf16
     prior K/V for the shared-prefix suffix prefill.
@@ -420,13 +464,18 @@ def dequant_prior(cache: PagedQuantKVCache, pages):
     stored after RoPE, so the prior needs no position re-applied.  A
     shared_kv cache (the MLA latent pools) returns ``(latent, None)``: the
     model's up-projections make the per-head K and V from the latent
-    (``models.mla.mla_prefill_cache``)."""
+    (``models.mla.mla_prefill_cache``).  ``fetch(arr, page_axis)`` gathers
+    the pages of one pool field (default: index the pools here; pools that
+    hold a page range take ``dist.splitkv.gather_prior_pages``)."""
 
     idx = _index(pages, cache.kw.device)
+    if fetch is None:
+        def fetch(arr, ax):
+            return arr.movedim(ax, 0)[idx]
 
     def gather(field: str):
         arr = getattr(cache, field)
-        return arr.movedim(_page_axis(arr, field), 0)[idx]  # [B, J, *lead, H, ...]
+        return fetch(arr, _page_axis(arr, field))  # [B, J, *lead, H, ...]
 
     def to_prior(x):
         # [B, J, *lead, H, n, d] -> [*lead, B, J * n, H, d]

@@ -39,15 +39,19 @@ __global__ void __launch_bounds__(BD_THREADS) bitdecode_kernel(const BdArgs a) {
 
 // Merge of the splits' partials o [S, rows, dv], lse [S, rows] (rows =
 // B * H * g) into out [rows, dv], lse [rows], as ref.merge_partials: splits
-// with lse ~ -1e37 (no valid token) get weight 0.  A CTA per row; the S
-// weights go through shared memory once.
+// with lse ~ -1e37 (no valid token) get weight 0.  Split s's partials start
+// at o_part + s * o_ld and lse_part + s * lse_ld (rows * dv and rows for the
+// kernel's own splits; the stride of a rank's chunk for the partials the
+// ranks of a split-KV walk gathered).  A CTA per row; the S weights go
+// through shared memory once.
 __global__ void __launch_bounds__(128) bitdecode_merge_kernel(
     const float* __restrict__ o_part, const float* __restrict__ lse_part,
-    float* __restrict__ out, float* __restrict__ lse, int S, int rows, int dv) {
+    float* __restrict__ out, float* __restrict__ lse, int S, int dv, long long o_ld,
+    long long lse_ld) {
   extern __shared__ float w_s[];  // [S]
   const int row = blockIdx.x, tid = threadIdx.x;
   asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the partials are written
-  for (int s = tid; s < S; s += blockDim.x) w_s[s] = lse_part[(size_t)s * rows + row];
+  for (int s = tid; s < S; s += blockDim.x) w_s[s] = lse_part[s * lse_ld + row];
   __syncthreads();
   float m = w_s[0];
   for (int s = 1; s < S; ++s) m = fmaxf(m, w_s[s]);
@@ -60,7 +64,7 @@ __global__ void __launch_bounds__(128) bitdecode_merge_kernel(
   for (int c = tid; c < dv; c += blockDim.x) {
     float acc = 0.f;
 #pragma unroll 8
-    for (int s = 0; s < S; ++s) acc += w_s[s] * o_part[((size_t)s * rows + row) * dv + c];
+    for (int s = 0; s < S; ++s) acc += w_s[s] * o_part[s * o_ld + (size_t)row * dv + c];
     out[(size_t)row * dv + c] = acc / den;
   }
   if (tid == 0) lse[row] = m + logf(den);
@@ -71,16 +75,19 @@ extern "C" int bitdecode_launch(
     const void* vs, const void* vz, const void* k_res, const void* v_res,
     const void* pack_blocks, const void* res_len, void* out, void* lse, int B, int H, int g,
     int dk, int dv, int nb, int block_n, int res_n, int bits, int k_channel, int shared,
-    int num_splits, int draft_shift, float sm_scale, void* stream) {
+    int num_splits, int draft_shift, int block_lo, int nb_win, int read_res, float sm_scale,
+    void* stream) {
   if (B * H == 0) return 0;
   int n_vc = 1;
   const int gz = bd_grid_z(g, dk, dv, shared, &n_vc);
-  if (gz == 0 || draft_shift < 0 || draft_shift >= bits) return (int)cudaErrorInvalidValue;
+  if (gz == 0 || draft_shift < 0 || draft_shift >= bits || block_lo < 0 || nb_win < 0 ||
+      block_lo + nb_win > nb)
+    return (int)cudaErrorInvalidValue;
   const BdArgs a{(const bf16*)q, (const int32_t*)kw, (const bf16*)ks, (const bf16*)kz,
                  (const int32_t*)vw, (const bf16*)vs, (const bf16*)vz, (const bf16*)k_res,
                  (const bf16*)v_res, (const int32_t*)pack_blocks, (const int32_t*)res_len,
                  (float*)out, (float*)lse, B, H, g, nb, block_n, res_n, num_splits, sm_scale,
-                 draft_shift, dv, n_vc};
+                 draft_shift, dv, n_vc, block_lo, nb_win, read_res};
   const dim3 grid(B * H, num_splits, gz);
   return (int)bd_dispatch(
       bits, bd_unit_rows(block_n, bits), dk, g > 8 ? 2 : 1, k_channel, shared,
@@ -115,7 +122,8 @@ extern "C" int bitdecode_ctas_per_sm(int g, int d, int block_n, int bits, int k_
 }
 
 extern "C" int bitdecode_merge_launch(const void* o_part, const void* lse_part, void* out,
-                                      void* lse, int S, int rows, int dv, void* stream) {
+                                      void* lse, int S, int rows, int dv, long long o_ld,
+                                      long long lse_ld, void* stream) {
   if (rows == 0) return 0;
   // a programmatic dependent launch: its CTAs start as the decode kernel's
   // last ones do and wait on the device, not behind a launch on the host
@@ -131,6 +139,6 @@ extern "C" int bitdecode_merge_launch(const void* o_part, const void* lse_part, 
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, bitdecode_merge_kernel, (const float*)o_part,
                                              (const float*)lse_part, (float*)out, (float*)lse, S,
-                                             rows, dv);
+                                             dv, o_ld, lse_ld);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -151,6 +151,11 @@ struct BdArgs {
   int draft_shift;
   int dv;    // the output's channels: DV, or a multiple of it when shared_kv
   int n_vc;  // V chunks of DV a row (dv / DV): the grid's third axis is tile * n_vc + chunk
+  // the block window (one rank's share of a split-KV walk across devices):
+  // blocks [block_lo, block_lo + nb_win) of the nb-wide axis, a row's
+  // pack_blocks clipped to it; read_res 0 leaves the residual to another
+  // rank.  The whole call: block_lo 0, nb_win nb, read_res 1.
+  int block_lo, nb_win, read_res;
 };
 
 // The mask a packed word is ANDed with before its codes are taken: every
@@ -502,7 +507,8 @@ __device__ __forceinline__ void residual_unit(const unsigned char* st, const bf1
 
 // blockIdx.x = b * H + h, blockIdx.y = split, blockIdx.z = query-row tile
 // * n_vc + V chunk.  `a.nb` is the width of the block axis (the dense
-// cache's blocks, or the page table's columns).
+// cache's blocks, or the page table's columns); the CTA walks the window
+// [a.block_lo, a.block_lo + a.nb_win) of it.
 template <int BITS, int W, int DK, int DV, int NT, bool KCH, bool SH, class CellOf>
 __device__ __forceinline__ void bitdecode_body(const BdArgs& a, CellOf cell_of) {
   using S = BdShape<BITS, W, DK, DV, NT, SH>;
@@ -539,8 +545,8 @@ __device__ __forceinline__ void bitdecode_body(const BdArgs& a, CellOf cell_of) 
 
   // this warp's units, from the row's own lengths; a CTA with none writes
   // the empty partial (o = 0, lse ~ -1e37) and leaves
-  const int pb = min(max(a.pack_blocks[b], 0), a.nb);
-  const int rl = min(max(a.res_len[b], 0), a.res_n);
+  const int pb = min(max(a.pack_blocks[b] - a.block_lo, 0), a.nb_win);
+  const int rl = a.read_res ? min(max(a.res_len[b], 0), a.res_n) : 0;
   const int n_pk = pb * upb;
   const int n_u = n_pk + (rl + BD_RES_TOKENS - 1) / BD_RES_TOKENS;
   const int n_w = a.num_splits * BD_WARPS, wg = split * BD_WARPS + warp;
@@ -558,7 +564,7 @@ __device__ __forceinline__ void bitdecode_body(const BdArgs& a, CellOf cell_of) 
     unsigned char* st = mine + stage * S::STAGE;
     if (u < n_pk) {
       const int blk = u / upb, qg = u - blk * upb;
-      const long long cell = cell_of(blk);
+      const long long cell = cell_of(a.block_lo + blk);
       const int32_t* kw = a.kw + (cell * npr + qg * W) * DK;
 #pragma unroll
       for (int k = 0; k < (W * DK / 4 + 31) / 32; ++k) {

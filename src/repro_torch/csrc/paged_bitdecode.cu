@@ -26,12 +26,12 @@
 
 template <int BITS, int W, int DK, int DV, int NT, bool KCH, bool SH>
 __global__ void __launch_bounds__(BD_THREADS) paged_bitdecode_kernel(
-    const BdArgs a, const int32_t* __restrict__ page_table, int n_pages) {
+    const BdArgs a, const int32_t* __restrict__ page_table, int n_pages, int page_lo) {
   const int h = blockIdx.x % a.H;
   const int32_t* row = page_table + (long long)(blockIdx.x / a.H) * a.nb;
   const int H = a.H;
-  bitdecode_body<BITS, W, DK, DV, NT, KCH, SH>(a, [row, h, H, n_pages](int j) {
-    const int page = min(max(row[j], 0), n_pages - 1);
+  bitdecode_body<BITS, W, DK, DV, NT, KCH, SH>(a, [row, h, H, n_pages, page_lo](int j) {
+    const int page = min(max(row[j] - page_lo, 0), n_pages - 1);
     return (long long)page * H + h;
   });
 }
@@ -42,16 +42,18 @@ extern "C" int paged_bitdecode_launch(
     const void* page_table, const void* pack_blocks, const void* res_len, void* out,
     void* lse, int B, int H, int g, int dk, int dv, int nb_max, int n_pages, int block_n,
     int res_n, int bits, int k_channel, int shared, int num_splits, int draft_shift,
-    float sm_scale, void* stream) {
+    int block_lo, int nb_win, int read_res, int page_lo, float sm_scale, void* stream) {
   if (B * H == 0) return 0;
   int n_vc = 1;
   const int gz = bd_grid_z(g, dk, dv, shared, &n_vc);
-  if (gz == 0 || draft_shift < 0 || draft_shift >= bits) return (int)cudaErrorInvalidValue;
+  if (gz == 0 || draft_shift < 0 || draft_shift >= bits || block_lo < 0 || nb_win < 0 ||
+      block_lo + nb_win > nb_max)
+    return (int)cudaErrorInvalidValue;
   const BdArgs a{(const bf16*)q, (const int32_t*)kw, (const bf16*)ks, (const bf16*)kz,
                  (const int32_t*)vw, (const bf16*)vs, (const bf16*)vz, (const bf16*)k_res,
                  (const bf16*)v_res, (const int32_t*)pack_blocks, (const int32_t*)res_len,
                  (float*)out, (float*)lse, B, H, g, nb_max, block_n, res_n, num_splits,
-                 sm_scale, draft_shift, dv, n_vc};
+                 sm_scale, draft_shift, dv, n_vc, block_lo, nb_win, read_res};
   const dim3 grid(B * H, num_splits, gz);
   return (int)bd_dispatch(
       bits, bd_unit_rows(block_n, bits), dk, g > 8 ? 2 : 1, k_channel, shared,
@@ -63,7 +65,7 @@ extern "C" int paged_bitdecode_launch(
         if (err != cudaSuccess) return err;
         paged_bitdecode_kernel<BI, WW, DK, DV, NT, KCH, SH>
             <<<grid, BD_THREADS, SMEM, (cudaStream_t)stream>>>(a, (const int32_t*)page_table,
-                                                                n_pages);
+                                                                n_pages, page_lo);
         return cudaGetLastError();
       });
 }

@@ -10,6 +10,10 @@
 //           block_n) into block min(pack_blocks[b], nb - 1) or page
 //           page_table[b, clamp(pack_blocks[b], 0, nb_max - 1)], and update
 //           pack_blocks += full, res_len = full ? 0 : res_len + step.
+//           A paged pool may hold one page range of a larger pool (a rank's
+//           share of page-affine pools): a flush into a page outside it
+//           writes no page, the residual and the lengths being written all
+//           the same.
 //
 // Replaces: src/repro/kernels/residual_flush/kernel.py `residual_flush_pallas`
 //           (dense) and `paged_residual_flush_pallas` (paged), and the torch
@@ -84,6 +88,11 @@ struct FlushArgs {
   int32_t* arrive;      // append: [B] counter, zero between launches
   int H, n_cells, block_n, d[2], k_channel, groups, nb_max, table_ld, paged;
   int tensors;  // 2: K and V; 1: K alone (shared_kv)
+  // paged append: the page range this pool holds, pages [page_lo, page_lo +
+  // n_cells) of a pool of pages_total (one rank's share of page-affine
+  // pools); a flush whose page lies outside it writes no page.  The whole
+  // pool: page_lo 0, pages_total n_cells.
+  int page_lo, pages_total;
 };
 
 // Chunk rows whose channel partials the statistics combine in shared memory
@@ -243,7 +252,10 @@ __global__ void __launch_bounds__(FL_THREADS) residual_flush_kernel(const FlushA
       }
     }
   }
-  if (APPEND && a.paged && tid == 0) s_cell = min(max(page, 0), a.n_cells - 1) * a.H + h;
+  if (APPEND && a.paged && tid == 0) {  // rebased into the range, -1 outside it
+    const int local = min(max(page, 0), a.pages_total - 1) - a.page_lo;
+    s_cell = local >= 0 && local < a.n_cells ? local * a.H + h : -1;
+  }
   if (channel) {  // each chunk row's partials into its slot, then across the slots
     const int slot = tid / L;
     if (stager) {
@@ -267,6 +279,10 @@ __global__ void __launch_bounds__(FL_THREADS) residual_flush_kernel(const FlushA
 
   // the params (every group has the channel ones; group 0 stores them)
   const long long cell = s_cell;
+  if (cell < 0) {  // paged append: the page is another rank's
+    finish();
+    return;
+  }
   const int kp = channel ? d : block_n;  // params a block
   bf16* scale = (t ? a.s[1] : a.s[0]) + cell * kp;
   bf16* zero = (t ? a.z[1] : a.z[0]) + cell * kp;
@@ -360,8 +376,9 @@ extern "C" int residual_flush_launch(
     const void* dest, const void* table, void* pack_blocks, void* res_len, void* arrive,
     long long k_sb, long long k_sh, long long v_sb, long long v_sh, int B, int H, int n_cells,
     int block_n, int dk, int dv, int bits, int k_channel, int nb_max, int table_ld, int append,
-    int paged, int shared_kv, void* stream) {
+    int paged, int shared_kv, int page_lo, int pages_total, void* stream) {
   if (B * H == 0) return 0;
+  if (page_lo < 0 || page_lo + n_cells > pages_total) return (int)cudaErrorInvalidValue;
   if (!flush_head_dim_ok(dk, k_channel) || (!shared_kv && !flush_head_dim_ok(dv, false)) ||
       (block_n * bits) % 32 != 0)
     return (int)cudaErrorInvalidValue;
@@ -397,6 +414,8 @@ extern "C" int residual_flush_launch(
   a.table_ld = table_ld;
   a.paged = paged;
   a.tensors = shared_kv ? 1 : 2;
+  a.page_lo = page_lo;
+  a.pages_total = pages_total;
   const int units = B * H * a.tensors, npr = block_n * bits / 32;
   const int dmax = shared_kv || dk > dv ? dk : dv;
   const size_t smem = flush_smem_bytes(block_n, dmax);

@@ -41,11 +41,11 @@ _SIGNATURES = {
     # K alone or K and V: the tensors, then a host array of their strides
     "kv_quant": ("kv_quant_launch", [_P] * 9 + [_I] * 9 + [_P]),
     # both modes of both caches: one entry point, counted as dense or paged
-    "residual_flush": ("residual_flush_launch", [_P] * 17 + [_L] * 4 + [_I] * 13 + [_P]),
-    "bitdecode": ("bitdecode_launch", [_P] * 13 + [_I] * 13 + [_F, _P]),
-    "bitdecode_merge": ("bitdecode_merge_launch", [_P] * 4 + [_I] * 3 + [_P]),
-    "paged_residual_flush": ("residual_flush_launch", [_P] * 17 + [_L] * 4 + [_I] * 13 + [_P]),
-    "paged_bitdecode": ("paged_bitdecode_launch", [_P] * 14 + [_I] * 14 + [_F, _P]),
+    "residual_flush": ("residual_flush_launch", [_P] * 17 + [_L] * 4 + [_I] * 15 + [_P]),
+    "bitdecode": ("bitdecode_launch", [_P] * 13 + [_I] * 16 + [_F, _P]),
+    "bitdecode_merge": ("bitdecode_merge_launch", [_P] * 4 + [_I] * 3 + [_L] * 2 + [_P]),
+    "paged_residual_flush": ("residual_flush_launch", [_P] * 17 + [_L] * 4 + [_I] * 15 + [_P]),
+    "paged_bitdecode": ("paged_bitdecode_launch", [_P] * 14 + [_I] * 18 + [_F, _P]),
     "flash_prefill": ("flash_prefill_launch", [_P] * 5 + [_I] * 6 + [_L] * 12
                       + [_I, _F, _I, _P]),
 }

@@ -155,11 +155,11 @@ def draft_shift(bits: int, draft_bits: int | None) -> int:
 
 
 def launch_decode(name: str, q, arrays, ints, *, d_v: int, num_splits: int, sm_scale: float,
-                  shift: int = 0):
+                  shift: int = 0, window=()):
     """Launch kernel ``name`` (its C entry point takes q, ``arrays`` (None a
     null pointer), out, lse, B, H, g, ``ints``, num_splits, the draft
-    shift, sm_scale, stream) and, with more than one split, the merge.
-    Returns (out [B, H, g, d_v] f32, lse [B, H, g] f32)."""
+    shift, the ``window`` ints, sm_scale, stream) and, with more than one
+    split, the merge.  Returns (out [B, H, g, d_v] f32, lse [B, H, g] f32)."""
     b, h, g, _ = q.shape
     dev = q.device
     out = torch.empty((b, h, g, d_v), dtype=torch.float32, device=dev)
@@ -172,21 +172,26 @@ def launch_decode(name: str, q, arrays, ints, *, d_v: int, num_splits: int, sm_s
     stream = _build.stream_of(q)
     _build.launch(name, q.data_ptr(), *(t if t is None else t.data_ptr() for t in arrays),
                   o_part.data_ptr(),
-                  l_part.data_ptr(), b, h, g, *ints, num_splits, shift, float(sm_scale), stream)
+                  l_part.data_ptr(), b, h, g, *ints, num_splits, shift, *window, float(sm_scale),
+                  stream)
     if num_splits > 1:
         merge_cuda(o_part, l_part, out, lse)
     return out, lse
 
 
 def merge_cuda(o_parts, lse_parts, out=None, lse=None):
-    """The merge kernel on CUDA partials o [S, ..., d_v], lse [S, ...] (f32,
-    contiguous): what ``ref.merge_partials`` computes, in one launch."""
+    """The merge kernel on CUDA partials o [S, ..., d_v], lse [S, ...] (f32):
+    what ``ref.merge_partials`` computes, in one launch.  Each split's
+    partials are contiguous; the splits may lie at any stride of the first
+    axis (the ranks' chunks of one gathered buffer, ``dist.splitkv``)."""
+    if not (o_parts[0].is_contiguous() and lse_parts[0].is_contiguous()):
+        raise ValueError("the merge kernel takes each split's partials contiguous")
     if out is None:
         out = torch.empty(o_parts.shape[1:], dtype=torch.float32, device=o_parts.device)
         lse = torch.empty(lse_parts.shape[1:], dtype=torch.float32, device=o_parts.device)
     _build.launch("bitdecode_merge", o_parts.data_ptr(), lse_parts.data_ptr(), out.data_ptr(),
                   lse.data_ptr(), o_parts.shape[0], lse_parts[0].numel(), o_parts.shape[-1],
-                  _build.stream_of(o_parts))
+                  o_parts.stride(0), lse_parts.stride(0), _build.stream_of(o_parts))
     return out, lse
 
 
@@ -209,16 +214,33 @@ def cache_operands(tensors, what: str, shared_kv: bool):
             for t in (kw, ks, kz, vw, vs, vz, k_res, v_res)]
 
 
+def block_window(nb: int, block_lo: int, n_blocks: int | None, read_res: bool) -> tuple:
+    """The kernel's window ints (block_lo, nb_win, read_res) over a block axis
+    of ``nb``: blocks ``[block_lo, block_lo + n_blocks)`` cut at ``nb`` (the
+    last rank's window of a split-KV walk may be short or empty)."""
+    if block_lo < 0 or (n_blocks is not None and n_blocks < 0):
+        raise ValueError(f"block window [{block_lo}, +{n_blocks}) is negative")
+    lo = min(block_lo, nb)
+    width = nb - lo if n_blocks is None else min(n_blocks, nb - lo)
+    return lo, width, int(bool(read_res))
+
+
 def bitdecode_cuda(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, pack_blocks,
                    res_len, *, bits: int, block_n: int, sm_scale: float, k_gran: str,
                    num_splits, draft_bits: int | None = None, shared_kv: bool = False,
-                   d_v: int | None = None):
+                   d_v: int | None = None, block_lo: int = 0, n_blocks: int | None = None,
+                   read_res: bool = True):
     """The kernel (and merge) on CUDA tensors: (out, lse).  ``draft_bits``
     below ``bits`` reads every packed code at that width (the runtime
     shift of ``csrc/bitdecode_body.cuh``).  ``shared_kv`` reads V as the
-    first ``d_v`` channels of K (the V-side arguments are ignored)."""
+    first ``d_v`` channels of K (the V-side arguments are ignored).  The
+    window (``block_lo``, ``n_blocks``, ``read_res``) walks blocks
+    ``[block_lo, block_lo + n_blocks)`` of the whole cache in place, each
+    row's ``pack_blocks`` clipped to them, the residual read only with
+    ``read_res``; "auto" splits by the window's width."""
     b, h, g, d_k = q.shape
     nb, npr = kw.shape[2], kw.shape[3]
+    window = block_window(nb, block_lo, n_blocks, read_res)
     d_v = d_v if shared_kv else vw.shape[-1]
     res_n = k_res.shape[2]
     check_kernel_shapes(g=g, d_k=d_k, d_v=d_v, block_n=block_n, bits=bits, npr=npr,
@@ -227,13 +249,14 @@ def bitdecode_cuda(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, pa
                             "cache arrays", shared_kv)
     arrays += [pack_blocks.to(torch.int32).contiguous(), res_len.to(torch.int32).contiguous()]
     k_channel = k_gran == "channel"
-    splits = resolve_num_splits(num_splits, b, h, work_units(nb, block_n, bits, res_n),
+    width = nb if n_blocks is None else n_blocks
+    splits = resolve_num_splits(num_splits, b, h, work_units(width, block_n, bits, res_n),
                                 q.device, g=g, d=d_k, block_n=block_n, bits=bits,
                                 k_channel=k_channel, shared_kv=shared_kv, d_v=d_v)
     return launch_decode("bitdecode", query_operand(q), arrays,
                          (d_k, d_v, nb, block_n, res_n, bits, int(k_channel), int(shared_kv)),
                          d_v=d_v, num_splits=splits, sm_scale=sm_scale,
-                         shift=draft_shift(bits, draft_bits))
+                         shift=draft_shift(bits, draft_bits), window=window)
 
 
 def bitdecode_attention(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res,
@@ -242,7 +265,9 @@ def bitdecode_attention(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res,
                         k_gran: str = "channel", shared_kv: bool = False,
                         d_v: int | None = None, impl: str = "auto",
                         num_splits: int | str | None = "auto",
-                        return_lse: bool = False, draft_bits: int | None = None):
+                        return_lse: bool = False, draft_bits: int | None = None,
+                        block_lo: int = 0, n_blocks: int | None = None,
+                        read_res: bool = True):
     """Fused low-bit decode attention over (packed cache + bf16 residual).
 
     q: [B, H_kv, g, d_k] (query-transformed); see ref.py for the shapes.
@@ -254,6 +279,10 @@ def bitdecode_attention(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res,
     channels of dequantized K (and of the K residual); the V-side
     arguments are ignored.  The plain version resolves ``num_splits="auto"``
     to 1 (splitting multiplies its work); explicit integers are honoured.
+    The block window (``block_lo``, ``n_blocks``, ``read_res``: one rank's
+    share of a split-KV walk across devices, ``dist/splitkv.py``) attends
+    blocks ``[block_lo, block_lo + n_blocks)`` of the cache, and the
+    residual only with ``read_res``; the defaults are the whole call.
     """
     d_k = q.shape[-1]
     if sm_scale is None:
@@ -270,13 +299,14 @@ def bitdecode_attention(q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res,
             pack_blocks, res_len, bits=bits, block_n=block_n, sm_scale=sm_scale,
             k_gran=k_gran, shared_kv=shared_kv, d_v=d_v,
             num_splits=resolve_num_splits(num_splits, 1, 1, 1, "cpu"),  # "auto": 1
-            draft_bits=draft_bits,
+            draft_bits=draft_bits, block_lo=block_lo, n_blocks=n_blocks, read_res=read_res,
         )
     else:
         out, lse = bitdecode_cuda(
             q, kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res,
             pack_blocks, res_len, bits=bits, block_n=block_n, sm_scale=sm_scale,
             k_gran=k_gran, num_splits=num_splits, draft_bits=draft_bits,
-            shared_kv=shared_kv, d_v=d_v,
+            shared_kv=shared_kv, d_v=d_v, block_lo=block_lo, n_blocks=n_blocks,
+            read_res=read_res,
         )
     return (out, lse) if return_lse else out

@@ -66,14 +66,28 @@ def bitdecode_attention_ref(q, kw, k_scale, k_zero, vw, v_scale, v_zero,
                             block_n: int = 128, sm_scale: float | None = None,
                             k_gran: str = "channel", shared_kv: bool = False,
                             d_v: int | None = None, num_splits: int = 1,
-                            draft_bits: int | None = None):
+                            draft_bits: int | None = None, block_lo: int = 0,
+                            n_blocks: int | None = None, read_res: bool = True):
     """q: [B, H_kv, g, d_k] (query-transformed); kw: int32 [B, H_kv, nb, npr, d_k];
     vw: int32 [B, H_kv, nb, npr, d_v] with per-token params (ignored when
     ``shared_kv``: V is then the first ``d_v`` channels of dequantized K);
     k_res/v_res: bf16 [B, H_kv, N_r, d]; pack_blocks/res_len: int32 [B].
+    The block window attends blocks ``[block_lo, block_lo + n_blocks)`` (cut
+    at nb), each row's pack_blocks clipped to them, and the residual only
+    with ``read_res``: the call over that slice of the cache.
 
     Returns (out [B, H, g, d_v] f32, lse [B, H, g] f32).
     """
+    if block_lo or n_blocks is not None or not read_res:
+        nb = kw.shape[2]
+        lo = min(block_lo, nb)
+        hi = nb if n_blocks is None else min(nb, lo + n_blocks)
+        kw, k_scale, k_zero, vw, v_scale, v_zero = (
+            None if x is None else x[:, :, lo:hi]
+            for x in (kw, k_scale, k_zero, vw, v_scale, v_zero))
+        pack_blocks = torch.clamp(pack_blocks - block_lo, 0, hi - lo)
+        if not read_res:
+            res_len = torch.zeros_like(res_len)
     b, h, g, d_k = q.shape
     nb = kw.shape[2]
     if sm_scale is None:

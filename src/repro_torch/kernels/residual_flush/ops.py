@@ -79,9 +79,15 @@ def _new_token(x, b, h, d):
 
 
 def _launch(name, arrays, *, b, h, n_cells, block_n, bits, k_gran, k_new=None, v_new=None,
-            mask=None, full=None, dest=None, table=None, lengths=(None, None, None)):
+            mask=None, full=None, dest=None, table=None, lengths=(None, None, None),
+            page_lo: int = 0, pages_total: int | None = None):
     """One launch of the kernel: mode "append" when ``k_new`` is given,
-    else mode "flush" (``full``/``dest``)."""
+    else mode "flush" (``full``/``dest``).  ``page_lo``/``pages_total``: the
+    page range a paged append's pools hold (default: the whole pool)."""
+    pages_total = n_cells if pages_total is None else pages_total
+    if page_lo < 0 or page_lo + n_cells > pages_total:
+        raise ValueError(f"page range [{page_lo}, {page_lo} + {n_cells}) outside a pool of "
+                         f"{pages_total} pages")
     shared = arrays[3] is None
     d_k = arrays[0].shape[-1]
     d_v = d_k if shared else arrays[3].shape[-1]
@@ -111,7 +117,8 @@ def _launch(name, arrays, *, b, h, n_cells, block_n, bits, k_gran, k_new=None, v
         name, *map(ptr, arrays), ptr(k_new), ptr(None if shared else v_new), ptr(mask),
         ptr(full), ptr(dest), ptr(table), *map(ptr, lengths), *strides, b, h, n_cells, block_n,
         d_k, d_v, bits, int(k_gran == "channel"), nb_max, table_ld, int(k_new is not None),
-        int(name == "paged_residual_flush"), int(shared), _build.stream_of(arrays[0]),
+        int(name == "paged_residual_flush"), int(shared), int(page_lo), int(pages_total),
+        _build.stream_of(arrays[0]),
     )
 
 
@@ -223,7 +230,8 @@ def append_flush(kw, k_scale, k_zero, vw, v_scale, v_zero, k_res, v_res, k_new, 
 def paged_append_flush_cuda(kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool,
                             v_zero_pool, k_res, v_res, k_new, v_new, page_table,
                             pack_blocks, res_len, arrive, *, mask=None, bits: int,
-                            block_n: int, k_gran: str, shared_kv: bool = False):
+                            block_n: int, k_gran: str, shared_kv: bool = False,
+                            page_lo: int = 0, pages_total: int | None = None):
     """Launch mode "append" on the pools, through the page table."""
     n_pages, h, npr, _ = kw_pool.shape
     b = k_res.shape[0]
@@ -233,21 +241,27 @@ def paged_append_flush_cuda(kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale
     _check_flush_args(arrays, b, h, npr, bits, block_n, k_gran)
     _launch("paged_residual_flush", arrays, b=b, h=h, n_cells=n_pages, block_n=block_n,
             bits=bits, k_gran=k_gran, k_new=k_new, v_new=v_new, mask=mask, table=page_table,
-            lengths=(pack_blocks, res_len, arrive))
+            lengths=(pack_blocks, res_len, arrive), page_lo=page_lo, pages_total=pages_total)
     return kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool
 
 
 def paged_append_flush(kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool,
                        v_zero_pool, k_res, v_res, k_new, v_new, page_table, pack_blocks,
                        res_len, arrive, *, mask=None, bits: int, block_n: int, k_gran: str,
-                       shared_kv: bool = False, impl: str = "auto"):
+                       shared_kv: bool = False, impl: str = "auto", page_lo: int = 0,
+                       pages_total: int | None = None):
     """A paged cache's decode append, in place: as :func:`append_flush`, the
     rows it fills committed into pool page ``page_table[b,
     clamp(pack_blocks[b], 0, nb_max - 1)]`` (clamped to ``P - 1``).
+    The page range (``page_lo``, ``pages_total``): the pools hold pages
+    ``[page_lo, page_lo + P)`` of a pool of ``pages_total`` (one rank's
+    page-affine pools); a row whose page (clamped to ``pages_total - 1``)
+    lies outside writes no page, and every row's residual and lengths are
+    written all the same.  The default is the whole pool.
     impl: 'cuda' | 'torch' | 'auto' (the kernel for CUDA tensors)."""
     args = (kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool,
             k_res, v_res, k_new, v_new, page_table, pack_blocks, res_len, arrive)
     fn = (paged_append_flush_cuda if _build.resolve_impl(impl, *args, mask) == "cuda"
           else _ref.paged_append_flush_ref)
     return fn(*args, mask=mask, bits=bits, block_n=block_n, k_gran=k_gran,
-              shared_kv=shared_kv)
+              shared_kv=shared_kv, page_lo=page_lo, pages_total=pages_total)

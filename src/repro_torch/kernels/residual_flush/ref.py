@@ -69,12 +69,11 @@ def paged_residual_flush_ref(kw_pool, k_scale_pool, k_zero_pool, vw_pool,
     if k_res.shape[2] != block_n:
         raise ValueError(f"residual holds {k_res.shape[2]} rows, block_n={block_n}")
     param_dtype = k_scale_pool.dtype
-    dest = torch.clamp_max(dest_page.long(), kw_pool.shape[0] - 1)
     keep = (full != 0)
+    dest = torch.clamp_max(dest_page.long(), kw_pool.shape[0] - 1)[keep]
 
     def commit(pool, new):
-        sel = keep.view(-1, *([1] * (new.ndim - 1)))
-        pool[dest] = torch.where(sel, new.to(pool.dtype), pool[dest])
+        pool[dest] = new[keep].to(pool.dtype)
 
     for (w_dst, s_dst, z_dst), res, gran in _sides(kw_pool, k_scale_pool, k_zero_pool, vw_pool,
                                                    v_scale_pool, v_zero_pool, k_res, v_res,
@@ -137,20 +136,27 @@ def paged_append_flush_ref(kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_
                            v_zero_pool, k_res, v_res, k_new, v_new, page_table,
                            pack_blocks, res_len, arrive=None, *, mask=None, bits: int,
                            block_n: int, k_gran: str, shared_kv: bool = False,
-                           flush=paged_residual_flush_ref):
+                           flush=paged_residual_flush_ref, page_lo: int = 0,
+                           pages_total: int | None = None):
     """A paged cache's decode append, in place: as :func:`append_flush_ref`,
     the destination of row ``b`` being ``page_table[b, clamp(pack_blocks[b],
     0, nb_max - 1)]`` when its residual filled, else its scratch page ``b``,
-    clamped to ``[0, P - 1]``."""
+    clamped to ``[0, P - 1]``.  With a page range (the pools hold pages
+    ``[page_lo, page_lo + P)`` of ``pages_total``), the destination is
+    clamped to ``[0, pages_total - 1]`` and a row whose page lies outside
+    the range flushes nothing; residuals and lengths as without it."""
     b, nb_max = page_table.shape
+    n_pages = kw_pool.shape[0]
     rl, full = append_residual(k_res, None if shared_kv else v_res, res_len, k_new, v_new,
                                mask)
     rows = torch.arange(b, device=rl.device)
     blk = torch.clamp(pack_blocks.long(), 0, nb_max - 1)
     dest = torch.where(full, page_table[rows, blk], rows.to(torch.int32))
-    dest = torch.clamp(dest, 0, kw_pool.shape[0] - 1)
+    total = n_pages if pages_total is None else pages_total
+    dest = torch.clamp(dest, 0, total - 1) - page_lo
+    write = full & (dest >= 0) & (dest < n_pages)
     flush(kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool, k_res,
-          v_res, full.to(torch.int32), dest, bits=bits, block_n=block_n, k_gran=k_gran,
-          shared_kv=shared_kv)
+          v_res, write.to(torch.int32), torch.clamp(dest, 0, n_pages - 1), bits=bits,
+          block_n=block_n, k_gran=k_gran, shared_kv=shared_kv)
     _commit_lengths(pack_blocks, res_len, rl, full)
     return kw_pool, k_scale_pool, k_zero_pool, vw_pool, v_scale_pool, v_zero_pool

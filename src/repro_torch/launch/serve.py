@@ -27,10 +27,11 @@ through the exact-length shim: no pool, each prompt prefilled alone).
 attention the dense quantized cache and its kernels).  ``--arch
 seamless-m4t-medium`` (the encoder-decoder) and ``--arch qwen2-vl-7b`` (the
 VLM stub) reach the engine's ``ValueError``, as in the JAX launcher: their
-prefill needs frame or patch embeddings that a request does not carry.  Not
-ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: cross-chip split-KV routing (``--splitkv`` other than ``auto``, queue
-A item 11).
+prefill needs frame or patch embeddings that a request does not carry.
+``--splitkv`` goes to the engine as in the JAX launcher, which builds no
+mesh either: without one every step is unsplit (a mesh and page-affine
+pools are ``ServeEngine`` arguments, ``repro_torch.launch.mesh`` builds the
+meshes).
 """
 from __future__ import annotations
 
@@ -51,10 +52,6 @@ FAMILY_ARCHS = {
     "hybrid": "zamba2-7b",
     "xlstm": "xlstm-1.3b",
 }
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP queue A, item {item}")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -118,15 +115,9 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_unported(args) -> None:
-    if args.splitkv != "auto":
-        raise _unported("cross-chip split-KV routing (--splitkv)", "11")
-
-
 def main(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
-    _refuse_unported(args)
     if args.arch is None:
         if args.family is None:
             ap.error("one of --arch / --family is required")
@@ -140,7 +131,7 @@ def main(argv=None):
     params = model.init(gen, dev)
     engine = ServeEngine(
         model, params, slots=args.slots, max_seq=args.max_seq,
-        paged=False if args.dense else None, n_pages=args.pages,
+        paged=False if args.dense else None, n_pages=args.pages, splitkv=args.splitkv,
         share_prefix=not args.no_prefix_sharing, reserve_policy=args.reserve_policy,
         expected_quantile=args.expected_quantile, preempt_policy=args.preempt_policy,
         audit_every=args.audit_every, strict=args.strict, spec_k=args.spec_k,

@@ -79,12 +79,13 @@ def _expand_latent(p, cfg, lat):
     return _expand(p, cfg, lat[..., : cfg.kv_lora], lat[..., cfg.kv_lora:])
 
 
-def mla_init_cache(cfg, batch: int, max_seq: int, *, device=None):
+def mla_init_cache(cfg, batch: int, max_seq: int, *, block_align=None, device=None):
     """The latent cache: one KV 'head' of width kv_lora + qk_rope, shared_kv,
     K's params per channel."""
     return qcache.init_cache(
         batch, 1, cfg.kv_lora + cfg.qk_rope, max_seq, bits=cfg.kv_bits,
-        block_n=cfg.kv_block, k_gran="channel", shared_kv=True, device=device,
+        block_n=cfg.kv_block, k_gran="channel", shared_kv=True, block_align=block_align,
+        device=device,
     )
 
 

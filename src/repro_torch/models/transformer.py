@@ -253,17 +253,23 @@ class DecoderLM:
 
     # ------------------------------------------------------------ decode
 
-    def init_decode_state(self, batch_size: int, max_seq: int, *, device=None):
-        """Empty caches and positions on ``device`` (the card unless given)."""
+    def init_decode_state(self, batch_size: int, max_seq: int, *, mesh=None,
+                          splitkv_axis: str = "data", device=None):
+        """Empty caches and positions on ``device`` (the card unless given).
+        With a ``mesh``, the packed-block capacity is rounded up to the
+        ``splitkv_axis`` size, so every rank's window of a split-KV walk
+        (``dist.splitkv``) is equally wide (mesh-aligned allocation)."""
         cfg = self.cfg
         device = resolve_device(device)
+        align = qcache.splitkv_block_align(mesh, splitkv_axis)
 
         def one():
             if self.mla:
-                return mla.mla_init_cache(cfg, batch_size, max_seq, device=device)
+                return mla.mla_init_cache(cfg, batch_size, max_seq, block_align=align,
+                                          device=device)
             return qcache.init_cache(
                 batch_size, cfg.n_kv_heads, cfg.head_dim, max_seq, bits=cfg.kv_bits,
-                block_n=cfg.kv_block, k_gran=cfg.kv_gran, device=device)
+                block_n=cfg.kv_block, k_gran=cfg.kv_gran, block_align=align, device=device)
 
         caches = [qcache.stack_caches([one() for _ in range(n)]) for _, n in self.stacks]
         return {"caches": caches,
@@ -476,14 +482,17 @@ class HybridLM:
             st["ssm_tail"] = stacked((self.tail,))
         return st
 
-    def init_decode_state(self, batch_size: int, max_seq: int, *, device=None):
+    def init_decode_state(self, batch_size: int, max_seq: int, *, mesh=None,
+                          splitkv_axis: str = "data", device=None):
         """Zero Mamba2 states, empty caches and positions on ``device`` (the
-        card unless given)."""
+        card unless given); ``mesh`` aligns the block capacity as
+        ``DecoderLM.init_decode_state`` does."""
         cfg = self.cfg
         device = resolve_device(device)
         caches = [qcache.stack_caches([qcache.init_cache(
             batch_size, cfg.n_kv_heads, cfg.head_dim, max_seq, bits=cfg.kv_bits,
-            block_n=cfg.kv_block, k_gran=cfg.kv_gran, device=device)
+            block_n=cfg.kv_block, k_gran=cfg.kv_gran,
+            block_align=qcache.splitkv_block_align(mesh, splitkv_axis), device=device)
             for _ in range(self.n_super)])]
         return {**self._side_states(batch_size, device), "caches": caches,
                 "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device)}

@@ -62,6 +62,7 @@ replays.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -269,8 +270,10 @@ class CapturedPass:
 
     what = "the pass"
 
-    def __init__(self, state):
+    def __init__(self, state, splitkv=None):
         self.state = state
+        # a ``core.attention.use_splitkv`` the body runs under (None: unsplit)
+        self.splitkv = splitkv
         self.replays = 0
         self.capture_launches: collections.Counter = collections.Counter()
         self.graph = None
@@ -282,6 +285,11 @@ class CapturedPass:
         """The pass's own tensors the warm-up may write."""
         return []
 
+    def _run(self) -> None:
+        """The body, under the pass's split-KV context if it has one."""
+        with self.splitkv if self.splitkv is not None else contextlib.nullcontext():
+            self._body()
+
     def capture(self) -> None:
         """Capture the body as a graph (on the card; a no-op on the CPU)."""
         if self.state["pos"].device.type != "cuda":
@@ -292,14 +300,14 @@ class CapturedPass:
         side.wait_stream(torch.cuda.current_stream())
         with torch.no_grad():
             with torch.cuda.stream(side):
-                for _ in range(_WARMUP_STEPS):
-                    self._body()
+                for _ in range(_WARMUP_STEPS):  # a split step's collective starts here
+                    self._run()
             torch.cuda.current_stream().wait_stream(side)
             before = collections.Counter(_build.launches)
             graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.graph(graph):
-                    self._body()
+                    self._run()
             except Exception as err:
                 raise RuntimeError(f"capturing {self.what} as a CUDA graph failed: "
                                    f"{err}") from err
@@ -314,7 +322,7 @@ class CapturedPass:
             self.graph.replay()
         else:
             with torch.no_grad():
-                self._body()
+                self._run()
         self.replays += 1
 
     @property
@@ -333,21 +341,30 @@ class CapturedDecodeStep(CapturedPass):
     step.  The step writes ``state`` in place, ``state["pos"]`` included:
     the model's ``decode_step`` updates the caches and any side state (the
     hybrid's Mamba2 states) in place, and the body copies ``pos`` back.
-    Captured on construction (:class:`CapturedPass`)."""
+    Captured on construction (:class:`CapturedPass`).
+
+    ``splitkv`` (a ``core.attention.use_splitkv``): the split-KV decode step,
+    whose merge's all-gather is captured in the graph; its warm-up runs the
+    collective first, outside the capture (NCCL's first collective sets up
+    its communicator).  ``share`` (another captured step): take its token,
+    argmax and finite buffers, so the two steps feed one token stream."""
 
     what = "the decode step"
 
     def __init__(self, model, params, state, *, impl: str = "auto",
-                 quant_impl: str = "auto"):
-        super().__init__(state)
+                 quant_impl: str = "auto", splitkv=None, share=None):
+        super().__init__(state, splitkv)
         self.model, self.params = model, params
         self.impl, self.quant_impl = impl, quant_impl
         pos = state["pos"]
         dev = pos.device
         b = pos.shape[0]
-        self.tokens = torch.zeros((b, 1), dtype=torch.int32, device=dev)
-        self.nxt = torch.zeros((b,), dtype=torch.int32, device=dev)
-        self.finite = torch.ones((b,), dtype=torch.bool, device=dev)
+        if share is not None:
+            self.tokens, self.nxt, self.finite = share.tokens, share.nxt, share.finite
+        else:
+            self.tokens = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+            self.nxt = torch.zeros((b,), dtype=torch.int32, device=dev)
+            self.finite = torch.ones((b,), dtype=torch.bool, device=dev)
         self.capture()
 
     def _buffers(self) -> list[torch.Tensor]:
@@ -429,8 +446,14 @@ class AsyncRunner:
         # dispatch: filling the pipeline at startup is prefill-bound, not
         # starvation, in both runtimes
         self._idle_since: float | None = None
-        self.step_fn = CapturedDecodeStep(engine.model, engine.params, engine.state,
-                                          impl=engine._impl, quant_impl=engine._quant_impl)
+        # the decode step to replay: the split-KV one alone when the engine
+        # always splits, else the unsplit one, with the split one captured
+        # at its first use (sharing the token buffers)
+        always = engine._splitkv_ctx is not None and engine._splits_always()
+        self.step_fn = CapturedDecodeStep(
+            engine.model, engine.params, engine.state, impl=engine._impl,
+            quant_impl=engine._quant_impl, splitkv=engine._splitkv_ctx if always else None)
+        self._split_fn = self.step_fn if always else None
 
     # ----------------------------------------------------------- liveness
 
@@ -513,8 +536,12 @@ class AsyncRunner:
         eng._note_occupancy()
         with eng._phase("decode_dispatch"):
             self._apply_overrides()
-            self.step_fn.replay()
-            nxt, finite, done = self.step_fn.read_back()
+            step = self.step_fn
+            if eng._use_splitkv_now():
+                step = self._split_step()
+                eng.metrics.inc("splitkv_steps")
+            step.replay()
+            nxt, finite, done = step.read_back()
         now = time.perf_counter()
         if self._idle_since is not None:
             # the dispatch pipeline was empty until now: starved time is the
@@ -530,6 +557,16 @@ class AsyncRunner:
         self.dispatched += 1
         self.last_progress = now
         return True
+
+    def _split_step(self) -> CapturedDecodeStep:
+        """The split-KV decode step (JAX's ``_splitkv_step``), captured at its
+        first use over the same state and token buffers."""
+        if self._split_fn is None:
+            eng = self.eng
+            self._split_fn = CapturedDecodeStep(
+                eng.model, eng.params, eng.state, impl=eng._impl, quant_impl=eng._quant_impl,
+                splitkv=eng._splitkv_ctx, share=self.step_fn)
+        return self._split_fn
 
     def _drain_progress(self) -> bool:
         """Nothing to dispatch: consume one in-flight record if any."""

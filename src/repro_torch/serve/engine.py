@@ -83,11 +83,25 @@ embeddings that a request does not carry) is refused with the JAX engine's
 ``ValueError``, ``paged=False`` or not; so is ``paged=True`` for a family
 that does not page.
 
-Not ported yet, and refused with ``NotImplementedError``: a mesh, the
-split-KV routing and page-affine pools (ROADMAP A11).
+**Split-KV across devices** (``mesh``, ``splitkv``, ``page_affine``): the
+engine runs SPMD, one copy a rank of the mesh axis ``splitkv_axis``, each on
+the same replicated host state (scheduler, page accounting, residuals,
+``pack_blocks``); a split-KV decode step (:meth:`ServeEngine._use_splitkv_now`
+picks it, ``splitkv_steps`` counts it) walks this rank's window of the
+blocks under ``core.attention.use_splitkv`` and merges the ranks' partials
+(``dist.splitkv``).  ``page_affine=True`` also splits the pools' pages: the
+allocator pins the page of table column ``j`` to shard ``j // nb_local``
+(``pages.PagePool(shards=)``), each rank allocates its ``n_pages / n`` pages
+alone, and every write into the pools (prefill adoption, copy on write, the
+decode step's flush) lands on the rank that holds the page; a suffix
+prefill gathers its shared pages from their ranks (``dist.splitkv.
+gather_prior_pages``).  The JAX engine keeps its state replicated as well
+and ``shard_map``s the walk; it places only the page-affine pools along the
+axis, as here.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -132,7 +146,7 @@ TIMING_SUMMARY_KEYS = frozenset({
 
 #: the engine's lifecycle counters (``stats`` and ``summary()`` show them)
 STAT_COUNTERS = (
-    "decoded_tokens", "steps", "prefill_calls", "prefill_tokens",
+    "decoded_tokens", "steps", "prefill_calls", "splitkv_steps", "prefill_tokens",
     "prefill_tokens_saved", "cow_copies",
     # retirement breakdown (each request counts in at most one):
     # budget_retired = hit max_new_tokens without EOS
@@ -176,8 +190,32 @@ class _PhaseTimer:
         return False
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP queue A, item {item}")
+def splitkv_cores(device) -> int:
+    """The parallel-slot target of the split-KV rule: ``REPRO_SPLITKV_CORES``
+    if set, else the card's SM count (1 on the CPU).  The JAX package counts
+    four cores a device."""
+    import os
+
+    from repro_torch.kernels.bitdecode import ops as bd_ops
+
+    env = os.environ.get("REPRO_SPLITKV_CORES")
+    return int(env) if env else bd_ops.sm_count(device)
+
+
+def use_splitkv_rule(splitkv: str, *, page_affine: bool, axis_size: int, active: int,
+                     h_kv: int, max_blocks: int, cores: int) -> bool:
+    """Whether a decode step with a mesh splits the walk (JAX's
+    ``_use_splitkv_now``): always under ``"always"`` or page-affine pools
+    (no rank holds every page), never under ``"never"``, and under ``"auto"``
+    when the ``active`` rows' KV heads leave ``cores`` unfilled and the
+    longest row holds at least two blocks a rank."""
+    if splitkv == "never":
+        return False
+    if splitkv == "always" or page_affine:
+        return True
+    if axis_size <= 1:
+        return False
+    return active * h_kv < cores and max_blocks >= 2 * axis_size
 
 
 class ServeEngine:
@@ -185,7 +223,8 @@ class ServeEngine:
                  eos_id: int | None = None, impl: str = "auto",
                  quant_impl: str = "auto", paged: bool | None = None,
                  n_pages: int | None = None, min_bucket: int = 16,
-                 mesh=None, splitkv: str = "auto", share_prefix: bool = True,
+                 mesh=None, splitkv_axis: str = "data", splitkv: str = "auto",
+                 share_prefix: bool = True,
                  spec_tail: bool = True, retain_prefix: bool = False,
                  page_affine: bool = False, reserve_policy: str = "worst_case",
                  expected_quantile: float = 0.5, preempt_policy: str = "youngest",
@@ -225,9 +264,11 @@ class ServeEngine:
         where the state lives (the card unless given).  ``paged=None``
         follows the model's spec, ``paged=False`` forces the exact-length
         shim (module docstring), ``paged=True`` raises for a family that
-        does not page."""
-        if mesh is not None or splitkv != "auto" or page_affine:
-            raise _unported("the mesh, split-KV routing and page-affine pools", "11")
+        does not page.  ``mesh`` (a ``DeviceMesh``) and ``splitkv_axis``
+        attach the split-KV decode step across the ranks of that axis,
+        ``splitkv`` ('auto' | 'always' | 'never') picks when it runs, and
+        ``page_affine`` splits the pools' pages along the axis (module
+        docstring); every rank runs the same engine on the same requests."""
         spec = model.paged_spec() if hasattr(model, "paged_spec") else None
         if spec is None:  # the JAX engine's refusal, before any other
             raise ValueError("model declares no serveable cache family (paged_spec() is "
@@ -292,6 +333,36 @@ class ServeEngine:
         # state's caches in place
         self._step = lambda p, s, t: model.decode_step(p, s, t, impl=impl,
                                                        quant_impl=quant_impl)
+        # the split-KV decode step: the same step under use_splitkv
+        self.mesh, self.splitkv_axis, self.splitkv = mesh, splitkv_axis, splitkv
+        names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+        if mesh is not None and splitkv_axis not in names:
+            raise ValueError(f"mesh has no axis {splitkv_axis!r}; available: {names}")
+        self.page_affine = bool(page_affine)
+        if self.page_affine and mesh is None:
+            raise ValueError("page_affine=True requires a mesh")
+        if self.page_affine and not self.paged:
+            raise ValueError("page_affine=True requires a paged family")
+        if self.page_affine and splitkv == "never":
+            raise ValueError("page_affine=True needs the sharded split-KV walk "
+                             "(splitkv='auto' or 'always')")
+        self._axis_size = self._axis_rank = 1
+        if mesh is not None:
+            self._axis_size = mesh.size(names.index(splitkv_axis))
+            self._axis_rank = mesh.get_local_rank(splitkv_axis)
+        self._splitkv_ctx = self._step_splitkv = None
+        if mesh is not None and splitkv != "never":
+            from repro_torch.core.attention import use_splitkv
+
+            self._splitkv_ctx = use_splitkv(mesh, splitkv_axis, page_affine=self.page_affine)
+            self._splitkv_cores = splitkv_cores(self.device)
+
+            def split_step(p, s, t):
+                with self._splitkv_ctx:
+                    return model.decode_step(p, s, t, impl=impl, quant_impl=quant_impl)
+
+            self._step_splitkv = split_step
+        self._pool_shards = self._axis_size if self.page_affine else 1
         self.tokens = np.zeros((slots, 1), np.int32)
         self._occupancy: list[float] = []
 
@@ -311,10 +382,14 @@ class ServeEngine:
         # graphs over the state above, so they come last
         self._draft = self._verify = None
         if self.spec_k > 1:
+            # the passes read the pools unsplit, as in the JAX engine, except
+            # page-affine ones, which no rank holds whole: they walk split
+            ctx = self._splitkv_ctx if self.page_affine else None
             self._draft = DraftPass(model, params, self.state, spec, spec_k=self.spec_k,
-                                    spec_bits=self.spec_bits, impl=impl, quant_impl=quant_impl)
+                                    spec_bits=self.spec_bits, impl=impl, quant_impl=quant_impl,
+                                    splitkv=ctx)
             self._verify = VerifyPass(model, params, self.state, spec, spec_k=self.spec_k,
-                                      impl=impl, quant_impl=quant_impl)
+                                      impl=impl, quant_impl=quant_impl, splitkv=ctx)
         self.async_runtime = bool(async_runtime)
         self._runner = None
         self._completions = None
@@ -330,10 +405,25 @@ class ServeEngine:
         """The paged engine's state, page pool, scheduler and host page
         table."""
         spec, slots, max_seq, cfg = self.spec, self.slots, self.max_seq, self.model.cfg
-        self.nb_max = -(-max_seq // self.block_n)
-        self.n_pages = n_pages if n_pages is not None else slots * self.nb_max + slots
+        nb_max = -(-max_seq // self.block_n)
+        n = self._axis_size
+        self.nb_max = -(-nb_max // n) * n  # every rank's window of the table equally wide
+        shards = self._pool_shards
+        self._nb_local = self.nb_max // shards
+        # full provisioning; page-affine adds one slot-page a shard so shard
+        # 0's scratch range does not eat into its allocatable share
+        self.n_pages = (n_pages if n_pages is not None
+                        else slots * self.nb_max + slots * shards)
+        if self.n_pages % shards:
+            raise ValueError(f"page_affine needs n_pages ({self.n_pages}) divisible by the "
+                             f"{self.splitkv_axis!r} axis size ({shards})")
+        # page-affine: this rank allocates its page range alone
         self.state = self.model.init_paged_decode_state(
-            slots, n_pages=self.n_pages, nb_max=self.nb_max, device=self.device)
+            slots, n_pages=self.n_pages // shards, nb_max=self.nb_max, device=self.device)
+        if self.page_affine:
+            lo = self._axis_rank * (self.n_pages // shards)
+            self.state["caches"] = [dataclasses.replace(c, page_lo=lo, pages_total=self.n_pages)
+                                    for c in self.state["caches"]]
         first = self.state["caches"][0]
         # a shared_kv (latent) pool has no V side: its V width is the declared one
         d_v = spec.d_v if first.vw is None else first.vw.shape[-1]
@@ -348,9 +438,9 @@ class ServeEngine:
             getattr(pc, f).numel() * getattr(pc, f).element_size()
             for pc in self.state["caches"] for f in qcache._PAGED_POOL_FIELDS
             if getattr(pc, f) is not None
-        ) // self.n_pages
-        self.pool = pg.PagePool(self.n_pages, n_scratch=slots,
-                                page_bytes=self.kv_page_bytes, metrics=self.metrics)
+        ) // first.n_pages
+        self.pool = pg.PagePool(self.n_pages, n_scratch=slots, page_bytes=self.kv_page_bytes,
+                                metrics=self.metrics, shards=shards)
         share = share_prefix and spec.supports_prior
         self.retain_prefix = retain_prefix and share
         self.sched = Scheduler(
@@ -484,6 +574,7 @@ class ServeEngine:
                 "prefix_hit_rate": (sched["prefix_hit_blocks"]
                                     / max(1, sched["prefix_lookup_blocks"])),
                 "pool_pages_retained": self.pool.n_retained,
+                "pool_shards": self._pool_shards,
             })
         if self.spec_k > 1:
             out["spec_accept_rate"] = (stats["spec_accepted_tokens"]
@@ -552,10 +643,14 @@ class ServeEngine:
             if not self.sched.active:  # everyone self-preempted under faults
                 return False
 
+        step = self._step
+        if self._use_splitkv_now():
+            step = self._step_splitkv
+            self.metrics.inc("splitkv_steps")
         self._cycle_worked = True
         with self._phase("decode_dispatch"):
             tokens = torch.from_numpy(self.tokens).to(self.device)
-            logits, self.state = self._step(self.params, self.state, tokens)
+            logits, self.state = step(self.params, self.state, tokens)
         # the cycle's one device sync: reading the logits separates waiting
         # on the device from the host work around it
         with self._phase("device_wait"):
@@ -896,11 +991,30 @@ class ServeEngine:
 
     # ----------------------------------------------------- paged admission
 
-    def _alloc_page(self, req: Request, *, admission: bool = False) -> int | None:
+    def _splits_always(self) -> bool:
+        """Whether every decode step splits (no unsplit step is needed)."""
+        return self.splitkv == "always" or self.page_affine
+
+    def _use_splitkv_now(self) -> bool:
+        """Whether this decode step walks split (:func:`use_splitkv_rule` on
+        the replicated scheduler state, so every rank decides alike)."""
+        if self._step_splitkv is None:
+            return False
+        active = self.sched.active.values()
+        return use_splitkv_rule(
+            self.splitkv, page_affine=self.page_affine, axis_size=self._axis_size,
+            active=len(self.sched.active), h_kv=self.spec.n_kv_heads,
+            max_blocks=max((r.pos // self.block_n for r in active), default=0),
+            cores=self._splitkv_cores)
+
+    def _alloc_page(self, req: Request, *, admission: bool = False,
+                    block: int | None = None) -> int | None:
         """Pool alloc charged to ``req``.  A request without reservation
         left extends it by one unit, preempting victims while the pool is
         full; with no victim it preempts itself (returns None).  An injected
-        ``alloc_fail`` takes the same victim path."""
+        ``alloc_fail`` takes the same victim path.  ``block`` (page-affine)
+        pins the page to the shard that walks that table column; while the
+        shard is dry, victims are preempted until one frees a page there."""
         if self.faults is not None and self.faults.fires("alloc_fail", cycle=self._cycle,
                                                          uid=req.uid):
             victim = self._pick_victim(exclude=req)
@@ -917,7 +1031,19 @@ class ServeEngine:
                     return None
                 self._preempt(victim)
             req.reserved_pages += 1
-        page = self.pool.alloc(owner=req.uid)
+        shard = None
+        if self.page_affine and block is not None:
+            shard = block // self._nb_local
+            while not self.pool.shard_available(shard):
+                victim = self._pick_victim(exclude=req)
+                if victim is None:
+                    if admission:  # full per-shard provisioning makes this unreachable
+                        raise RuntimeError(f"page-affine shard {shard} exhausted at admission "
+                                           f"of request {req.uid} with no preemptible victim")
+                    self._preempt(req)
+                    return None
+                self._preempt(victim)
+        page = self.pool.alloc(owner=req.uid, shard=shard)
         req.reserved_pages -= 1
         req.pages.append(page)
         return page
@@ -966,8 +1092,16 @@ class ServeEngine:
                                   quant_impl=self._quant_impl)
 
     def _prefill_shared(self, toks, lens, pages, prior_len):
-        """Suffix prefill over the shared prefix, dequantized from the pools."""
-        prior = [qcache.dequant_prior(c, pages) for c in self.state["caches"]]
+        """Suffix prefill over the shared prefix, dequantized from the pools
+        (page-affine: gathered from the ranks that hold its pages)."""
+        fetch = [None] * len(self.state["caches"])
+        if self.page_affine:
+            from repro_torch.dist.splitkv import gather_prior_pages
+
+            fetch = [gather_prior_pages(c, pages, self.mesh, self.splitkv_axis)
+                     for c in self.state["caches"]]
+        prior = [qcache.dequant_prior(c, pages, fetch=f)
+                 for c, f in zip(self.state["caches"], fetch)]
         return self.model.prefill(self.params, {"tokens": toks}, toks.shape[1],
                                   lengths=lens, quant_impl=self._quant_impl,
                                   prior=prior, prior_len=prior_len)
@@ -1015,7 +1149,8 @@ class ServeEngine:
             sl = req.suffix_len(self.block_n)
             n_blocks = sl // self.block_n
             # covered by the reservation floor: never preempts here
-            pgs = [self._alloc_page(req, admission=True) for _ in range(n_blocks)]
+            # page-affine: fresh block j lands at table column s + j
+            pgs = [self._alloc_page(req, admission=True, block=s + j) for j in range(n_blocks)]
             self._table[req.slot, :] = req.slot  # fresh scratch row
             self._table[req.slot, :s] = req.shared_pages
             if req.spec_page is not None:  # speculative flush destination
@@ -1146,13 +1281,14 @@ class ServeEngine:
                 blk = (pos + j) // self.block_n
                 entry = int(self._table[req.slot, blk])
                 if entry < self.slots:  # still scratch -> fresh private page
-                    page = self._alloc_page(req)
+                    page = self._alloc_page(req, block=blk)
                     if page is None:
                         continue  # self-preempted: requeued, row reset
                     self._table[req.slot, blk] = page
                     self._table_dirty = True
                 elif self.pool.refcount(entry) > 1:  # shared -> copy on write
-                    page = self._alloc_page(req)
+                    # page-affine: source and copy back column blk, one shard
+                    page = self._alloc_page(req, block=blk)
                     if page is None:
                         continue
                     cow_src.append(entry)

@@ -4,9 +4,8 @@ Host-side twin of :class:`repro_torch.core.qcache.PagedQuantKVCache`: the
 card holds the pools and page tables, this module decides which pool page
 holds which request's block.  The allocator is the JAX package's
 (``repro/serve/pages.py``), decision for decision: the same free-list order,
-refcounts, reservations and retained tier, so one scripted sequence drives
-both to the same state.  Page-affine sharding of the free list waits for the
-port's ``dist`` layer (ROADMAP A11).
+refcounts, reservations, retained tier and page-affine shards, so one
+scripted sequence drives both to the same state.
 
 Commitment accounting: every page the pool has promised is counted once,
 either as a **reservation** (``reserved``: pages a live request may still
@@ -28,6 +27,14 @@ before the page is reused.
 :meth:`PagePool.alloc` / :meth:`PagePool.retain`; the engine passes request
 uids) and each owner its outstanding reservation units, so a free by a
 non-holder, a double free or a double release raises at the faulting call.
+
+**Page-affine sharding** (``shards > 1``): the free list splits into
+``shards`` contiguous page ranges, matching pools whose page axis is split
+across a mesh axis (``dist.splitkv`` with ``page_affine=True``: each rank
+holds one range).  ``alloc(shard=c)`` hands out pages of range ``c`` only,
+the shard that walks the table columns the page backs; unpinned allocs go
+round-robin across the shards with free pages.  Scratch pages sit in shard
+0.  Retained-tier reclaim honours the same shard filter.
 
 Scratch pages ``[0, n_scratch)``, one per decode slot, are never allocated:
 page tables point unassigned entries at the slot's scratch page, so a flush
@@ -52,20 +59,35 @@ from repro_torch.core.device import upload
 
 class PagePool:
     """Free-list page allocator with commitment accounting, refcounts, holder
-    and owner ledgers, and an LRU retained tier."""
+    and owner ledgers, an LRU retained tier and optional page-affine
+    shards."""
 
     def __init__(self, n_pages: int, *, n_scratch: int, page_bytes: int = 0,
-                 metrics=None):
+                 metrics=None, shards: int = 1):
         """``page_bytes`` is the size of one page across every paged layer
         (the engine measures it from the pools), for occupancy in bytes.
         ``metrics`` (a ``telemetry.MetricsRegistry``) keeps the pool gauges
-        current after every accounting change."""
+        current after every accounting change.  ``shards`` splits the free
+        list into that many contiguous page ranges (module docstring); the
+        scratch pages must fit inside shard 0."""
         if n_pages <= n_scratch:
             raise ValueError(f"n_pages={n_pages} must exceed n_scratch={n_scratch}")
+        if shards < 1 or n_pages % shards:
+            raise ValueError(f"n_pages={n_pages} must be a positive multiple of "
+                             f"shards={shards}")
+        if shards > 1 and n_scratch >= n_pages // shards:
+            raise ValueError(f"n_scratch={n_scratch} must fit inside shard 0 "
+                             f"({n_pages // shards} pages/shard)")
         self.n_pages = n_pages
         self.n_scratch = n_scratch
         self.page_bytes = page_bytes
-        self._free: deque[int] = deque(range(n_scratch, n_pages))
+        self.shards = shards
+        pps = n_pages // shards
+        self._pages_per_shard = pps
+        self._shard_free: list[deque[int]] = [
+            deque(range(max(n_scratch, c * pps), (c + 1) * pps)) for c in range(shards)]
+        self._free = self._shard_free[0]  # the whole free list when shards == 1
+        self._rr = 0  # round-robin shard cursor of unpinned allocs
         self._refcount = np.zeros(n_pages, np.int32)
         self.reserved = 0  # pages promised but not yet allocated
         # RETAINED tier: page -> None, oldest first (LRU eviction order)
@@ -110,7 +132,7 @@ class PagePool:
 
     @property
     def n_free(self) -> int:
-        return len(self._free)
+        return sum(len(d) for d in self._shard_free)
 
     @property
     def n_used(self) -> int:
@@ -136,8 +158,27 @@ class PagePool:
         return self.n_used * self.page_bytes
 
     def free_pages(self) -> list[int]:
-        """The free list, in allocation order (audit hook)."""
-        return list(self._free)
+        """The free pages, each shard's in allocation order, shards in turn
+        (audit hook)."""
+        return [p for d in self._shard_free for p in d]
+
+    # -------------------------------------------------------------- shards
+
+    def shard_of(self, page: int) -> int:
+        """The shard holding ``page``: contiguous ranges of ``n_pages //
+        shards`` pages."""
+        return page // self._pages_per_shard
+
+    def shard_free(self, shard: int) -> int:
+        """Free pages in ``shard``."""
+        return len(self._shard_free[shard])
+
+    def shard_available(self, shard: int) -> bool:
+        """Whether ``alloc(shard=shard)`` can succeed without preemption: a
+        free page in the shard, or a retained one reclaim can convert."""
+        if self._shard_free[shard]:
+            return True
+        return any(self.shard_of(p) == shard for p in self._retained)
 
     # ------------------------------------------------------ retained tier
 
@@ -148,16 +189,21 @@ class PagePool:
         """Retained pages, next-to-reclaim first (audit hook)."""
         return list(self._retained)
 
-    def reclaim_retained(self, n: int) -> int:
-        """Evict up to ``n`` pages from the oldest end of the retained tier
-        back to the free list (``on_release`` fires first, so the prefix
-        index forgets them before they can be reused).  Returns how many."""
+    def reclaim_retained(self, n: int, *, shard: int | None = None) -> int:
+        """Evict up to ``n`` pages (of ``shard`` only, if given) from the
+        oldest end of the retained tier back to the free list
+        (``on_release`` fires first, so the prefix index forgets them before
+        they can be reused).  Returns how many."""
         done = 0
-        for page in list(self._retained)[:n]:
+        for page in list(self._retained):
+            if done >= n:
+                break
+            if shard is not None and self.shard_of(page) != shard:
+                continue
             del self._retained[page]
             if self.on_release is not None:
                 self.on_release(page)
-            self._free.append(page)
+            self._shard_free[self.shard_of(page)].append(page)
             done += 1
         if done:
             self.reclaim_count += done
@@ -206,14 +252,36 @@ class PagePool:
 
     # ------------------------------------------------------ physical pages
 
-    def alloc(self, *, covered: bool = True, owner=None) -> int:
+    def _pop_free(self, shard: int | None) -> int:
+        """Pop a free page: from ``shard`` when pinned, else round-robin
+        across the shards with free pages.  Reclaims from the retained tier
+        only when the free list(s) in question are dry."""
+        if shard is not None:
+            if not self._shard_free[shard]:
+                self.reclaim_retained(1, shard=shard)
+            if not self._shard_free[shard]:
+                raise RuntimeError(f"page pool exhausted in shard {shard} (free={self.n_free} "
+                                   f"elsewhere, retained={self.n_retained})")
+            return self._shard_free[shard].popleft()
+        if not any(self._shard_free):
+            self.reclaim_retained(1)
+        for off in range(self.shards):
+            c = (self._rr + off) % self.shards
+            if self._shard_free[c]:
+                self._rr = (c + 1) % self.shards
+                return self._shard_free[c].popleft()
+        raise RuntimeError("page pool exhausted")
+
+    def alloc(self, *, covered: bool = True, owner=None, shard: int | None = None) -> int:
         """Pop a free page (refcount 1, held by ``owner``).
 
         ``covered=True`` (the serving path) converts one reserved unit, and
         raises when none is outstanding (or, with an ``owner``, when that
         owner has none).  ``covered=False`` (tests, tooling) allocates
         outside any reservation and refuses to push ``committed`` past
-        ``capacity``."""
+        ``capacity``.  ``shard`` pins the page to one shard's range, which
+        can run dry while the pool has pages (the engine's affinity-aware
+        preemption guards that)."""
         if covered:
             if not self.reserved:
                 raise RuntimeError("covered alloc() with no reservation outstanding — the "
@@ -233,11 +301,7 @@ class PagePool:
             if self.committed >= self.capacity:
                 raise RuntimeError(f"uncovered alloc() would over-commit the pool "
                                    f"(committed={self.committed}, capacity={self.capacity})")
-        if not self._free:
-            self.reclaim_retained(1)
-        if not self._free:
-            raise RuntimeError("page pool exhausted")
-        page = self._free.popleft()
+        page = self._pop_free(shard)
         self._refcount[page] = 1
         self._holders[page] = [owner]
         if covered:
@@ -289,7 +353,7 @@ class PagePool:
                 self._retained[page] = None  # most recently used end
                 self._update_gauges()
                 return
-            self._free.append(page)
+            self._shard_free[self.shard_of(page)].append(page)
             self._update_gauges()
             if self.on_release is not None:
                 self.on_release(page)
@@ -318,7 +382,9 @@ def adopt_prefill(paged_caches: list, dense_caches: list, *, slot_ids: list[int]
     leading blocks (prefix sharing) already sit in the pools: the dense
     cache holds only the suffix, and the slot's ``pack_blocks`` becomes
     ``base_blocks[r] + lengths[r] // block_n``.  Page tables are pushed
-    separately (:func:`set_page_tables`)."""
+    separately (:func:`set_page_tables`).  Pools that hold a page range (a
+    rank's page-affine pools) take the blocks whose pages lie in it, every
+    residual and length all the same."""
     rows, blks, pages = [], [], []
     for r, pgs in enumerate(pages_per_req):
         for j, pg in enumerate(pgs):
@@ -330,8 +396,10 @@ def adopt_prefill(paged_caches: list, dense_caches: list, *, slot_ids: list[int]
     res = [ln % block_n for ln in lengths]
     for pc, dc in zip(paged_caches, dense_caches):
         dev = pc.kw.device
-        if rows:
-            ridx, bidx, pidx = _ints(rows, dev), _ints(blks, dev), _ints(pages, dev)
+        pos, local = pc.local_pages(pages)
+        if pos:
+            ridx, bidx = _ints([rows[i] for i in pos], dev), _ints([blks[i] for i in pos], dev)
+            pidx = _ints(local, dev)
             for f in _qc._PAGED_POOL_FIELDS:
                 pool, dn = getattr(pc, f), getattr(dc, f)
                 if pool is None:  # shared_kv: no V-side pools

@@ -81,8 +81,8 @@ class DraftPass(CapturedPass):
     what = "the draft pass"
 
     def __init__(self, model, params, state, spec, *, spec_k: int, spec_bits: int,
-                 impl: str = "auto", quant_impl: str = "auto"):
-        super().__init__(state)
+                 impl: str = "auto", quant_impl: str = "auto", splitkv=None):
+        super().__init__(state, splitkv)
         self.steps = spec_k - 1
         if self.steps < 1:
             raise ValueError(f"spec_k={spec_k} needs no draft pass (k >= 2)")
@@ -153,8 +153,8 @@ class VerifyPass(CapturedPass):
     what = "the verify pass"
 
     def __init__(self, model, params, state, spec, *, spec_k: int, impl: str = "auto",
-                 quant_impl: str = "auto"):
-        super().__init__(state)
+                 quant_impl: str = "auto", splitkv=None):
+        super().__init__(state, splitkv)
         self.k = int(spec_k)
         self.model, self.params = model, params
         self.impl, self.quant_impl = impl, quant_impl

@@ -599,15 +599,19 @@ def test_serve_cli_async_runtime_on_the_cpu(capsys):
     (["--splitkv", "never"], "11"), (["--dense", "--spec-k", "2"], "10"),
 ])
 def test_serve_cli_refuses_what_is_not_ported(argv, item, capsys):
-    """Cross-chip split-KV routing (ROADMAP A11) is refused.  What queue A
-    item 10 named is ported: ``--dense`` (the exact-length shim, for any
-    family, with ``--spec-k`` too) and ``--family xlstm`` serve the smoke
-    configs on the CPU."""
+    """What queue A items 10 and 11 named is ported: ``--dense`` (the
+    exact-length shim, for any family, with ``--spec-k`` too) and ``--family
+    xlstm`` serve the smoke configs on the CPU, and ``--splitkv`` goes to the
+    engine as in the JAX launcher, which builds no mesh: the paged engine
+    serves with every step unsplit."""
     argv = ["--smoke", "--device", "cpu", *argv] + (
         [] if "--family" in argv else ["--arch", "llama3-8b"])
     if item == "11":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, item {item}"):
-            launch_serve.main(argv)
+        stats = launch_serve.main(argv + ["--requests", "3", "--slots", "2", "--prompt-len",
+                                          "20", "--max-new", "4", "--max-seq", "128"])
+        assert "[serve] engine mode: paged, pool=" in capsys.readouterr().out
+        assert stats["decoded_tokens"] == 12 and stats["budget_retired"] == 3
+        assert stats["splitkv_steps"] == 0 and stats["pool_shards"] == 1
         return
     stats = launch_serve.main(argv + ["--requests", "3", "--slots", "2", "--prompt-len", "20",
                                       "--max-new", "4", "--max-seq", "128"])

@@ -1899,3 +1899,196 @@ def test_shim_engines_equal_sequential_on_the_card(cuda, monkeypatch, family, mo
             assert eng.stats["spec_rejected_tokens"] == 0
     else:
         assert eng._runner.step_fn.replays == eng._runner.dispatched > 0
+
+
+# --------------------------------------------------------------------------
+# cross-device split-KV: K3/K4's window, K5's page range, the one-rank mesh
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("window", [(0, 4, True), (1, 2, False), (2, 2, True), (3, 2, True),
+                                    (4, 1, True), (0, 2, False)])
+@pytest.mark.parametrize("num_splits", [1, 3, "auto"])
+def test_bitdecode_window_equals_the_call_over_a_copy(cuda, window, num_splits):
+    """K3 over blocks [lo, lo + n) of the whole cache, in place, equals K3
+    over a contiguous copy of those blocks, pack_blocks clipped and the
+    residual dropped where ``read_res`` is off: bit for bit, out and lse
+    (an empty window and one past nb included)."""
+    lo, n, res = window
+    gen = torch.Generator(device=cuda).manual_seed(lo * 7 + n)
+    q, *packed, k_res, v_res, pb, rl = _decode_args(gen, cuda, *DECODE_CASES[2])
+    kw = dict(bits=4, block_n=128, k_gran="channel", return_lse=True, num_splits=num_splits,
+              impl="cuda")
+    got = bd_ops.bitdecode_attention(q, *packed, k_res, v_res, pb, rl, block_lo=lo, n_blocks=n,
+                                     read_res=res, **kw)
+    hi = min(4, lo + n)
+    copy = [x[:, :, lo:hi].contiguous() for x in packed]
+    pad = [torch.zeros_like(x[:, :, :lo + n - hi]) for x in packed]  # the window's full width
+    copy = [torch.cat([c, p], dim=2) for c, p in zip(copy, pad)]
+    want = bd_ops.bitdecode_attention(q, *copy, k_res, v_res, torch.clamp(pb - lo, 0, hi - lo),
+                                      rl if res else torch.zeros_like(rl), **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("window", [(0, 6, True, 0), (2, 2, False, 0), (4, 2, True, 8),
+                                    (3, 3, True, 4)])
+def test_paged_bitdecode_window_and_page_lo_equal_the_call_over_a_copy(cuda, window):
+    """K4 over table columns [lo, lo + n) with its page ids rebased by
+    ``page_lo`` into pools holding pages [page_lo, page_lo + 8) equals K4
+    over a copy of the sliced, rebased table: bit for bit."""
+    lo, n, res, page_lo = window
+    g, d, block_n, bits, k_gran, pb, rl = PAGED_CASES[0]
+    gen = torch.Generator(device=cuda).manual_seed(lo + n + page_lo)
+    args = _decode_args(gen, cuda, g, d, block_n, bits, k_gran, pb, rl, 1.0)
+    q, res_t, lens = args[0], args[7:9], args[9:]
+    pool = _pools(_packed(gen, cuda, b=4, h=2, nb=4, block_n=block_n, d=d, bits=bits,
+                          k_gran=k_gran))
+    local = [p[page_lo:page_lo + 8].contiguous() for p in pool]
+    table = torch.randperm(16, generator=gen, device=cuda)[:12].reshape(2, 6).to(torch.int32)
+    kw = dict(bits=bits, block_n=block_n, k_gran=k_gran, return_lse=True, impl="cuda",
+              num_splits=3)
+    got = pg_ops.paged_bitdecode_attention(q, *local, *res_t, table, *lens, block_lo=lo,
+                                           n_blocks=n, read_res=res, page_lo=page_lo, **kw)
+    sub = torch.clamp(table[:, lo:lo + n] - page_lo, 0, 7).to(torch.int32).contiguous()
+    want = pg_ops.paged_bitdecode_attention(
+        q, *local, *res_t, sub, torch.clamp(lens[0] - lo, 0, n),
+        lens[1] if res else torch.zeros_like(lens[1]), **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("page_lo", [0, 8, 16])
+@pytest.mark.parametrize("k_gran", ["channel", "tensor"])
+def test_paged_append_page_range_bitwise(cuda, page_lo, k_gran):
+    """K5's append over pools that hold pages [page_lo, page_lo + 8) of 24:
+    the pages in the range bit for bit the whole pool's after every step,
+    pages outside never written, residuals and lengths equal, and the
+    kernel bit for bit its plain version on the range."""
+    b, h, d, block_n = 4, 2, 128, 64
+    gen = torch.Generator(device=cuda).manual_seed(page_lo)
+    arrays, lens = _append_state(gen, cuda, paged=True, b=b, h=h, d=d, block_n=block_n,
+                                 bits=4, k_gran=k_gran)
+    whole_a, whole_l = arrays, lens
+    part_a = [x[page_lo:page_lo + 8].clone() for x in arrays[:6]] + [x.clone() for x in arrays[6:]]
+    part_l = [x.clone() for x in lens]
+    plain_a, plain_l = [x.clone() for x in part_a], [x.clone() for x in part_l]
+    kw = dict(bits=4, block_n=block_n, k_gran=k_gran)
+    rng = dict(page_lo=page_lo, pages_total=24)
+    for step in range(2 * block_n + 5):
+        k_new, v_new = _new_tokens(gen, cuda, b, h, d)
+        mask = torch.tensor([True, step % 3 != 1, True, True], device=cuda)
+        rf_ops.paged_append_flush(*whole_a, k_new, v_new, *whole_l, mask=mask, impl="cuda", **kw)
+        rf_ops.paged_append_flush(*part_a, k_new, v_new, *part_l, mask=mask, impl="cuda", **kw,
+                                  **rng)
+        rf_ops.paged_append_flush(*plain_a, k_new, v_new, *plain_l, mask=mask, impl="torch",
+                                  **kw, **rng)
+        for x, y in zip(part_a[:6], whole_a[:6]):
+            assert torch.equal(x, y[page_lo:page_lo + 8]), step
+        for x, y, z in zip(part_a[6:] + part_l, whole_a[6:] + whole_l, plain_a[6:] + plain_l):
+            assert torch.equal(x, y) and torch.equal(x, z), step
+        assert all(torch.equal(x, y) for x, y in zip(part_a[:6], plain_a[:6])), step
+    assert (whole_l[1] > 0).all()  # every row flushed, into pages of every range
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL process group and a 1-D mesh over axis "data"."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    yield init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_one_rank_split_step_captured_equals_eager_and_unsplit(cuda, graph_model, nccl_mesh,
+                                                               paged):
+    """The split-KV decode step on a one-rank NCCL mesh: the captured step
+    (its all-gather in the graph) equals the eager split step and the
+    unsplit step bit for bit, 40 steps over flushes; the capture records the
+    cross-rank merge once a layer."""
+    from repro_torch.serve.async_runtime import CapturedDecodeStep
+
+    model, params = graph_model
+    ctx = catt.use_splitkv(nccl_mesh, "data")
+    with torch.no_grad():
+        eager, graphed, plain = (_decode_state(model, params, cuda, paged=paged)
+                                 for _ in range(3))
+        step = CapturedDecodeStep(model, params, graphed, splitkv=ctx)
+        n = model.cfg.n_layers
+        assert step.capture_launches["bitdecode_merge"] >= n, step.capture_launches
+        feed = torch.zeros((3, 1), dtype=torch.int32, device=cuda)
+        step.tokens.copy_(feed)
+        for i in range(40):
+            with ctx:
+                logits, eager = model.decode_step(params, eager, feed)
+            lp, plain = model.decode_step(params, plain, feed)
+            step.replay()
+            want = logits[:, 0].argmax(-1).to(torch.int32)
+            assert torch.equal(logits, lp), i
+            assert torch.equal(step.nxt, want), i
+            for a, b, c in zip(_state_fields(eager), _state_fields(graphed), _state_fields(plain)):
+                assert torch.equal(a, b) and torch.equal(a, c), f"step {i}"
+            feed = want[:, None]
+
+
+@pytest.mark.parametrize("affine", [False, True], ids=["replicated", "page_affine"])
+def test_one_rank_split_async_engine_equals_unsplit(cuda, graph_model, nccl_mesh, affine):
+    """The async engine with a one-rank mesh and ``splitkv="always"`` (and
+    page-affine pools): streams and phases bit for bit the unsplit sync
+    engine's, every decode step split, one replay a dispatch."""
+    model, params = graph_model
+    kw = dict(slots=3, max_seq=192, audit_every=1)
+    with torch.no_grad():
+        want = _drive(ServeEngine(model, params, **kw), _gpu_workload(model.cfg))
+        eng = ServeEngine(model, params, async_runtime=True, mesh=nccl_mesh, splitkv="always",
+                          page_affine=affine, **kw)
+        got = _drive(eng, _gpu_workload(model.cfg))
+    assert got == want
+    runner = eng._runner
+    assert runner.step_fn.graph is not None and runner.step_fn.replays == runner.dispatched
+    assert eng.stats["splitkv_steps"] == runner.dispatched > 0
+    assert eng.summary()["pool_shards"] == 1
+
+
+def test_async_dispatch_side_makes_no_host_sync_with_a_mesh(cuda, graph_model, nccl_mesh):
+    """``test_async_dispatch_side_makes_no_host_sync`` with a one-rank mesh,
+    page-affine pools and every step split: the collective and the page
+    range add no host sync."""
+    model, params = graph_model
+    eng = ServeEngine(model, params, slots=3, max_seq=192, async_runtime=True, mesh=nccl_mesh,
+                      splitkv="always", page_affine=True)
+    runner = eng._runner
+    consume = runner._consume_one
+
+    def consume_unchecked():
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            consume()
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    runner._consume_one = consume_unchecked
+    reqs = _gpu_workload(model.cfg)
+    try:
+        with torch.no_grad():
+            eng.submit(reqs[0])
+            torch.cuda.set_sync_debug_mode("error")
+            eng.step()
+            for r in reqs[1:]:
+                eng.submit(r)
+            while eng._has_work():
+                eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        eng.close()
+    assert all(r.done for r in reqs) and eng.sched.stats["prefix_hit_blocks"] > 0
+    assert eng.stats["splitkv_steps"] > 0

@@ -101,6 +101,10 @@ _FORBIDDEN = re.compile(
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    port = REPO / "src" / "repro_torch"
+    for module in ("dist/__init__.py", "dist/splitkv.py", "dist/state_specs.py",
+                   "launch/mesh.py"):  # the distributed layer is held to it too
+        assert port / module in files, module
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(REPO)} imports {hits}"

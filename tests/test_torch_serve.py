@@ -352,10 +352,29 @@ def test_cow_pair_equals_solo_runs(small_model):
                                 dict(mesh=object()), dict(splitkv="always"),
                                 dict(page_affine=True), dict(paged=False)])
 def test_unported_options_raise(small_model, kw):
-    """The mesh, the split-KV routing and page-affine pools raise (ROADMAP
-    A11); ``paged=False``, the exact-length shim, is ported and serves
-    (its streams against the paged engine's: tests/test_torch_xlstm.py)."""
+    """Every option is ported.  As in the JAX engine: an object with no
+    ``data`` axis as the mesh raises "mesh has no axis", ``page_affine``
+    without a mesh raises "requires a mesh", and ``splitkv`` without a mesh
+    serves unsplit (the split walk across ranks: tests/test_torch_dist_serve.py).
+    ``paged=False``, the exact-length shim, serves (its streams against the
+    paged engine's: tests/test_torch_xlstm.py)."""
     cfg, model, params = small_model
+    if "mesh" in kw:
+        with pytest.raises(ValueError, match="mesh has no axis 'data'"):
+            _engine(model, params, **kw)
+        return
+    if "page_affine" in kw:
+        with pytest.raises(ValueError, match="page_affine=True requires a mesh"):
+            _engine(model, params, **kw)
+        return
+    if "splitkv" in kw:
+        engine = _engine(model, params, **kw)
+        req = Request(uid=0, prompt=np.arange(20, dtype=np.int32) % cfg.vocab,
+                      max_new_tokens=3)
+        engine.submit(req)
+        summary = engine.run()
+        assert req.done and summary["splitkv_steps"] == 0 and summary["pool_shards"] == 1
+        return
     if kw == dict(paged=False):
         engine = _engine(model, params, **kw)
         assert not engine.paged and engine.pool is None
@@ -365,9 +384,6 @@ def test_unported_options_raise(small_model, kw):
         summary = engine.run()
         assert req.done and req.pos == 23 and summary["prefill_calls"] == 1
         assert "kv_page_bytes" not in summary
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine(model, params, **kw)
 
 
 # --------------------------------------------------------------------------

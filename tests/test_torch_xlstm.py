@@ -388,12 +388,16 @@ def test_nokv_shim_engine_serves_and_accounts(xlstm_model):
 
 def test_paged_true_refused_for_a_family_that_does_not_page(xlstm_model):
     """``paged=True`` on a model whose spec does not page raises JAX's
-    ``ValueError``; the mesh still raises for ROADMAP A11."""
+    ``ValueError``; ``splitkv="always"`` without a mesh is accepted, as in
+    JAX (no split step exists), and ``page_affine`` raises JAX's errors."""
     _, model, params = xlstm_model
     with pytest.raises(ValueError, match="no paged decode capability"):
         ServeEngine(model, params, slots=2, max_seq=64, paged=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ServeEngine(model, params, slots=2, max_seq=64, splitkv="always", device="cpu")
+    engine = ServeEngine(model, params, slots=2, max_seq=64, splitkv="always", device="cpu")
+    assert not engine.paged and engine._step_splitkv is None
+    assert not engine._use_splitkv_now()
+    with pytest.raises(ValueError, match="requires a mesh"):
+        ServeEngine(model, params, slots=2, max_seq=64, page_affine=True, device="cpu")
 
 
 def _oracle(model, params, prompt, max_new, max_seq=128):
