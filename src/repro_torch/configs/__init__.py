@@ -1,1 +1,3 @@
-from repro_torch.configs.base import ArchConfig, get_config, smoke_config  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES, ArchConfig, ShapeSpec, get_config, smoke_config,
+)

@@ -1,8 +1,9 @@
 """Architecture configuration for the models the port runs.
 
 A copy of the fields of the JAX package's ``ArchConfig`` that the dense,
-MoE, MLA, Mamba2-hybrid, xLSTM, encoder-decoder and VLM-stub paths read, with the
-JAX defaults.  ``mixer`` and ``rope`` exist so that a config asking for what
+MoE, MLA, Mamba2-hybrid, xLSTM, encoder-decoder and VLM-stub paths and the
+training path read, with the JAX defaults, and the JAX package's
+:class:`ShapeSpec` registry of the assigned shapes.  ``mixer`` and ``rope`` exist so that a config asking for what
 the port does not run yet is refused by
 :class:`repro_torch.models.transformer.DecoderLM`.
 """
@@ -10,6 +11,23 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+# The four assigned shapes, the JAX package's (the same for every LM family).
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +104,15 @@ class ArchConfig:
     kv_bits: int = 4
     kv_block: int = 128
     kv_gran: str = "channel"
+
+    # training: the optimizer (train/step.py, optim/), remat of each block
+    # (``torch.utils.checkpoint``), the placement profile of a multi-rank run
+    # (JAX's field and values; nothing reads it until multi-rank training,
+    # ROADMAP queue A, item 12.5) and the gradient-accumulation microbatches
+    optimizer: str = "adamw"  # adamw | adafactor
+    remat: str = "full"  # none | full
+    sharding_profile: str = "fsdp_tp"  # tp | fsdp_tp
+    microbatches: int = 8
 
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

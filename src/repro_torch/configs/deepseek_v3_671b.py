@@ -11,7 +11,7 @@ CONFIG = ArchConfig(
     n_experts=256, top_k=8, d_expert=2048, n_shared_experts=1,
     first_dense_layers=3, router_score="sigmoid", router_norm_topk=True,
     q_lora=1536, kv_lora=512, qk_nope=128, qk_rope=64, v_head_dim=128,
-    mtp=True,
+    mtp=True, optimizer="adafactor",
 )
 
 SMOKE = CONFIG.with_(
@@ -19,4 +19,5 @@ SMOKE = CONFIG.with_(
     d_ff=256, vocab=512, n_experts=8, top_k=2, d_expert=64,
     first_dense_layers=1, q_lora=64, kv_lora=128, qk_nope=32, qk_rope=32,
     v_head_dim=32, kv_block=64, attn_block_k=64,
+    remat="none",
 )

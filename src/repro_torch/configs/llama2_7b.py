@@ -10,4 +10,5 @@ CONFIG = ArchConfig(
 SMOKE = CONFIG.with_(
     n_layers=2, d_model=128, n_heads=4, n_kv_heads=4, head_dim=32,
     d_ff=256, vocab=512, kv_block=64, attn_block_k=64,
+    remat="none",
 )

@@ -15,4 +15,5 @@ SMOKE = CONFIG.with_(
     n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, head_dim=32,
     d_ff=256, vocab=512, mrope_sections=(4, 6, 6), n_patches=16,
     patch_grid=(4, 4), kv_block=64, attn_block_k=64,
+    remat="none",
 )

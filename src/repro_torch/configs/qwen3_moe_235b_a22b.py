@@ -14,4 +14,5 @@ SMOKE = CONFIG.with_(
     n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, head_dim=32,
     vocab=512, n_experts=8, top_k=2, d_expert=64,
     kv_block=64, attn_block_k=64,
+    remat="none",
 )

@@ -12,4 +12,5 @@ CONFIG = ArchConfig(
 SMOKE = CONFIG.with_(
     n_layers=4, d_model=64, n_heads=2, n_kv_heads=2, head_dim=32,
     vocab=512, mlstm_per_slstm=1,
+    remat="none",
 )

@@ -17,4 +17,5 @@ SMOKE = CONFIG.with_(
     d_ff=256, vocab=512, ssm_state=16, mamba_d_inner=256, mamba_heads=8,
     mamba_groups=2, mamba_chunk=32, attn_every=2,
     kv_block=64, attn_block_k=64,
+    remat="none",
 )

@@ -227,14 +227,20 @@ def blockwise_attention(q, k, v, *, causal: bool = True, sm_scale: float | None 
     sliced back to d_v.  Zero channels add exact zeros to every score and
     to every output channel, so the first d_v channels are the attention
     of the unpadded inputs.
+    The kernel has no backward, so under autograd (grad enabled and any
+    input requiring grad) the kernel route raises a ``RuntimeError``.
     ``impl="torch"`` is the plain loop (:func:`blockwise_attention_plain`),
-    returning f32.  ``"auto"`` takes the kernel for CUDA tensors and the
-    plain loop for CPU tensors.
+    returning f32, which autograd differentiates.  ``"auto"`` takes the
+    kernel for CUDA tensors and the plain loop for CPU tensors.
     """
     s, d_k, t, d_v = q.shape[1], q.shape[-1], v.shape[1], v.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / (d_k**0.5)
     if _build.resolve_impl(impl, q, k, v) == "cuda":
+        if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+            raise RuntimeError("the flash-prefill kernel has no backward: its output would "
+                               "carry no autograd graph; train with impl='torch' (the plain "
+                               "loop, models.attention.TRAIN_IMPL)")
         if causal and s != t:
             raise ValueError(f"the flash-prefill kernel's causal mode needs S == T, got {s} "
                              f"queries over {t} keys")

@@ -124,21 +124,22 @@ def _compile_and_link(so: Path) -> None:
     os.replace(tmp, so)
 
 
-def sass_counts(names: tuple[str, ...], fn_filter: str) -> dict | None:
-    """Per kernel function of the built library whose mangled name holds
+def sass_counts_many(specs, library: str | None = None) -> list | None:
+    """For each ``(names, fn_filter)`` in ``specs``: per kernel function of
+    the built library (or ``library``) whose mangled name holds
     ``fn_filter``, how many of its SASS instructions start with each of
-    ``names`` (``cuobjdump -sass``); None where the toolkit has no
-    cuobjdump."""
+    ``names``, all from one ``cuobjdump -sass``; None where the toolkit has
+    no cuobjdump."""
     tool = Path(_nvcc()).parent / "cuobjdump"
     if not tool.exists():
         return None
-    sass = subprocess.run([str(tool), "-sass", build()._name], capture_output=True, text=True,
-                          check=True).stdout
-    return count_sass(sass, names, fn_filter)
+    sass = subprocess.run([str(tool), "-sass", library or build()._name], capture_output=True,
+                          text=True, check=True).stdout
+    return [count_sass(sass, names, fn_filter) for names, fn_filter in specs]
 
 
 def count_sass(sass: str, names: tuple[str, ...], fn_filter: str) -> dict:
-    """The counting of :func:`sass_counts` on ``cuobjdump -sass`` text."""
+    """The counting of :func:`sass_counts_many` on ``cuobjdump -sass`` text."""
     counts: dict = {}
     fn = None
     for line in sass.splitlines():

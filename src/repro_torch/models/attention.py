@@ -16,6 +16,16 @@ from repro_torch.core import qcache
 from repro_torch.models import layers
 from repro_torch.models.params import P
 
+# The training forward's attention.  The JAX package trains through
+# ``blockwise_attention``'s default impl="xla" (repro/models/attention.py:60),
+# plain XLA code outside any Pallas kernel (its flash kernel is forward
+# only), so here it is the plain online-softmax loop, which autograd
+# differentiates: the counterpart of that XLA code, as ``torch.matmul`` is of
+# the projections' einsums, and not a fallback.  K6 writes its output through
+# ctypes, with no autograd graph (``core.attention.blockwise_attention``
+# refuses it under autograd).
+TRAIN_IMPL = "torch"
+
 
 def attn_def(cfg) -> dict:
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim

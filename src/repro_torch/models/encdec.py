@@ -20,7 +20,8 @@ is
      "pos": int32 [B]}
 
 The serving engine does not run this family (``paged_spec`` is None: a
-request carries no frame embeddings), and training is not ported.
+request carries no frame embeddings).  :meth:`EncDecLM.loss` is the training
+loss, over ``batch["frames"]`` and the decoder's tokens.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as mattn
 from repro_torch.models import layers
 from repro_torch.models.params import init_tree, stack
-from repro_torch.models.transformer import _layer
+from repro_torch.models.transformer import _layer, _next_token_loss
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -91,19 +92,46 @@ class EncDecLM:
 
     # ------------------------------------------------------------ encoder
 
+    def _enc_layer(self, p, x, positions, impl):
+        x = x + mattn.attn_train(p["attn"], self.cfg, self._norm(p["ln1"], x), positions,
+                                 causal=False, impl=impl)
+        return self._mlp(p, x)
+
     def encode(self, params, frames, *, impl: str = "auto"):
         """frames [B, T, d] (the stub front end's output) -> memory [B, T, d]
         (bf16): full self attention (the flash-prefill kernel's full mode on
-        the card), RoPE over 0..T-1."""
+        the card), RoPE over 0..T-1.  Each layer runs under ``layers.remat``
+        (a plain call without autograd)."""
         cfg = self.cfg
         x = frames.to(torch.bfloat16)
         positions = _positions(*x.shape[:2], x.device)
         for li in range(cfg.enc_layers):
-            p = _layer(params["encoder"], li)
-            x = x + mattn.attn_train(p["attn"], cfg, self._norm(p["ln1"], x), positions,
-                                     causal=False, impl=impl)
-            x = self._mlp(p, x)
+            x = layers.remat(cfg, self._enc_layer, _layer(params["encoder"], li), x,
+                             positions, impl)
         return self._norm(params["enc_norm"], x)
+
+    # ------------------------------------------------------------ train
+
+    def _dec_layer_train(self, p, x, mem, positions):
+        cfg = self.cfg
+        x = x + mattn.attn_train(p["attn"], cfg, self._norm(p["ln1"], x), positions,
+                                 impl=mattn.TRAIN_IMPL)
+        x = x + mattn.cross_attn_train(p["xattn"], cfg, self._norm(p["ln_x"], x), mem,
+                                       impl=mattn.TRAIN_IMPL)
+        return self._mlp(p, x)
+
+    def loss(self, params, batch):
+        """The next-token cross entropy of the decoder's ``tokens`` /
+        ``labels`` / ``loss_mask`` [B, S] given the encoder's ``frames`` [B,
+        T, d]; every encoder and decoder layer under ``layers.remat``."""
+        mem = self.encode(params, batch["frames"], impl=mattn.TRAIN_IMPL)
+        tokens = batch["tokens"]
+        x = layers.embed(params["embed"], tokens)
+        positions = _positions(*tokens.shape, x.device)
+        for li in range(self.cfg.dec_layers):
+            x = layers.remat(self.cfg, self._dec_layer_train, _layer(params["decoder"], li), x,
+                             mem, positions)
+        return _next_token_loss(self._logits(params, x), batch)
 
     # ------------------------------------------------------------ decode
 

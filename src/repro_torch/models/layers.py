@@ -4,8 +4,19 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models.params import P
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass when
+    ``cfg.remat == "full"`` (``torch.utils.checkpoint``, the JAX package's
+    ``jax.checkpoint`` around the same unit); the values are the same either
+    way.  Without autograd (prefill, decode) it is a plain call."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def rmsnorm_def(d: int, *, plus_one: bool = False):

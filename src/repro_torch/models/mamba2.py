@@ -149,6 +149,11 @@ def _mamba2_forward(p, cfg, x):
     return torch.matmul(y, p["out_proj"]), final, xbc_raw
 
 
+def mamba2_train(p, cfg, x):
+    """The training forward of x [B, S, d]: out [B, S, d], no state kept."""
+    return _mamba2_forward(p, cfg, x)[0]
+
+
 def mamba2_prefill(p, cfg, x):
     """The chunked-parallel prefill of x [B, S, d]: returns (out [B, S, d],
     the decode state), the state the SSD's final state and the last

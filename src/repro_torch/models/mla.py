@@ -1,8 +1,9 @@
 """Multi-head Latent Attention (DeepSeek-V2/V3) with a quantized latent cache.
 
-The prefill uses the expanded form; the decode the *absorbed* form, where the
-queries are projected into the latent space (``q_nope @ W_uk``) and attention
-runs straight against the cached latent stream ``[c_kv ; k_rope]``.
+The prefill and the training forward use the expanded form; the decode the
+*absorbed* form, where the queries are projected into the latent space
+(``q_nope @ W_uk``) and attention runs straight against the cached latent
+stream ``[c_kv ; k_rope]``.
 BitDecoding applies to the latent cache itself (``shared_kv``): one quantized
 stream feeds both the scores and the values (V is its first ``kv_lora``
 channels), and ``g_q = n_heads`` query rows share its one KV head.
@@ -79,6 +80,28 @@ def _expand_latent(p, cfg, lat):
     return _expand(p, cfg, lat[..., : cfg.kv_lora], lat[..., cfg.kv_lora:])
 
 
+def _expanded_qkv(p, cfg, x, positions):
+    """The expanded form's q [B, S, h, qk_nope + qk_rope], k (the same
+    width) and v [B, S, h, v_head_dim] of x [B, S, d], and the latent parts
+    (c_kv, k_rope) they came from."""
+    c_kv, k_rope = _latent(p, cfg, x, positions)
+    q_nope, q_rope = _queries(p, cfg, x, positions)
+    k, v = _expand(p, cfg, c_kv, k_rope)
+    return torch.cat([q_nope, q_rope], dim=-1), k, v, (c_kv, k_rope)
+
+
+def mla_train(p, cfg, x, positions, *, impl="auto"):
+    """x [B, S, d] -> [B, S, d]: the expanded-form causal attention with no
+    cache (the training forward; ``impl`` as for :func:`mla_prefill_cache`).
+    JAX pins q, k and v to a batch x head placement here (``constrain``,
+    repro/models/mla.py:71-75), which is a no-op off a mesh: the placements
+    come with multi-rank training (ROADMAP queue A, item 12.5)."""
+    q, k, v, _ = _expanded_qkv(p, cfg, x, positions)
+    out = catt.blockwise_attention(q, k, v, sm_scale=_sm_scale(cfg), block_k=cfg.attn_block_k,
+                                   impl=impl)
+    return _out(out.to(x.dtype), p["wo"])
+
+
 def mla_init_cache(cfg, batch: int, max_seq: int, *, block_align=None, device=None):
     """The latent cache: one KV 'head' of width kv_lora + qk_rope, shared_kv,
     K's params per channel."""
@@ -114,10 +137,7 @@ def mla_prefill_cache(p, cfg, x, positions, max_seq: int, *, impl="auto",
     through ``core.attention.prefix_suffix_attention`` (plain PyTorch;
     ``positions`` are suffix-global).  The cache holds suffix latents only.
     """
-    c_kv, k_rope = _latent(p, cfg, x, positions)
-    q_nope, q_rope = _queries(p, cfg, x, positions)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k, v = _expand(p, cfg, c_kv, k_rope)
+    q, k, v, (c_kv, k_rope) = _expanded_qkv(p, cfg, x, positions)
     if prior is None:
         out = catt.blockwise_attention(q, k, v, sm_scale=_sm_scale(cfg),
                                        block_k=cfg.attn_block_k, impl=impl)

@@ -44,7 +44,22 @@ from repro_torch.models.family import PagedSpec
 from repro_torch.models.params import P, init_tree, stack
 
 _LATER = "ROADMAP queue A, item 10 (the other model families)"
-_TRAINING = "ROADMAP queue A, item 12 (training)"
+
+
+def _ce_loss(logits, labels, mask):
+    """The masked mean token cross entropy of logits [..., V] (log-softmax
+    in f32) at ``labels``, over the positions where ``mask`` is nonzero."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, labels[..., None].long())[..., 0]
+    mask = mask.float()
+    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def _next_token_loss(logits, batch, shift: int = 1):
+    """:func:`_ce_loss` of position t's logits against the label at t +
+    ``shift``."""
+    return _ce_loss(logits[:, :-shift], batch["labels"][:, shift:],
+                    batch["loss_mask"][:, shift:])
 
 
 def _check_supported(cfg, mixers=("attn", "mla")) -> None:
@@ -130,7 +145,7 @@ class DecoderLM:
             defs["unembed"] = layers.unembed_def(cfg.d_model, cfg.padded_vocab)
         for i, (kind, n) in enumerate(self.stacks):
             defs[f"stack_{i}"] = stack(self._block_def(kind), n)
-        if cfg.mtp:  # the multi-token-prediction head: JAX's loss reads it, no forward path
+        if cfg.mtp:  # the multi-token-prediction head: only the loss reads it
             defs["mtp"] = {"norm": layers.norm_def(cfg.norm, cfg.d_model),
                            "proj": P((cfg.d_model, cfg.d_model))}
         return defs
@@ -164,6 +179,54 @@ class DecoderLM:
         if self.cfg.tie_embeddings:
             return layers.tied_unembed(params["embed"], x, self.cfg.vocab)
         return layers.unembed(params["unembed"], x, self.cfg.vocab)
+
+    # ------------------------------------------------------------ train
+
+    def _mixer_train(self, p, h, positions):
+        fn = mla.mla_train if self.mla else mattn.attn_train
+        return fn(p, self.cfg, h, positions, impl=mattn.TRAIN_IMPL)
+
+    def _block_train(self, p, kind, x, positions):
+        """One block of the training forward: (x, its MoE auxiliary loss,
+        f32 0 for a block without one)."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        h = self._norm(p["ln1"], x)
+        x = x + self._mixer_train(p["attn"], h, positions)
+        if kind == "none" or (cfg.parallel_residual and kind != "mlp"):
+            return x, aux
+        h2 = h if cfg.parallel_residual else self._norm(p["ln2"], x)
+        if kind == "moe":
+            f, aux = moe.moe_ffn(p["moe"], cfg, h2)
+        else:
+            f = layers.mlp(p["mlp"], h2, cfg.act)
+        return x + f, aux
+
+    def loss(self, params, batch):
+        """The training loss of ``batch`` (``tokens``, ``labels``,
+        ``loss_mask`` [B, S]; ``patches`` ahead of them with the vision
+        stub): the next-token cross entropy over the text, plus 0.3 times
+        the MTP head's t + 2 cross entropy (``cfg.mtp``), plus the MoE
+        layers' summed auxiliary loss weighted by ``aux_loss_weight /
+        n_layers``.  Each block runs under ``layers.remat`` (JAX's
+        ``jax.checkpoint`` of the scan body)."""
+        cfg = self.cfg
+        x, positions = self._front(params, batch)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, (kind, n) in enumerate(self.stacks):
+            for li in range(n):
+                x, a = layers.remat(cfg, self._block_train, _layer(params[f"stack_{i}"], li),
+                                    kind, x, positions)
+                aux = aux + a
+        lead = cfg.n_patches if cfg.vision_stub else 0  # the logits over the text alone
+        loss = _next_token_loss(self._logits(params, x)[:, lead:], batch)
+        if cfg.mtp:  # the simplified multi-token-prediction head: t + 2
+            h = layers.apply_norm(cfg.norm, params["mtp"]["norm"], x)
+            h = torch.matmul(h, params["mtp"]["proj"])
+            loss = loss + 0.3 * _next_token_loss(self._logits(params, h)[:, lead:], batch, 2)
+        if cfg.n_experts:
+            loss = loss + cfg.aux_loss_weight * aux / cfg.n_layers
+        return loss
 
     def _ffn(self, p, kind, h):
         if kind == "moe":  # the auxiliary loss dropped, as JAX's forward paths do
@@ -429,6 +492,36 @@ class HybridLM:
         x = x + a
         return x + layers.mlp(p["mlp"], layers.apply_norm(cfg.norm, p["ln2"], x), cfg.act), cache
 
+    # ------------------------------------------------------------ train
+
+    def _mamba_train(self, lp, x):
+        cfg = self.cfg
+        return x + mamba2.mamba2_train(lp["mixer"], cfg,
+                                       layers.apply_norm(cfg.norm, lp["ln"], x))
+
+    def _super_train(self, group, shared, x, positions):
+        """One super-block of the training forward: its Mamba2 layers, then
+        the shared block."""
+        for j in range(self.cfg.attn_every):
+            x = self._mamba_train(_layer(group, j), x)
+        return self._shared_block(shared, x, lambda h: (mattn.attn_train(
+            shared["attn"], self.cfg, h, positions, impl=mattn.TRAIN_IMPL), None))[0]
+
+    def loss(self, params, batch):
+        """The next-token cross entropy of ``batch`` (``tokens``,
+        ``labels``, ``loss_mask`` [B, S]).  Each super-block runs under
+        ``layers.remat``; the tail's layers do not, as in JAX."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = layers.embed(params["embed"], tokens)
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        for i in range(self.n_super):
+            x = layers.remat(self.cfg, self._super_train, _layer(params["main"], i),
+                             params["shared_attn"], x, positions)
+        for i in range(self.tail):
+            x = self._mamba_train(_layer(params["tail"], i), x)
+        return _next_token_loss(self._logits(params, x), batch)
+
     # ------------------------------------------------------------ prefill
 
     def prefill(self, params, batch, max_seq: int, *, impl: str = "auto",
@@ -619,8 +712,27 @@ class XLSTMLM:
         unless given)."""
         return init_tree(self.param_defs(), gen, device)
 
+    def _super_train(self, group, x):
+        """One super-block of the training forward from fresh states, which
+        are dropped: its mLSTM blocks, then its sLSTM block (the sequential
+        cells, as JAX trains them)."""
+        cfg = self.cfg
+        for j in range(cfg.mlstm_per_slstm):
+            lp = _layer(group["mlstm"], j)
+            h = layers.apply_norm(cfg.norm, lp["ln"], x)
+            x = x + xlstm.mlstm_block(lp["mixer"], cfg, h)[0]
+        lp = group["slstm"]
+        return x + xlstm.slstm_block(lp["mixer"], cfg, layers.apply_norm(cfg.norm, lp["ln"], x))[0]
+
     def loss(self, params, batch):
-        raise NotImplementedError(f"training is not ported yet: {_TRAINING}")
+        """The next-token cross entropy of ``batch`` (``tokens``,
+        ``labels``, ``loss_mask`` [B, S]); each super-block runs under
+        ``layers.remat``, each whole time chunk of its recurrences under
+        ``xlstm._chunked_time_scan``'s checkpoint."""
+        x = layers.embed(params["embed"], batch["tokens"])
+        for i in range(self.n_super):
+            x = layers.remat(self.cfg, self._super_train, _layer(params["blocks"], i), x)
+        return _next_token_loss(self._logits(params, x), batch)
 
     def _logits(self, params, x):
         x = layers.apply_norm(self.cfg.norm, params["final_norm"], x)

@@ -7,9 +7,11 @@ port runs here.  The JAX package computes both recurrences with XLA, outside
 any Pallas kernel; here they are plain PyTorch, as its products are.
 
 JAX's ``_chunked_time_scan`` (a ``lax.scan`` over time under
-``jax.checkpoint``) becomes a loop over time steps: the checkpoint is a
-training concern and changes no forward value.  :func:`mlstm_chunkwise` is
-the exact chunkwise-parallel form of the mLSTM, taken for prompts of whole
+``jax.checkpoint``) becomes a loop over time steps
+(:func:`_chunked_time_scan`), each whole chunk of ``xlstm_time_chunk``
+steps under ``torch.utils.checkpoint`` when autograd records the step; the
+checkpoint changes no forward value.  :func:`mlstm_chunkwise` is the exact
+chunkwise-parallel form of the mLSTM, taken for prompts of whole
 ``xlstm_time_chunk`` chunks when ``cfg.xlstm_chunkwise`` is set.
 
 The numerics follow JAX compiled as written: the q/k/v, sLSTM input and
@@ -20,6 +22,7 @@ starts at -1e30.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.attention import _proj
@@ -31,6 +34,35 @@ M_INIT = -1e30  # the stabiliser's start: below any log-gate
 def _log_sigmoid(f_pre):
     """``log sigmoid(f)`` as JAX writes it, ``-softplus(-f)``."""
     return -layers.softplus(-f_pre)
+
+
+def _chunked_time_scan(cell, state, s: int, chunk: int, *, remat: bool):
+    """``cell(state, t) -> (state, y_t)`` for t = 0 .. s - 1; returns (the
+    last state, the y_t stacked on axis 1).  With ``remat`` (the caller's
+    inputs carry an autograd graph) each whole chunk
+    of ``chunk`` steps runs under ``torch.utils.checkpoint``: the backward
+    keeps only the states at chunk boundaries and recomputes a chunk's
+    steps, instead of keeping S copies of the mLSTM's matrix memory (JAX's
+    sqrt remat, repro/models/xlstm.py:22); the steps past the last whole
+    chunk run plain, as in JAX."""
+    def run(st, lo, hi):
+        ys = []
+        for t in range(lo, hi):
+            st, y = cell(st, t)
+            ys.append(y)
+        return st, torch.stack(ys, 1)
+
+    if not remat:
+        return run(state, 0, s)
+    parts = []
+    for lo in range(0, s - s % chunk, chunk):
+        state, ys = torch.utils.checkpoint.checkpoint(run, state, lo, lo + chunk,
+                                                      use_reentrant=False)
+        parts.append(ys)
+    if s % chunk:
+        state, ys = run(state, s - s % chunk, s)
+        parts.append(ys)
+    return state, torch.cat(parts, 1)
 
 
 # ------------------------------------------------------------------ mLSTM
@@ -91,11 +123,10 @@ def _mlstm_inner(p, cfg, x, state):
     if cfg.xlstm_chunkwise and s % cfg.xlstm_time_chunk == 0:
         y, state = mlstm_chunkwise(q, k, v, i_pre, f_pre, state, chunk=cfg.xlstm_time_chunk)
         return y.reshape(b, s, d).to(x.dtype), state
-    ys = []
-    for t in range(s):
-        state, h_t = _mlstm_cell(state, (q[:, t], k[:, t], v[:, t], i_pre[:, t], f_pre[:, t]))
-        ys.append(h_t)
-    return torch.stack(ys, 1).reshape(b, s, d).to(x.dtype), state
+    state, ys = _chunked_time_scan(
+        lambda st, t: _mlstm_cell(st, (q[:, t], k[:, t], v[:, t], i_pre[:, t], f_pre[:, t])),
+        state, s, cfg.xlstm_time_chunk, remat=qkv.requires_grad)
+    return ys.reshape(b, s, d).to(x.dtype), state
 
 
 def mlstm_block(p, cfg, x, state=None):
@@ -212,11 +243,9 @@ def _slstm_inner(p, cfg, x, state):
     recurrence one step a token (the sLSTM has no parallel form)."""
     b, s, d = x.shape
     wx = _proj(x, p["wx"]).float()  # [B, S, 4, H, dh]
-    ys = []
-    for t in range(s):
-        state, h_t = _slstm_cell(p, state, wx[:, t])
-        ys.append(h_t)
-    return torch.stack(ys, 1).reshape(b, s, d).to(x.dtype), state
+    state, ys = _chunked_time_scan(lambda st, t: _slstm_cell(p, st, wx[:, t]), state, s,
+                                   cfg.xlstm_time_chunk, remat=wx.requires_grad)
+    return ys.reshape(b, s, d).to(x.dtype), state
 
 
 def slstm_block(p, cfg, x, state=None):

@@ -44,6 +44,17 @@ TOL = dict(rtol=2e-2, atol=3e-1)
 jit_as_written = functools.partial(jax.jit, compiler_options={"xla_allow_excess_precision": False})
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Smoke-size products run as fast on one thread; several test workers
+    on a shared machine would oversubscribe it.  Restored after the
+    module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def bits_of(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.view(torch.int16).numpy()

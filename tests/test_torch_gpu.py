@@ -39,7 +39,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import smoke_config
+from repro_torch.configs import ShapeSpec, smoke_config
 from repro_torch.core import attention as catt
 from repro_torch.core import qcache
 from repro_torch.kernels import _build
@@ -49,7 +49,11 @@ from repro_torch.kernels.kv_quant import ops as kq_ops
 from repro_torch.kernels.paged_bitdecode import ops as pg_ops
 from repro_torch.kernels.residual_flush import ops as rf_ops
 from repro_torch.models.zoo import build_model
+from repro_torch.data.pipeline import make_batch
+from repro_torch.optim import get_optimizer
 from repro_torch.serve import Request, ServeEngine
+from repro_torch.train import tree as tr
+from repro_torch.train.step import TrainState, make_train_step, value_and_grad
 
 pytestmark = pytest.mark.gpu
 
@@ -669,6 +673,82 @@ def test_blockwise_attention_takes_the_kernel_on_the_card(cuda):
     torch.testing.assert_close(out_k.float(), out_r, rtol=3e-2, atol=3e-2)
     with pytest.raises(ValueError, match="S == T"):
         catt.blockwise_attention(q[:, :50], k, v)
+
+
+def test_flash_prefill_refuses_autograd(cuda):
+    """K6 has no backward: under autograd its route raises, naming the
+    plain one, and launches nothing; the plain loop gives every input a
+    gradient; without grad (or with no input requiring it) the kernel runs.
+    A training step on the card therefore never reaches K6."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (randn(gen, (1, 64, h, 64), cuda) for h in (4, 2, 2))
+    wq = q.clone().requires_grad_()
+    _build.launches.clear()
+    for impl in ("auto", "cuda"):
+        with pytest.raises(RuntimeError, match="impl='torch'"):
+            catt.blockwise_attention(wq, k, v, impl=impl)
+    assert _build.launches.get("flash_prefill", 0) == 0
+    out = catt.blockwise_attention(wq, k, v, impl="torch", block_k=32)
+    out.sum().backward()
+    assert wq.grad is not None and torch.isfinite(wq.grad).all() and wq.grad.abs().sum() > 0
+    with torch.no_grad():
+        catt.blockwise_attention(wq, k, v)
+    catt.blockwise_attention(q, k, v)
+    assert _build.launches["flash_prefill"] == 2
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-v3-671b", "zamba2-7b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """The smoke model's loss and gradients on the card within the CPU
+    tests' bounds against JAX (2e-3 relative, 3e-2 relative L2 a leaf) of
+    the same code on the CPU, the parameters drawn once on the CPU.  One
+    leaf alone may pass 3e-2: zamba2's tail dt_bias, whose 64 terms nearly
+    cancel, held to its largest rounding witness (how far it moves, on the
+    card and on the CPU, with one bf16 ulp added to every 101st or every
+    13th parameter; ROADMAP C, scripts/train_grad_spread.py).  Then one
+    train step with the config's optimizer and microbatches; no kernel of
+    K1-K6 launched."""
+    def rel(a, b):
+        return ((a.float().cpu() - b.float().cpu()).norm()
+                / b.float().cpu().norm().clamp_min(1e-30)).item()
+
+    def nudged(t, every):
+        if t.dtype != torch.bfloat16:
+            return t.clone()
+        words = t.clone().view(torch.int16).reshape(-1)
+        words[::every] += 1
+        return words.view(torch.bfloat16).reshape(t.shape)
+
+    cfg = smoke_config(arch)
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    batch = make_batch(cfg, ShapeSpec("t", 32, 2, "train"), step=3, device="cpu")
+    loss_c, g_c = value_and_grad(model.loss, cpu, batch)
+    params = tr.map_leaves(lambda t: t.to(cuda), cpu)
+    _build.launches.clear()
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    loss_g, g_g = value_and_grad(model.loss, params, on_card)
+    assert abs(loss_g.item() - loss_c.item()) <= 2e-3 * abs(loss_c.item())
+    names = [".".join(map(str, path)) for path, _ in tr.leaves_with_paths(cpu)]
+    named = "tail.mixer.dt_bias" if arch == "zamba2-7b" else None
+    for name, a, b in zip(names, g_g, g_c):
+        assert a.is_cuda
+        gap = rel(a, b)
+        if name != named:
+            assert gap <= 3e-2, (name, gap)
+            continue
+        i = names.index(named)
+        witness = max(rel(value_and_grad(model.loss, tr.map_leaves(
+            lambda t: nudged(t, every), ps), bt)[1][i], ref)
+            for every in (101, 13)
+            for ps, bt, ref in ((params, on_card, a), (cpu, batch, b)))
+        assert gap <= 3e-2 or gap <= witness, (name, gap, witness)
+    opt = get_optimizer(cfg.optimizer)
+    state, m = make_train_step(model, opt, microbatches=cfg.microbatches)(
+        TrainState(params, opt.init(params), 0),
+        make_batch(cfg, ShapeSpec("t", 32, 8, "train"), device=cuda))
+    assert state.step == 1 and torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    assert not any(_build.launches.values()), dict(_build.launches)
 
 
 # (B, Hq, Hkv, S, T, d): full attention with a key length of its own

@@ -103,7 +103,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 10
     port = REPO / "src" / "repro_torch"
     for module in ("dist/__init__.py", "dist/splitkv.py", "dist/state_specs.py",
-                   "launch/mesh.py"):  # the distributed layer is held to it too
+                   "launch/mesh.py",  # the distributed layer is held to it too
+                   "train/__init__.py", "train/step.py", "train/tree.py",  # and training
+                   "optim/__init__.py", "optim/adamw.py", "optim/adafactor.py",
+                   "data/__init__.py", "data/pipeline.py", "checkpoint/__init__.py",
+                   "checkpoint/manager.py", "launch/train.py"):
         assert port / module in files, module
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())

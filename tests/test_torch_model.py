@@ -22,6 +22,17 @@ MAX_SEQ, PROMPT, STEPS = 256, 48, 20
 TOL = dict(rtol=2e-2, atol=3e-1)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Smoke-size products run as fast on one thread; several test workers
+    on a shared machine would oversubscribe it.  Restored after the
+    module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("arch,ragged", [("llama3-8b", False), ("llama3-8b", True),
                                          ("llama2-7b", False)])
 def test_prefill_and_decode_match_jax(arch, ragged):

@@ -38,6 +38,17 @@ PAGED_FIELDS = ("kw", "k_scale", "k_zero", "vw", "v_scale", "v_zero", "k_res", "
                 "page_table", "pack_blocks", "res_len")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Smoke-size products run as fast on one thread; several test workers
+    on a shared machine would oversubscribe it.  Restored after the
+    module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def bits_of(t: torch.Tensor) -> np.ndarray:
     t = t.cpu()
     return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()

@@ -89,9 +89,13 @@ def from_jax(x) -> torch.Tensor:
 
 
 def to_jax(t: torch.Tensor):
+    """A JAX array of a copy of ``t``: ``jnp.asarray`` of a numpy view can
+    alias the tensor on the CPU, and JAX dispatches asynchronously, so a
+    port pass writing the tensor in place afterwards could change what the
+    pending JAX computation reads."""
     a = t.numpy() if t.dtype != torch.bfloat16 else (
         t.view(torch.int16).numpy().view(ml_dtypes.bfloat16))
-    return jnp.asarray(a)
+    return jnp.asarray(np.array(a))
 
 
 def bf16(a):

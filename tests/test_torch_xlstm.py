@@ -313,8 +313,10 @@ def test_xlstm_matches_jax(jax_model, init, chunkwise):
 
 def test_xlstm_refuses_lengths_prior_and_training():
     """The prefill takes no ``lengths``, ``prior`` or ``prior_len`` (the
-    states would absorb right-padding); ``loss`` waits for the training
-    port (ROADMAP A12); a depth the super-block does not divide raises."""
+    states would absorb right-padding); ``loss``, ported with training
+    (ROADMAP A12.1; against JAX's in test_torch_train_grads.py), no longer
+    raises: it trains on the batch's labels; a depth the super-block does
+    not divide raises."""
     tm = build_model(smoke_config(ARCH))
     params = tm.init(torch.Generator().manual_seed(0), "cpu")
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
@@ -322,8 +324,9 @@ def test_xlstm_refuses_lengths_prior_and_training():
                dict(prior_len=torch.tensor([0]))):
         with pytest.raises(ValueError, match="exact length"):
             tm.prefill(params, batch, 64, **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tm.loss(params, batch)
+    loss = tm.loss(params, {**batch, "labels": torch.ones((1, 4), dtype=torch.long),
+                            "loss_mask": torch.ones((1, 4))})
+    assert loss.dim() == 0 and torch.isfinite(loss)
     with pytest.raises(ValueError, match="super-block"):
         build_model(smoke_config(ARCH).with_(n_layers=5))
 
